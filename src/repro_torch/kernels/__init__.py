@@ -1,0 +1,23 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+* `bank_timing.frfcfs_select` — FR-FCFS eligibility + select, the body
+  of every weave step (``csrc/bank_timing.cu``).
+* `addr_decode.decode_packed` — Skylake XOR address decode of every
+  injected request on the DDR4 geometry (``csrc/addr_decode.cu``).
+
+Both build on first use (`_build`) and count their launches.
+"""
+from repro_torch.kernels.addr_decode import decode_packed
+from repro_torch.kernels.bank_timing import frfcfs_select
+
+WRAPPERS = {"frfcfs_select": frfcfs_select, "decode_packed": decode_packed}
+
+
+def launch_counts() -> dict:
+    """Kernel launches per wrapper since the last `reset_launch_counts`."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,49 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package, and the port runs with
+``jax`` blocked."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_sources_import_neither_jax_nor_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_runs_with_jax_blocked():
+    code = """
+import sys
+sys.modules["jax"] = None            # any `import jax` now fails
+import torch
+from repro_torch.core import get_stage, run_point
+out = run_point(get_stage("07-prefetch", windows=1, warmup=0), [2, 8], 16,
+                device="cpu")
+assert int(out["n_rd"].sum()) > 0
+leaked = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
