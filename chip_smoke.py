@@ -10,20 +10,33 @@ Phases, each printing one JSON line:
 1. **build** — nvcc builds the kernels' shared library from
    ``src/repro_torch/csrc`` (or finds a fresh build).
 2. **kernels** — each CUDA kernel against its plain PyTorch version on
-   the card, bit for bit, over the main path's shapes; then both timed
-   at the main path's batch.
+   the card: the Mess kernels bit for bit over the main path's shapes,
+   then both timed at the main path's batch; ``flash_attention`` at the
+   shapes of ``tests/test_kernels.py`` (fp32 within 2e-6, bf16 within
+   2e-2), at a causal shape with Sq > Sk (rows that see no key must be
+   exactly 0) and at the LM path's shape, where it is timed beside
+   ``scaled_dot_product_attention`` as a yardstick.
 3. **main_path** — the repository's default benchmark run of the full
    paper stack: ``sweep(get_stage("07-prefetch", windows=48,
    warmup=16), paces=(1, 4, 12, 24, 48, 64), write_mixes=(0, 16, 32))``
    on ``ddr4_2666``, with every kernel's launch count read just after.
 4. **parity** — one stage-07 ``run_point`` on the card and on the CPU
    through the same port: equal integers, float views within 1e-6.
+5. **lm_path** — the dense LM serving path at the full width and depth
+   of tinyllama-1.1b (bf16, weights from a seed, flash kernel on): one
+   forward over 2 x 2048 tokens (22 flash launches), prefill of the
+   first 2047 tokens + one decode step agreeing with the forward's last
+   position, and the greedy Engine answering 8 requests on 4 slots.
+6. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
+   256 tokens, fp32, on the card (kernel) and on the CPU (plain
+   version), from the same weights, within 1e-4.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit as nvidia-smi reports them, and the result line.  Any
 failure raises: the script then exits non-zero and prints no result.
 Without a card, or without the repository beside it, it exits non-zero.
 """
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -37,9 +50,29 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (published peak)
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
 FAST_PACES = (1, 4, 12, 24, 48, 64)
 FAST_MIXES = (0, 16, 32)
 RTOL = 1e-6
+
+# flash_attention checks: (b, hq, hkv, sq, sk, d, causal)
+FLASH_SHAPES = [(2, 4, 4, 128, 128, 64, False), (2, 4, 2, 128, 128, 64, True),
+                (1, 8, 1, 200, 200, 64, True), (2, 4, 1, 64, 384, 128, True),
+                (1, 2, 2, 1, 300, 80, True), (1, 4, 2, 257, 512, 32, True)]
+FLASH_EMPTY_ROWS = (1, 4, 2, 96, 40, 64, True)    # 56 rows see no key
+FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+LM_ARCH, LM_B, LM_S = "tinyllama-1.1b", 2, 2048
+FLASH_SLICE = (LM_B, 32, 4, LM_S, LM_S, 64, True)   # tinyllama prefill
+# prefill + decode against the forward, both bf16 over 22 layers: the two
+# routes round activations to bf16 at different places (attention over
+# the cache vs the flash kernel, each layer), and the logits themselves
+# are bf16, whose ulp is 2^-6 at |x| in [2, 4).  Bound: |d| <= 1/16 +
+# 2e-2 |forward| per logit and a relative L2 error <= 2e-2.
+LM_ATOL, LM_RTOL = 0.0625, 2e-2
+# card vs CPU in fp32 (TF32 off): the products sum 2048-5632 terms in
+# another order than the CPU's BLAS (~1e-5 relative), over 2 layers and
+# the 32000-wide head; the kernel adds at most 2e-6.
+PARITY_TOL = 1e-4
 
 
 def emit(obj):
@@ -107,6 +140,212 @@ def chase_lines(rng, n, dev):
     return torch.from_numpy(lines.astype("int64")).to(dev)
 
 
+def flash_inputs(gen, shape, dtype, dev, model_layout=False):
+    """q, k, v of ``shape``; ``model_layout``: (B,H,S,D) views of
+    (B,S,H,D) tensors, as the model hands them to the kernel."""
+    b, hq, hkv, sq, sk, d, _ = shape
+
+    def draw(h, s):
+        if model_layout:
+            return torch.randn((b, s, h, d), generator=gen, device=dev,
+                               dtype=dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen, device=dev,
+                           dtype=dtype)
+
+    return draw(hq, sq), draw(hkv, sk), draw(hkv, sk)
+
+
+def check_flash(dev):
+    """flash_attention against its plain version on the card; then, at
+    the LM path's shape, its device time, eager call, plain version,
+    FLOP bound and the library's fused attention."""
+    from repro_torch.kernels.flash_attention import flash_attention, mha_plain
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(s, dt) for s in FLASH_SHAPES + [FLASH_EMPTY_ROWS]
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((FLASH_SLICE, torch.bfloat16))
+    checked, worst, failed = [], 0.0, []
+    for shape, dt in cases:
+        q, k, v = flash_inputs(gen, shape, dt, dev,
+                               model_layout=shape == FLASH_SLICE)
+        got = flash_attention(q, k, v, causal=shape[-1]).float()
+        want = mha_plain(q, k, v, causal=shape[-1]).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = FLASH_TOL[dt]
+        ok = bool(torch.allclose(got, want, atol=tol, rtol=tol))
+        empty = max(shape[3] - shape[4], 0) if shape[-1] else 0
+        if empty:
+            ok &= not bool(got[:, :, :empty].any())
+        checked.append({"shape": list(shape), "dtype": str(dt)[6:],
+                        "max_abs_err": err, "tol": tol, "ok": ok,
+                        "empty_rows": empty})
+        worst = max(worst, err)
+        if not ok:
+            failed.append(checked[-1])
+
+    b, hq, _, s, _, d, _ = FLASH_SLICE
+    q, k, v = flash_inputs(gen, FLASH_SLICE, torch.bfloat16, dev, True)
+    qc, kc, vc = (x.contiguous() for x in (q, k, v))
+    flops = 4 * b * hq * s * s * d / 2      # QK^T and PV, causal half
+    io_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timing = dict(
+        ms=device_ms(lambda: flash_attention(q, k, v, causal=True), 20),
+        call_ms=time_ms(lambda: flash_attention(q, k, v, causal=True), 20),
+        plain_ms=time_ms(lambda: mha_plain(q, k, v, causal=True), 3),
+        library_ms=device_ms(lambda: sdpa(qc, kc, vc, is_causal=True,
+                                          enable_gqa=True), 20),
+        flops=flops, bound_formula="4*B*Hq*S^2*D/2 FLOP / 989e12 FLOP/s",
+        bound_ms=flops / BF16_FLOP_PER_S * 1e3,
+        bytes_bound_ms=io_bytes / MEM_BYTES_PER_S * 1e3,
+        shape="B=2 Hq=32 Hkv=4 S=2048 D=64 bf16 causal")
+    emit({"phase": "kernels", "kernel": "flash_attention",
+          "checked": checked, "max_abs_err": worst, "timing": timing})
+    if failed:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version: {failed}")
+    return worst, timing
+
+
+def lm_path(dev):
+    """The dense serving path of tinyllama-1.1b at full width and depth."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import count_params, get_model
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serve.engine import Engine, Request
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), use_flash_kernel=True)
+    api = get_model(cfg)
+    params = api.init(0)                      # on the card
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (LM_B, LM_S))).to(dev)
+    out = {"phase": "lm_path", "arch": cfg.name, "dtype": "bfloat16",
+           "n_layers": cfg.n_layers, "params": count_params(params),
+           "batch": LM_B, "seq": LM_S}
+    with torch.inference_mode():
+        api.forward(params, {"tokens": toks})      # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # (a) one forward over B x S tokens
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        full = api.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        out["forward"] = {"wall_s": wall, "tokens_per_s": LM_B * LM_S / wall,
+                          "launches": launches,
+                          "peak_mem_gb": torch.cuda.max_memory_allocated()
+                          / 1e9}
+        if launches["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"forward launched flash_attention "
+                                 f"{launches['flash_attention']} times, "
+                                 f"not {cfg.n_layers}")
+        if full.shape != (LM_B, LM_S, cfg.vocab) or not bool(
+                full.isfinite().all()):
+            raise AssertionError(f"forward logits: shape {full.shape}, "
+                                 f"finite {bool(full.isfinite().all())}")
+
+        # (b) prefill S-1 tokens, decode the last, against (a)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, cache = prefill(cfg, params, toks[:, :-1], LM_S + 16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec, cache = api.decode(params, cache, toks[:, -1])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ref = full[:, -1].float()
+        diff = (dec.float() - ref).abs()
+        rel_l2 = float((dec.float() - ref).norm() / ref.norm())
+        within = bool((diff <= LM_ATOL + LM_RTOL * ref.abs()).all())
+        launches_b = kernels.launch_counts()
+        # a second step, past the first call's one-time costs
+        nxt = dec.argmax(-1)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        api.decode(params, cache, nxt)
+        torch.cuda.synchronize()
+        out["prefill_decode"] = {
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "second_decode_s": time.perf_counter() - t3,
+            "launches": launches_b,
+            "max_abs_diff": float(diff.max()), "rel_l2": rel_l2,
+            "max_abs_logit": float(ref.abs().max()),
+            "atol": LM_ATOL, "rtol": LM_RTOL,
+            "argmax_equal": (dec.argmax(-1) == full[:, -1].argmax(-1))
+            .tolist()}
+        del full, cache
+
+    # (c) the Engine: 8 requests on 4 slots
+    kernels.reset_launch_counts()
+    eng = Engine(api, params, n_slots=4, max_seq=256)
+    req_rng = np.random.default_rng(1)
+    for i in range(8):
+        prompt = req_rng.integers(1, cfg.vocab, int(req_rng.integers(4, 17)))
+        eng.submit(Request(rid=i, prompt=[int(t) for t in prompt],
+                           max_new=16))
+    done, ticks = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.pool.pending():
+        done += eng.tick()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in done)
+    out["engine"] = {"slots": 4, "max_seq": 256, "requests": 8,
+                     "completed": len(done), "ticks": ticks,
+                     "tokens": n_tok, "wall_s": wall,
+                     "tokens_per_s": n_tok / wall,
+                     "ms_per_tick": wall / ticks * 1e3,
+                     "launches": kernels.launch_counts()}
+    emit(out)
+    if not (within and rel_l2 <= LM_RTOL):
+        raise AssertionError(f"prefill + decode differ from the forward: "
+                             f"{out['prefill_decode']}")
+    if len(done) != 8 or any(len(r.out) != 16 for r in done):
+        raise AssertionError(f"engine completed {len(done)} of 8 requests")
+    return launches["flash_attention"]
+
+
+def lm_parity(dev):
+    """The forward at tinyllama widths, 2 layers, fp32: card vs CPU."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import get_model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              dtype=torch.float32, use_flash_kernel=True)
+    api = get_model(cfg)
+    on_cpu = api.init(0, device="cpu")
+
+    def to(tree, where):
+        return {k: to(v, where) if isinstance(v, dict) else v.to(where)
+                for k, v in tree.items()}
+
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 256)))
+    with torch.inference_mode():
+        want = api.forward(on_cpu, {"tokens": toks})
+        kernels.reset_launch_counts()
+        got = api.forward(to(on_cpu, dev), {"tokens": toks.to(dev)}).cpu()
+    launches = kernels.launch_counts()["flash_attention"]
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, atol=PARITY_TOL, rtol=PARITY_TOL))
+    emit({"phase": "lm_parity", "arch": cfg.name, "n_layers": 2, "seq": 256,
+          "dtype": "float32", "flash_launches_on_card": launches,
+          "max_abs_err": err, "max_abs_logit": float(want.abs().max()),
+          "tol": PARITY_TOL, "ok": ok})
+    if not ok or launches != 2:
+        raise AssertionError(f"card forward differs from the CPU's by {err}"
+                             f" (flash launches {launches})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -122,6 +361,9 @@ def main():
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    # plain versions compare in full fp32: no TF32 in products or convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. build ------------------------------------------------------
     lib = _build.build()
@@ -197,6 +439,7 @@ def main():
     if any(mismatches.values()):
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{mismatches}")
+    max_err["flash_attention"], timing["flash_attention"] = check_flash(dev)
 
     # ---- 3. the main path -----------------------------------------------
     kernels.reset_launch_counts()
@@ -220,8 +463,8 @@ def main():
           "views": {f: getattr(res, f).tolist() for f in (
               "sim_bw", "sim_lat", "if_bw", "if_lat", "app_bw", "app_lat",
               "chase_lat")}})
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("frfcfs_select", "decode_packed"):
+        if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     peak = cfg.platform.dram.peak_gbs
     for f in ("sim_bw", "sim_lat", "if_bw", "if_lat", "app_bw", "app_lat",
@@ -253,20 +496,32 @@ def main():
     if not worst <= RTOL:
         raise AssertionError(f"float views differ by {worst} > {RTOL}")
 
+    # ---- 5-6. the dense LM serving path, and its card-vs-CPU parity ------
+    launches["flash_attention"] = lm_path(dev)
+    lm_parity(dev)
+
     # ---- the kernel table, the card, the result ---------------------------
+    # launches: frfcfs_select / decode_packed from the main path's sweep,
+    # flash_attention from the LM path's forward
     sources = {"frfcfs_select": ("src/repro_torch/csrc/bank_timing.cu",
                                  "src/repro/kernels/bank_timing/kernel.py:97"),
                "decode_packed": ("src/repro_torch/csrc/addr_decode.cu",
-                                 "src/repro/kernels/addr_decode/kernel.py:57")}
+                                 "src/repro/kernels/addr_decode/kernel.py:57"),
+               "flash_attention": (
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:89")}
     table = []
     for name, (src, replaces) in sources.items():
         t = timing[name]
+        by_flops = "flops" in t
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
                       "max_abs_err": max_err[name], "ms": t["ms"],
                       "plain_ms": t["plain_ms"], "call_ms": t["call_ms"],
-                      "bound_ms": t["bytes"] / MEM_BYTES_PER_S * 1e3,
-                      "bound_by": "bytes", "library_ms": None,
+                      "bound_ms": t["bound_ms"] if by_flops
+                      else t["bytes"] / MEM_BYTES_PER_S * 1e3,
+                      "bound_by": "operations" if by_flops else "bytes",
+                      "library_ms": t.get("library_ms"),
                       "shape": t["shape"]})
     emit({"kernels": table})
     smi = subprocess.run(

@@ -4,13 +4,17 @@
   of every weave step (``csrc/bank_timing.cu``).
 * `addr_decode.decode_packed` — Skylake XOR address decode of every
   injected request on the DDR4 geometry (``csrc/addr_decode.cu``).
+* `flash_attention.flash_attention` — block-wise online-softmax GQA
+  attention of the LM prefill forward (``csrc/flash_attention.cu``).
 
-Both build on first use (`_build`) and count their launches.
+All build on first use (`_build`) and count their launches.
 """
 from repro_torch.kernels.addr_decode import decode_packed
 from repro_torch.kernels.bank_timing import frfcfs_select
+from repro_torch.kernels.flash_attention import flash_attention
 
-WRAPPERS = {"frfcfs_select": frfcfs_select, "decode_packed": decode_packed}
+WRAPPERS = {"frfcfs_select": frfcfs_select, "decode_packed": decode_packed,
+            "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,82 @@
+"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.  ``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import default_scale, mha_plain
+
+#: the kernel takes head dims that are multiples of 16 up to this
+MAX_HEAD_DIM = 128
+
+# q, k, v, o pointers; 3 strides (b, h, s) for each of q, k, v, o;
+# b, hq, hkv, sq, sk, d, is_bf16, causal; scale; stream
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 12
+             + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(name, x, device, dtype, ndim=4):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.dim() != ndim:
+        raise ValueError(f"{name} must be 4-d (B, H, S, D), got "
+                         f"{tuple(x.shape)}")
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous along D "
+                         f"(strides {x.stride()})")
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    scale: float | None = None):
+    """GQA flash attention.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hq % Hkv == 0; fp32 or
+    bf16, any strides with D innermost (the model's transposed views are
+    read in place).  Returns (B, Hq, Sq, D) in q.dtype; on the card it
+    is a view of a (B, Sq, Hq, D) buffer, the layout the model reads.
+    """
+    if q.device.type == "cpu":
+        return mha_plain(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, "
+                         f"not {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check(name, x, q.device, q.dtype)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if d % 16 or not 16 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} unsupported: the kernel takes "
+                         f"multiples of 16 up to {MAX_HEAD_DIM}")
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    fn = _build.function("flash_attention_launch", _ARGTYPES)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             *strides, b, hq, hkv, sq, sk, d, _DTYPES[q.dtype], int(causal),
+             default_scale(d) if scale is None else float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

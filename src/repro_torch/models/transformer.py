@@ -1,0 +1,160 @@
+"""Decoder-only GQA transformer (tinyllama / minitron / qwen2 / deepseek).
+
+Layers are stacked along a leading L axis, as in the reference, and a
+Python loop over that axis takes the place of ``lax.scan``.  The KV
+cache keeps the reference's layout ``k, v: (L, B, T, Hkv, D)`` plus
+``length: (B,)`` int32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import common as cm
+from repro_torch.models.common import ModelConfig
+
+
+def _layer(layers: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked param tree (views, no copy)."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in layers.items()}
+
+
+# ---------------------------------------------------------------------------
+# params
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator):
+    """Random weights with the reference's shapes and scales, drawn from
+    ``gen`` on its device (not the reference's bits: parity tests carry
+    the reference's weights across with `registry.params_from_numpy`)."""
+    scale = 0.02 / (2 * cfg.n_layers) ** 0.5
+    lead = (cfg.n_layers,)
+    ones = torch.ones(lead + (cfg.d_model,), dtype=torch.float32,
+                      device=gen.device)
+    return dict(
+        embed=cm.init_embedding(cfg, gen),
+        layers=dict(norm1=ones, attn=cm.init_attn(cfg, gen, scale, lead),
+                    norm2=ones.clone(), mlp=cm.init_mlp(cfg, gen, scale, lead)),
+    )
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+
+
+def block_fwd(cfg: ModelConfig, p, x, positions):
+    h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
+    x = x + cm.self_attention(cfg, p["attn"], h, positions)
+    h = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return x + cm.mlp(cfg, p["mlp"], h)
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """tokens (B, S) -> logits (B, S, V).
+
+    The layer weights are cast to the compute dtype before the layer
+    loop, norm weights included, as the reference does.
+    """
+    x = cm.embed(cfg, params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    layers = cm.cast_params(cfg, params["layers"])
+    for i in range(cfg.n_layers):
+        x = block_fwd(cfg, _layer(layers, i), x, positions)
+    return cm.logits(cfg, params["embed"], x)
+
+
+# ---------------------------------------------------------------------------
+# KV cache serving
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+               device=None):
+    dt = dtype or cfg.dtype
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return dict(k=torch.zeros(shape, dtype=dt, device=device),
+                v=torch.zeros(shape, dtype=dt, device=device),
+                length=torch.zeros((batch,), dtype=torch.int32,
+                                   device=device))
+
+
+def attention_over_cache(cfg: ModelConfig, q, ck, cv, lengths):
+    """Decode attention: q (B,Sq,Hq,D) over cache (B,T,Hkv,D).
+
+    Grouped GQA (no repeated KV), fp32 softmax over the first
+    ``lengths[b]`` cache rows of each sequence.
+    """
+    b, sq, hq, d = q.shape
+    t, hkv = ck.shape[1], ck.shape[2]
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    scale = 1.0 / (d ** 0.5)
+    s = torch.einsum("bqhgd,bthd->bqhgt", qg.float(), ck.float()) * scale
+    if cfg.attn_logit_softcap > 0.0:
+        s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    valid = (torch.arange(t, device=q.device)[None, :]
+             < lengths[:, None])[:, None, None, None, :]
+    s = torch.where(valid, s, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bqhgt,bthd->bqhgd", p, cv.float())
+    o = o / p.sum(-1)[..., None]
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def write_at(cache, new, lengths):
+    """Write ``new`` (B,1,Hkv,D) into ``cache`` (B,T,Hkv,D) in place at
+    row ``lengths[b]`` of each sequence.  Like the reference's
+    ``dynamic_update_slice``, the row is clamped to ``[0, T-1]``: a full
+    sequence overwrites its last row instead of raising."""
+    rows = lengths.long().clamp(0, cache.shape[1] - 1)
+    cache[torch.arange(cache.shape[0], device=cache.device), rows] = (
+        new[:, 0].to(cache.dtype))
+
+
+def decode_block(cfg: ModelConfig, p, kv, x, lengths):
+    """One block, one new token.  x (B,1,d); kv dict of (B,T,Hkv,D)
+    views, updated in place."""
+    h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
+    q, k_new, v_new = cm.attn_qkv(cfg, p["attn"], h, lengths[:, None])
+    write_at(kv["k"], k_new, lengths)
+    write_at(kv["v"], v_new, lengths)
+    o = attention_over_cache(cfg, q, kv["k"], kv["v"], lengths + 1)
+    x = x + cm.attn_out(cfg, p["attn"], o)
+    h = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
+    return kv, x + cm.mlp(cfg, p["mlp"], h)
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens):
+    """One decode step.  tokens (B,) -> (logits (B,V), cache').
+
+    The cache's K/V tensors are updated in place and returned in the new
+    cache dict together with ``length + 1``.
+    """
+    x = cm.embed(cfg, params["embed"], tokens[:, None])
+    lengths = cache["length"]
+    for i in range(cfg.n_layers):
+        kv = dict(k=cache["k"][i], v=cache["v"][i])
+        _, x = decode_block(cfg, _layer(params["layers"], i), kv, x,
+                            lengths)
+    out = cm.logits(cfg, params["embed"], x)[:, 0]
+    return out, dict(k=cache["k"], v=cache["v"], length=lengths + 1)
+
+
+def prefill(cfg: ModelConfig, params, tokens, max_seq: int | None = None):
+    """Prefill: forward + populate a KV cache.  tokens (B, S)."""
+    b, s = tokens.shape
+    t = max_seq or s
+    x = cm.embed(cfg, params["embed"], tokens)
+    positions = torch.arange(s, device=x.device)[None, :]
+    cache = init_cache(cfg, b, t, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        q, k, v = cm.attn_qkv(cfg, lp["attn"], h, positions)
+        o = cm.attention(cfg, q, k, v, causal=True)
+        x = x + cm.attn_out(cfg, lp["attn"], o)
+        h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        x = x + cm.mlp(cfg, lp["mlp"], h)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    cache["length"].fill_(s)
+    return cm.logits(cfg, params["embed"], x), cache

@@ -38,6 +38,13 @@ from repro_torch.core import get_stage, run_point
 out = run_point(get_stage("07-prefetch", windows=1, warmup=0), [2, 8], 16,
                 device="cpu")
 assert int(out["n_rd"].sum()) > 0
+from repro_torch.configs.registry import get_smoke
+from repro_torch.models.registry import get_model
+cfg = get_smoke("tinyllama-1.1b")
+api = get_model(cfg)
+logits = api.forward(api.init(0, device="cpu"),
+                     {"tokens": torch.zeros((1, 5), dtype=torch.long)})
+assert logits.shape == (1, 5, cfg.vocab) and bool(logits.isfinite().all())
 leaked = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not leaked, leaked
 print("ok")
