@@ -31,9 +31,9 @@
 // diagonal are skipped (they add exactly 0), and the blocks of the last
 // query tiles, which see the most keys, are scheduled first.  CUDA cores
 // peak at 67 TFLOP/s in fp32, so even a perfect version of this design
-// stays >14x above the bound; reaching it needs `wgmma` on bf16 tiles
-// fed by TMA loads into a ring of shared-memory stages, with the
-// softmax overlapped with the next tile's products (a later kernel).
+// stays >14x above the bf16 bound.  bf16 inputs at head dim 64 or 128
+// therefore take flash_attention_sm90.cu (wgmma on bf16 tiles fed by
+// TMA); this kernel is the exact route for fp32 and the other head dims.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -5,9 +5,12 @@
 * `addr_decode.decode_packed` — Skylake XOR address decode of every
   injected request on the DDR4 geometry (``csrc/addr_decode.cu``).
 * `flash_attention.flash_attention` — block-wise online-softmax GQA
-  attention of the LM prefill forward (``csrc/flash_attention.cu``).
+  attention of the LM prefill forward: bf16 at head dim 64 or 128 on
+  the tensor cores (``csrc/flash_attention_sm90.cu``), everything else
+  on the CUDA cores (``csrc/flash_attention.cu``).
 
-All build on first use (`_build`) and count their launches.
+All build on first use (`_build`) and count their launches (and
+`flash_attention` its launches per route).
 """
 from repro_torch.kernels.addr_decode import decode_packed
 from repro_torch.kernels.bank_timing import frfcfs_select
@@ -25,3 +28,5 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)

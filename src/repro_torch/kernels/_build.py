@@ -70,7 +70,9 @@ def build() -> pathlib.Path:
     """Compile and link the library unless a fresh build exists."""
     out = library_path()
     if out.exists():
-        build_info.update(path=str(out), seconds=0.0, built=False, log="")
+        if build_info.get("path") != str(out):   # keep this process's build
+            build_info.update(path=str(out), seconds=0.0, built=False,
+                              log="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cc = nvcc()
