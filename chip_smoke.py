@@ -8,27 +8,46 @@ Run from a checkout of the repository, on a machine with a CUDA card::
 Phases, each printing one JSON line:
 
 1. **build** — nvcc builds the kernels' shared library from
-   ``src/repro_torch/csrc`` (or finds a fresh build); the Hopper flash
-   kernel's ptxas report (registers, spills) and shared memory.
-2. **kernels** — each CUDA kernel against its plain PyTorch version on
-   the card: the Mess kernels bit for bit over the main path's shapes,
-   then both timed at the main path's batch; ``flash_attention`` at the
-   shapes of ``tests/test_kernels.py`` plus a decode (Sq = 1) and a
-   ragged query tile at D = 128 and 64, in fp32 (within 2e-6) and bf16
-   (within 2e-2), each check on the route that ``route`` gives it
-   (bf16 at D 64 or 128: the Hopper kernel; the rest: the CUDA-core
-   kernel), at a causal shape with Sq > Sk (rows that see no key must be
-   exactly 0) and at the LM path's shape, where both routes are timed
-   beside ``scaled_dot_product_attention`` as a yardstick (the Hopper
-   route in bf16, the CUDA-core route in fp32 and on the same bf16
-   inputs).
-3. **main_path** — the repository's default benchmark run of the full
+   ``src/repro_torch/csrc`` (or finds a fresh build); the ptxas report
+   (registers, spills) of the Hopper flash kernel and of the weave
+   kernel, and the flash kernel's shared memory.
+2. **kernels** — each per-call CUDA kernel against its plain PyTorch
+   version on the card: ``frfcfs_select`` and ``decode_packed`` bit for
+   bit over the main path's shapes, then both timed at the main path's
+   batch; ``flash_attention`` at the shapes of ``tests/test_kernels.py``
+   plus a decode (Sq = 1) and a ragged query tile at D = 128 and 64, in
+   fp32 (within 2e-6) and bf16 (within 2e-2), each check on the route
+   that ``route`` gives it (bf16 at D 64 or 128: the Hopper kernel; the
+   rest: the CUDA-core kernel), at a causal shape with Sq > Sk (rows that
+   see no key must be exactly 0) and at the LM path's shape, where both
+   routes are timed beside ``scaled_dot_product_attention`` as a
+   yardstick (the Hopper route in bf16, the CUDA-core route in fp32 and
+   on the same bf16 inputs).
+3. **weave** — the two weave routes on the card, window by window on
+   the same injected state (3 windows, paces 4 and 48): ``weave_window``
+   (one launch per window) against the stepwise loop (``dram.tick`` /
+   ``next_event`` with one ``frfcfs_select`` launch per step), bit for
+   bit in every state field, stat, event count and saturation flag, on
+   ddr4_2666 (1 and 2 sockets), ddr5_4800 (REFsb, the row-hit-capped
+   ``ramulator2`` flavor) and hbm2e (the stage-10 delay buffer), each
+   dense and event; then the card's fused route against the CPU's
+   stepwise route on one case.  The launch counts of this phase give
+   ``frfcfs_select``'s row.
+4. **main_path** — the repository's default benchmark run of the full
    paper stack: ``sweep(get_stage("07-prefetch", windows=48,
    warmup=16), paces=(1, 4, 12, 24, 48, 64), write_mixes=(0, 16, 32))``
-   on ``ddr4_2666``, with every kernel's launch count read just after.
-4. **parity** — one stage-07 ``run_point`` on the card and on the CPU
-   through the same port: equal integers, float views within 1e-6.
-5. **lm_path** — the dense LM serving path at the full width and depth
+   on ``ddr4_2666``, with every kernel's launch count and the weave
+   steps read just after: ``weave_window`` x 96 (48 windows x two engine
+   batches), 40,032 steps, ``frfcfs_select`` x 0.  Then the same sweep
+   under ``torch.profiler`` (a ``profile`` line: the weave kernel's
+   device time, the device's idle share) and ``weave_window`` timed at
+   the sweep's two batches beside the stepwise route on the same state
+   (``weave_timing``), and a ``main_path_weave`` line: the sweep's wall,
+   the weave phase's device time, µs per step.
+5. **parity** — one stage-07 ``run_point`` on the card (the fused
+   route) and on the CPU (the stepwise route) through the same port:
+   equal integers, float views within 1e-6.
+6. **lm_path** — the dense LM serving path at the full width and depth
    of tinyllama-1.1b (bf16, weights from a seed, flash kernel on): five
    forwards over 2 x 2048 tokens (each 22 launches of the Hopper route,
    none of the CUDA-core one; the median wall gives tokens/s), one more
@@ -37,7 +56,7 @@ Phases, each printing one JSON line:
    line), prefill of the first 2047 tokens (22 Hopper launches) + one
    decode step agreeing with the forward's last position, and the
    greedy Engine answering 8 requests on 4 slots.
-6. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
+7. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
    256 tokens, fp32 (the CUDA-core route), on the card and on the CPU
    (plain version), from the same weights, within 1e-4.
 
@@ -87,6 +106,22 @@ LM_ATOL, LM_RTOL = 0.0625, 2e-2
 # another order than the CPU's BLAS (~1e-5 relative), over 2 layers and
 # the 32000-wide head; the kernel adds at most 2e-6.
 PARITY_TOL = 1e-4
+
+
+# weave phase: (stage, preset, sockets, engine), each WEAVE_WINDOWS
+# windows of two points through the fused and the stepwise route
+WEAVE_CASES = [("07-prefetch", "ddr4_2666", 1, "dense"),
+               ("07-prefetch", "ddr4_2666", 1, "event"),
+               ("07-prefetch", "ddr4_2666", 2, "dense"),
+               ("07-prefetch", "ddr4_2666", 2, "event"),
+               ("09-ramulator2", "ddr5_4800", 1, "dense"),
+               ("09-ramulator2", "ddr5_4800", 1, "event"),
+               ("10-delay-buffer", "hbm2e", 1, "dense"),
+               ("10-delay-buffer", "hbm2e", 1, "event")]
+WEAVE_WINDOWS, WEAVE_PACES, WEAVE_WR = 3, (4, 48), 16
+WEAVE_CPU_CASE = ("07-prefetch", "ddr4_2666", 1, "event")
+MAIN_WEAVE_STEPS = 48 * (635 + 199)     # windows x (dense + event steps)
+MAIN_WEAVE_LAUNCHES = 96                # windows x engine batches
 
 
 def emit(obj):
@@ -287,17 +322,7 @@ def profile_forward(api, params, toks, forward_wall_s):
         out["note"] = "the profiler showed no device time on this machine"
         emit(out)
         return
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in dev_events)
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for a, z in spans[1:]:
-        if a > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = a, z
-        else:
-            cur_e = max(cur_e, z)
-    busy += cur_e - cur_s
-    window = max(z for _, z in spans) - spans[0][0]
+    busy, window = device_busy(dev_events)
     by_name, by_kind = {}, {}
     kinds = (("attention", ("flash",)),
              ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -330,6 +355,273 @@ def check_routes(what, routes, n_layers):
     if routes != {"sm90_bf16": n_layers, "cuda_core": 0}:
         raise AssertionError(f"{what} launched flash_attention {routes}, "
                              f"not sm90_bf16 x {n_layers} and cuda_core x 0")
+
+
+def max_diff(a, b):
+    """Largest absolute difference over two trees of tensors, and whether
+    they are bit-identical (floats compared by value, NaN-free)."""
+    if isinstance(a, torch.Tensor):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.bool:
+            a, b = a.int(), b.int()
+        diff = float((a.double() - b.double()).abs().max()) if a.numel() \
+            else 0.0
+        return diff, bool(torch.equal(a, b))
+    if isinstance(a, dict):
+        a, b = list(a.values()), [b[k] for k in a]
+    worst, same = 0.0, True
+    for x, y in zip(a, b):
+        d, e = max_diff(x, y)
+        worst, same = max(worst, d), same and e
+    return worst, same
+
+
+def weave_case(case, dev, windows=WEAVE_WINDOWS):
+    """The stage config, frontend and first carry of one weave case."""
+    from repro_torch.core import get_stage, platform, workload
+
+    stage, preset, sockets, engine = case
+    cfg = get_stage(stage, preset=preset, n_sockets=sockets, weave=engine,
+                    windows=windows, warmup=0)
+    paces = torch.tensor(WEAVE_PACES, dtype=torch.int32, device=dev)
+    frontend = workload.MessFrontend(
+        paces, torch.full_like(paces, WEAVE_WR), cfg.workload_config())
+    return cfg, frontend, platform._init_carry(cfg, frontend, len(paces),
+                                               dev)
+
+
+def weave_phase(dev):
+    """Both weave routes on the card, window by window on the same
+    injected state, over presets, engines, socket counts and backend
+    flavors: the fused kernel must equal the stepwise loop (the
+    `frfcfs_select` route) bit for bit in state, stats, event counts and
+    saturation flags; the window loop goes on through `_window_step` (the
+    card's route).  One case also against the CPU's stepwise route."""
+    from repro_torch import kernels
+    from repro_torch.core import platform
+
+    kernels.reset_launch_counts()
+    rows, failed, worst = [], [], 0.0
+    stepwise_s = fused_s = 0.0
+    with torch.inference_mode():
+        for case in WEAVE_CASES:
+            cfg, frontend, carry = weave_case(case, dev)
+            clock, wcfg = cfg.clock(), cfg.workload_config()
+            same_all, sat, served = True, 0, 0
+            for w in range(cfg.windows):
+                queue = platform._bound_inject(cfg, clock, wcfg, frontend,
+                                               carry, w)[0]
+                args = (cfg, clock, platform._tick_kw(cfg, clock, dev),
+                        queue, carry[1], w)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fused = platform._weave_fused(*args)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step = platform._weave_stepwise(*args)
+                torch.cuda.synchronize()
+                fused_s += t1 - t0
+                stepwise_s += time.perf_counter() - t1
+                diff, same = max_diff(fused, step)
+                worst = max(worst, diff)
+                same_all &= same
+                sat += int(fused[4].sum())
+                served += int(fused[2].served_rd.sum()
+                              + fused[2].served_wr.sum())
+                carry, _ = platform._window_step(cfg, clock, wcfg, frontend,
+                                                 carry, w)
+            rows.append({"case": list(case), "windows": cfg.windows,
+                         "q": carry[0].valid.shape[-1], "served": served,
+                         "bit_identical": same_all, "sat_windows": sat})
+            if not same_all or not served:
+                failed.append(case)
+        counts = kernels.launch_counts()
+
+        # the CPU's stepwise route on one case, from the same seeds
+        cfg, fe_card, carry_card = weave_case(WEAVE_CPU_CASE, dev)
+        _, fe_cpu, carry_cpu = weave_case(WEAVE_CPU_CASE, "cpu")
+        clock, wcfg = cfg.clock(), cfg.workload_config()
+        cpu_int_equal, cpu_rel = True, 0.0
+        for w in range(cfg.windows):
+            carry_card, (out_c, diag_c) = platform._window_step(
+                cfg, clock, wcfg, fe_card, carry_card, w)
+            carry_cpu, (out_p, diag_p) = platform._window_step(
+                cfg, clock, wcfg, fe_cpu, carry_cpu, w)
+            for got, ref in zip(list(carry_card[:2]) + list(out_c)
+                                + list(diag_c.values()),
+                                list(carry_cpu[:2]) + list(out_p)
+                                + list(diag_p.values())):
+                for g, r in (zip(got, ref) if isinstance(got, tuple)
+                             else [(got, ref)]):
+                    g = g.cpu()
+                    if g.is_floating_point():
+                        cpu_rel = max(cpu_rel, float(
+                            ((g - r).abs() / r.abs().clamp(min=1e-30))
+                            .max()))
+                    else:
+                        cpu_int_equal &= bool(torch.equal(g, r))
+    out = {"phase": "weave", "cases": rows, "windows": WEAVE_WINDOWS,
+           "paces": list(WEAVE_PACES), "wr_num": WEAVE_WR,
+           "max_abs_diff": worst, "launches": counts,
+           "fused_s": fused_s, "stepwise_s": stepwise_s,
+           "cpu_case": list(WEAVE_CPU_CASE),
+           "cpu_ints_equal": cpu_int_equal, "cpu_max_rel_err": cpu_rel}
+    emit(out)
+    n_windows = 2 * len(WEAVE_CASES) * WEAVE_WINDOWS  # compared + loop
+    if failed:
+        raise AssertionError(f"fused and stepwise weave differ: {failed}")
+    if counts["weave_window"] != n_windows or counts["frfcfs_select"] <= 0:
+        raise AssertionError(f"weave phase launches {counts}: expected "
+                             f"{n_windows} weave_window, frfcfs_select > 0")
+    if not cpu_int_equal or not cpu_rel <= RTOL:
+        raise AssertionError(f"card fused vs CPU stepwise: ints equal "
+                             f"{cpu_int_equal}, float rel {cpu_rel}")
+    return worst, counts["frfcfs_select"]
+
+
+def weave_batch(cfg, dev, engine, w):
+    """The main path's batch of one engine (its points, as the knee
+    routing gives them) after window ``w``'s bound phase and injection."""
+    from repro_torch.core import mess, platform, workload
+
+    pts = [(p, wr) for wr in FAST_MIXES for p in FAST_PACES
+           if mess.event_covers(cfg, p) == (engine == "event")]
+    cfg = dataclasses.replace(cfg, weave=engine)
+    paces = torch.tensor([p for p, _ in pts], dtype=torch.int32, device=dev)
+    wrs = torch.tensor([wr for _, wr in pts], dtype=torch.int32, device=dev)
+    frontend = workload.MessFrontend(paces, wrs, cfg.workload_config())
+    carry = platform._init_carry(cfg, frontend, len(pts), dev)
+    clock, wcfg = cfg.clock(), cfg.workload_config()
+    for i in range(w):
+        carry, _ = platform._window_step(cfg, clock, wcfg, frontend, carry,
+                                         i)
+    queue = platform._bound_inject(cfg, clock, wcfg, frontend, carry, w)[0]
+    return cfg, clock, platform._tick_kw(cfg, clock, dev), queue, carry[1]
+
+
+def weave_timing(cfg, dev, w=8):
+    """`weave_window` at the main path's two batches (window ``w`` of the
+    FAST sweep): the kernel's device time (its C entry point on packed
+    inputs, in a CUDA graph), one wrapper call (`_weave_fused`, packing
+    included), the stepwise route on the same state (its plain version,
+    ~170 eager ops + one `frfcfs_select` per step), their agreement, and
+    the bytes bound (state in and out once)."""
+    from repro_torch.core import platform
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.weave_window import ops as wops
+
+    out = {}
+    with torch.inference_mode():
+        for engine in ("dense", "event"):
+            cfg_e, clock, kw, queue, banks = weave_batch(cfg, dev, engine, w)
+            args = (cfg_e, clock, kw, queue, banks, w)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = platform._weave_stepwise(*args)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            got = platform._weave_fused(*args)
+            diff, same = max_diff(got, want)
+
+            B, C, Q = queue.valid.shape
+            d = cfg_e.platform.dram
+            start, end = clock.window_start_tick(w), clock.window_end_tick(w)
+            n_steps = (cfg_e.event_budget() if engine == "event"
+                       else clock.ticks_per_window_static)
+            inp, res = wops.pack_inputs(queue, banks)
+            params = wops.pack_params(d, cfg_e.policy, **{
+                k: kw[k] for k in ("tick2cpu_num", "tick2cpu_den",
+                                   "cpu_ps_per_clk")})
+            c_params = (ctypes.c_int * len(params))(*params)
+            fn = _build.function("weave_window_launch", wops._ARGTYPES)
+            ptrs = [x.data_ptr() for x in inp.values()] + [
+                x.data_ptr() for x in res.values()]
+
+            def launch():
+                err = fn(*ptrs, ctypes.addressof(c_params), len(params),
+                         B * C, Q, d.banks_per_channel, d.ranks_per_channel,
+                         start, end, start + clock.ticks_per_window_static,
+                         n_steps, int(engine == "event"),
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"weave_window launch: error {err}")
+
+            ms = device_ms(launch, 5)
+            io_bytes = sum(x.numel() * x.element_size()
+                           for x in list(inp.values()) + list(res.values()))
+            out[engine] = dict(
+                ms=ms, us_per_step=ms * 1e3 / n_steps,
+                call_ms=time_ms(lambda: platform._weave_fused(*args), 5),
+                plain_ms=plain_ms, bytes=io_bytes,
+                bound_ms=io_bytes / MEM_BYTES_PER_S * 1e3,
+                rows=B * C, q=Q, steps=n_steps, max_abs_diff=diff,
+                bit_identical=same,
+                shape=f"{B * C} rows x {Q} slots, {n_steps} {engine} steps")
+    emit({"phase": "weave_timing", "window": w, "timing": out})
+    bad = [e for e, t in out.items() if not t["bit_identical"]]
+    if bad:
+        raise AssertionError(f"fused and stepwise weave differ at the main "
+                             f"path's batch: {bad}")
+    return out
+
+
+def device_busy(dev_events):
+    """Union of the device events' spans (us), and their window (us)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    busy, (cur_s, cur_e) = 0.0, spans[0]
+    for a, z in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, z
+        else:
+            cur_e = max(cur_e, z)
+    busy += cur_e - cur_s
+    return busy, max(z for _, z in spans) - spans[0][0]
+
+
+def profile_sweep(cfg, unprofiled_wall_s):
+    """The main path's sweep once more under torch.profiler: the weave
+    kernel's device time, the device's busy time by kernel and its idle
+    share over the sweep's wall (profiled and not)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import sweep
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep(cfg, paces=FAST_PACES, write_mixes=FAST_MIXES)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"phase": "profile", "what": "the main path's FAST sweep",
+           "wall_s_profiled": wall_us / 1e6,
+           "device_events": len(dev_events)}
+    if not dev_events:
+        out["note"] = "the profiler showed no device time on this machine"
+        emit(out)
+        return out
+    busy, window = device_busy(dev_events)
+    weave = [e for e in dev_events if "weave_window" in e.name]
+    by_name = {}
+    for e in dev_events:
+        n, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (n + e.time_range.end - e.time_range.start, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    out.update(
+        weave_launches=len(weave),
+        weave_device_s=sum(e.time_range.end - e.time_range.start
+                           for e in weave) / 1e6,
+        device_busy_s=busy / 1e6, device_window_s=window / 1e6,
+        idle_share_of_wall=1 - busy / wall_us,
+        idle_share_of_unprofiled_wall=1 - busy / (unprofiled_wall_s * 1e6),
+        top_kernels=[{"name": n[:80], "ms": us / 1e3, "count": c}
+                     for n, (us, c) in top])
+    emit(out)
+    return out
 
 
 def lm_path(dev):
@@ -489,6 +781,7 @@ def main():
     from repro_torch.kernels.addr_decode import ops as decode_ops
     from repro_torch.kernels.addr_decode.ref import to_int32_bits
     from repro_torch.kernels.bank_timing import frfcfs_select, select_plain
+    from repro_torch.kernels.weave_window import weave_window
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -502,14 +795,19 @@ def main():
     regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     # the Hopper flash kernel's own report: entry, spills, registers
     sm90 = log.split("== flash_attention_sm90.cu\n")[-1].split("\n== ")[0]
+    weave_log = log.split("== weave_window.cu\n")[-1].split("\n== ")[0]
     smem = _build.function("flash_attention_sm90_smem_bytes", [ctypes.c_int])
+
+    def report(text):
+        return [ln.strip() for ln in text.splitlines()
+                if "entry" in ln or "spill" in ln or "registers" in ln] \
+            if log else "not rebuilt in this run"
+
     emit({"phase": "build", "library": str(lib.relative_to(ROOT)),
           "built": _build.build_info["built"],
           "seconds": _build.build_info["seconds"], "ptxas": regs,
-          "flash_sm90_ptxas": [ln.strip() for ln in sm90.splitlines()
-                               if "entry" in ln or "spill" in ln
-                               or "registers" in ln] if log else
-          "not rebuilt in this run",
+          "flash_sm90_ptxas": report(sm90),
+          "weave_window_ptxas": report(weave_log),
           "flash_sm90_smem_bytes": {d: smem(d) for d in (64, 128)}})
 
     # ---- 2. kernels vs their plain versions ----------------------------
@@ -580,13 +878,17 @@ def main():
                              f"{mismatches}")
     max_err["flash_attention"], timing["flash_attention"] = check_flash(dev)
 
-    # ---- 3. the main path -----------------------------------------------
+    # ---- 3. the weave routes against each other --------------------------
+    max_err["weave_window"], select_launches = weave_phase(dev)
+
+    # ---- 4. the main path -----------------------------------------------
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = sweep(cfg, paces=FAST_PACES, write_mixes=FAST_MIXES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
+    weave_steps = weave_window.steps
     per_mix = []
     for i, wr in enumerate(res.write_mixes):
         per_mix.append({"wr_num": wr, **{
@@ -597,14 +899,21 @@ def main():
     emit({"phase": "main_path", "stage": cfg.name, "preset": "ddr4_2666",
           "paces": list(FAST_PACES), "write_mixes": list(FAST_MIXES),
           "windows": cfg.windows, "warmup": cfg.warmup, "wall_s": wall,
-          "weave_steps": launches["frfcfs_select"], "launches": launches,
+          "weave_steps": weave_steps, "launches": launches,
           "per_mix": per_mix,
           "views": {f: getattr(res, f).tolist() for f in (
               "sim_bw", "sim_lat", "if_bw", "if_lat", "app_bw", "app_lat",
               "chase_lat")}})
-    for name in ("frfcfs_select", "decode_packed"):
-        if launches[name] <= 0:
-            raise AssertionError(f"the main path never launched {name}")
+    if launches["decode_packed"] <= 0:
+        raise AssertionError("the main path never launched decode_packed")
+    if (launches["weave_window"] != MAIN_WEAVE_LAUNCHES
+            or launches["frfcfs_select"] != 0
+            or weave_steps != MAIN_WEAVE_STEPS):
+        raise AssertionError(
+            f"main path: weave_window x {launches['weave_window']} "
+            f"(expected {MAIN_WEAVE_LAUNCHES}), frfcfs_select x "
+            f"{launches['frfcfs_select']} (expected 0), {weave_steps} "
+            f"weave steps (expected {MAIN_WEAVE_STEPS})")
     peak = cfg.platform.dram.peak_gbs
     for f in ("sim_bw", "sim_lat", "if_bw", "if_lat", "app_bw", "app_lat",
               "chase_lat"):
@@ -617,7 +926,23 @@ def main():
         raise AssertionError(f"simulated bandwidth above the device peak "
                              f"{peak} GB/s: {res.sim_bw}")
 
-    # ---- 4. parity: the card against the CPU through the same port -----
+    # the weave phase's device time (one more sweep, profiled) and the
+    # kernel at the main path's two batches
+    prof = profile_sweep(cfg, wall)
+    timing["weave_window"] = weave_timing(cfg, dev)
+    weave_dev_s = prof.get("weave_device_s")
+    emit({"phase": "main_path_weave", "wall_s": wall,
+          "weave_launches": launches["weave_window"],
+          "weave_steps": weave_steps,
+          "steps_per_launch": weave_steps / launches["weave_window"],
+          "weave_device_s": weave_dev_s,
+          "weave_device_s_from_timing": cfg.windows * sum(
+              t["ms"] for t in timing["weave_window"].values()) / 1e3,
+          "us_per_step": (weave_dev_s * 1e6 / weave_steps
+                          if weave_dev_s else None),
+          "idle_share_of_wall": prof.get("idle_share_of_unprofiled_wall")})
+
+    # ---- 5. parity: the card against the CPU through the same port -----
     small = get_stage("07-prefetch", windows=8, warmup=2)
     on_card = run_point(small, [4, 48], 16)
     on_cpu = run_point(small, [4, 48], 16, device="cpu")
@@ -635,18 +960,33 @@ def main():
     if not worst <= RTOL:
         raise AssertionError(f"float views differ by {worst} > {RTOL}")
 
-    # ---- 5-6. the dense LM serving path, and its card-vs-CPU parity ------
+    # ---- 6-7. the dense LM serving path, and its card-vs-CPU parity ------
     flash_routes = lm_path(dev)
     launches["flash_attention"] = sum(flash_routes.values())
     lm_parity(dev)
 
     # ---- the kernel table, the card, the result ---------------------------
-    # launches: frfcfs_select / decode_packed from the main path's sweep,
+    # launches: weave_window / decode_packed from the main path's sweep,
+    # frfcfs_select from the weave phase's stepwise route (its path since
+    # the main path takes the fused kernel; 0 on the main path),
     # flash_attention from the LM path's forward; its row carries the
     # route the forward takes (sm90_bf16), and both routes under "routes"
+    launches["frfcfs_select"] = select_launches
     flash_src = {"sm90_bf16": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "cuda_core": "src/repro_torch/csrc/flash_attention.cu"}
-    sources = {"frfcfs_select": ("src/repro_torch/csrc/bank_timing.cu",
+    weave_t = timing["weave_window"]
+    timing["weave_window"] = dict(
+        weave_t["dense"], ms_event=weave_t["event"]["ms"],
+        us_per_step_event=weave_t["event"]["us_per_step"],
+        call_ms_event=weave_t["event"]["call_ms"],
+        plain_ms_event=weave_t["event"]["plain_ms"],
+        bound_ms_event=weave_t["event"]["bound_ms"],
+        shape_event=weave_t["event"]["shape"])
+    sources = {"weave_window": (
+                   "src/repro_torch/csrc/weave_window.cu",
+                   "src/repro/kernels/bank_timing/kernel.py:97 + the weave "
+                   "scans src/repro/core/platform.py:198-239"),
+               "frfcfs_select": ("src/repro_torch/csrc/bank_timing.cu",
                                  "src/repro/kernels/bank_timing/kernel.py:97"),
                "decode_packed": ("src/repro_torch/csrc/addr_decode.cu",
                                  "src/repro/kernels/addr_decode/kernel.py:57"),
@@ -670,6 +1010,14 @@ def main():
                       "bound_by": "operations" if by_flops else "bytes",
                       "library_ms": t.get("library_ms"),
                       "shape": t["shape"]})
+        if name == "weave_window":
+            table[-1].update({k: t[k] for k in (
+                "us_per_step", "ms_event", "us_per_step_event",
+                "call_ms_event", "plain_ms_event", "bound_ms_event",
+                "shape_event")})
+        if name == "frfcfs_select":
+            table[-1].update(path="weave phase, stepwise route",
+                             main_path_launches=0)
     table[-1]["routes"] = [
         {"route": r, "source": flash_src[r], "launches": flash_routes[r],
          "max_abs_err": {k: e for k, e in flash_err.items()

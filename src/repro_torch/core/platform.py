@@ -14,9 +14,14 @@ returns the three memory-performance views.  Per window:
    (`dram.next_event`), one step per tick where something can change.
 4. **PI update**: ``l_ir' = 0.95 * l_ir + 0.05 * avg weave latency``.
 
-The window and weave loops are Python loops over batched tensors (the
-batch axis replaces the reference's ``vmap``).  Entry points take
-``device=None``, which means ``"cuda"``; without a card they raise.
+The window loop is a Python loop over batched tensors (the batch axis
+replaces the reference's ``vmap``).  The weave phase has two routes,
+picked by where the state lies (`_weave_route`): on the card one
+`weave_window` kernel launch runs the whole window (`_weave_fused`); on
+the CPU the stepwise loops `_weave_dense` / `_weave_event` run one
+`dram.tick` per step (they are also the kernel's plain version).  Entry
+points take ``device=None``, which means ``"cuda"``; without a card
+they raise.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from repro_torch.core.dram import SchedulerPolicy
 from repro_torch.core.noc import NocModel, make_noc
 from repro_torch.core.timing import DEFAULT_PLATFORM, PlatformParams
 from repro_torch.core.workload import WorkloadConfig
+from repro_torch.kernels.weave_window import weave_window
 
 PI_KEEP = 0.95       # paper: 95% previous estimate
 PI_BLEND = 0.05      # paper: 5% new cycle-accurate average
@@ -195,31 +201,78 @@ def _weave_event(cfg, clock, tick_kw, queue, banks, w):
     return queue, banks, acc, events, sat
 
 
-def _window_step(cfg: StageConfig, clock: ClockModel, wcfg: WorkloadConfig,
-                 frontend, carry, w: int):
-    queue, banks, fstate, l_ir, lat_est = carry
+def _weave_stepwise(cfg, clock, tick_kw, queue, banks, w):
+    """The stepwise route: `_weave_dense` or `_weave_event`."""
+    weave = _weave_dense if cfg.weave == "dense" else _weave_event
+    return weave(cfg, clock, tick_kw, queue, banks, w)
+
+
+def _weave_fused(cfg, clock, tick_kw, queue, banks, w):
+    """The card's route: the window in one `weave_window` launch, equal
+    bit for bit to `_weave_stepwise`."""
+    start, end = clock.window_start_tick(w), clock.window_end_tick(w)
+    event = cfg.weave == "event"
+    queue, banks, st, live_steps, sat = weave_window(
+        queue, banks, start=start, end=end,
+        horizon=start + clock.ticks_per_window_static,
+        n_steps=(cfg.event_budget() if event
+                 else clock.ticks_per_window_static),
+        event=event, dram=tick_kw["dram"], policy=tick_kw["policy"],
+        tick2cpu_num=tick_kw["tick2cpu_num"],
+        tick2cpu_den=tick_kw["tick2cpu_den"],
+        cpu_ps_per_clk=tick_kw["cpu_ps_per_clk"])
+    if event:
+        events = live_steps.amax(1)
+    else:
+        events = torch.full((queue.valid.shape[0],), end - start,
+                            dtype=_I32, device=queue.valid.device)
+    return queue, banks, dram.TickStats(*st), events, sat.any(1)
+
+
+def _weave_route(queue):
+    """Card state takes the fused kernel, CPU state the stepwise loop."""
+    return _weave_fused if queue.valid.device.type == "cuda" \
+        else _weave_stepwise
+
+
+def _bound_inject(cfg, clock, wcfg, frontend, carry, w: int):
+    """The window's bound phase and interface hand-off (MSHR closed-loop
+    budget): ``(queue', fstate', injected, l_ir_cycles)``."""
+    queue, _, fstate, l_ir, lat_est = carry
     cpu = cfg.platform.cpu
-    d = cfg.platform.dram
     l_ir_cycles = torch.clamp(torch.round(l_ir).to(_I32), min=1)
     window_ps = cpu.window_cycles * cpu.cpu_ps_per_clk
-
-    # bound phase + interface hand-off (MSHR closed-loop budget)
     budget = workload.littles_law_budget(lat_est, window_ps)
     cand, aux = frontend.bound(fstate, l_ir_cycles, budget,
                                cpu.window_cycles)
     queue, acc_demand, injected = workload.inject_queue(queue, cand, clock,
                                                         w, wcfg)
-    fstate = frontend.update(fstate, aux, acc_demand)
+    return (queue, frontend.update(fstate, aux, acc_demand), injected,
+            l_ir_cycles)
+
+
+def _tick_kw(cfg: StageConfig, clock: ClockModel, device) -> dict:
+    """The static keywords of `dram.tick` (and of the weave routes)."""
+    d = cfg.platform.dram
+    return dict(dram=d, policy=cfg.policy,
+                tick2cpu_num=clock.tick_to_cpu_ps_num,
+                tick2cpu_den=clock.tick_to_cpu_ps_den,
+                cpu_ps_per_clk=cfg.platform.cpu.cpu_ps_per_clk,
+                planes=dram.bank_planes(d, device))
+
+
+def _window_step(cfg: StageConfig, clock: ClockModel, wcfg: WorkloadConfig,
+                 frontend, carry, w: int):
+    _, banks, _, l_ir, lat_est = carry
+    cpu = cfg.platform.cpu
+    d = cfg.platform.dram
+    queue, fstate, injected, l_ir_cycles = _bound_inject(
+        cfg, clock, wcfg, frontend, carry, w)
 
     # weave phase
-    tick_kw = dict(dram=d, policy=cfg.policy,
-                   tick2cpu_num=clock.tick_to_cpu_ps_num,
-                   tick2cpu_den=clock.tick_to_cpu_ps_den,
-                   cpu_ps_per_clk=cpu.cpu_ps_per_clk,
-                   planes=dram.bank_planes(d, queue.valid.device))
-    weave = _weave_dense if cfg.weave == "dense" else _weave_event
-    queue, banks, st, events, sat = weave(cfg, clock, tick_kw, queue, banks,
-                                          w)
+    tick_kw = _tick_kw(cfg, clock, queue.valid.device)
+    queue, banks, st, events, sat = _weave_route(queue)(
+        cfg, clock, tick_kw, queue, banks, w)
 
     n_rd = st.served_rd.sum(1, dtype=_I32)
     sum_rd_lat = st.sum_rd_lat_ticks.sum(1, dtype=_I32)
@@ -256,6 +309,23 @@ def _window_step(cfg: StageConfig, clock: ClockModel, wcfg: WorkloadConfig,
     return (queue, banks, fstate, l_ir_next, lat_est), (out, diag)
 
 
+def _init_carry(cfg: StageConfig, frontend, batch: int, dev):
+    """The window loop's first carry: empty queues, precharged banks,
+    the frontend's initial state, ``l_ir`` and the latency estimate."""
+    d = cfg.platform.dram
+    queue = dram.init_queue(d, cfg.policy, n_sockets=cfg.n_sockets,
+                            batch=batch, device=dev)
+    banks = dram.init_banks(d, batch=batch, device=dev)
+    l_ir = torch.full((batch,), cfg.l_ir_init_cycles, dtype=_F32, device=dev)
+    # optimistic unloaded estimate; the EMA converges within warmup
+    lat_est = torch.full(
+        (batch,), float(cfg.platform.cpu.cache_path_cycles
+                        * cfg.platform.cpu.cpu_ps_per_clk
+                        + (d.tCL + d.tBL) * d.dram_ps_per_clk),
+        dtype=_F32, device=dev)
+    return (queue, banks, frontend.init_state(), l_ir, lat_est)
+
+
 def run_frontend(cfg: StageConfig, frontend, *, batch: int, device=None):
     """Simulate the platform driven by any bound-phase frontend.
 
@@ -271,22 +341,9 @@ def run_frontend(cfg: StageConfig, frontend, *, batch: int, device=None):
         trajectory, each field (W, B).
     """
     dev = resolve_device(device)
-    d = cfg.platform.dram
     clock = cfg.clock()
     wcfg = cfg.workload_config()
-    queue = dram.init_queue(d, cfg.policy, n_sockets=cfg.n_sockets,
-                            batch=batch, device=dev)
-    banks = dram.init_banks(d, batch=batch, device=dev)
-    fstate = frontend.init_state()
-    l_ir = torch.full((batch,), cfg.l_ir_init_cycles, dtype=_F32, device=dev)
-    # optimistic unloaded estimate; the EMA converges within warmup
-    lat_est = torch.full(
-        (batch,), float(cfg.platform.cpu.cache_path_cycles
-                        * cfg.platform.cpu.cpu_ps_per_clk
-                        + (d.tCL + d.tBL) * d.dram_ps_per_clk),
-        dtype=_F32, device=dev)
-
-    carry = (queue, banks, fstate, l_ir, lat_est)
+    carry = _init_carry(cfg, frontend, batch, dev)
     outs, diags = [], []
     # the simulator never differentiates: skip autograd bookkeeping
     with torch.inference_mode():

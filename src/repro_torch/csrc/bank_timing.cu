@@ -15,25 +15,23 @@
 // keeps the whole row inside one warp: each lane strides over the slots
 // (coalesced 128-byte loads per plane), keeps its own best (score, slot,
 // eligibility bits), and a shuffle reduction finishes the argmax with no
-// shared memory and no second pass.  Fusing the surrounding gathers and
-// the command apply into this kernel, or capturing the weave step in a
-// CUDA graph, is what would move the launch-latency bound.
+// shared memory and no second pass.  The eligibility, score and command
+// decode are frfcfs.cuh's, shared with weave_window.cu, which runs whole
+// windows of weave steps in one launch on the card's main path; this
+// kernel serves the stepwise route.
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "frfcfs.cuh"
+
 namespace {
 
-constexpr unsigned kBig = 1u << 28;
-constexpr int kNone = 0, kRd = 1, kWr = 2, kAct = 3, kPre = 4;
 // scalar plane columns
 constexpr int kT = 0, kBusFree = 1, kWtr = 2, kRtw = 3, kDrain = 4,
               kStreak = 5, kNScalars = 8;
 constexpr int kWarpsPerBlock = 4;
-// eligibility bits carried with a lane's best slot
-constexpr int kBitRd = 1, kBitWr = 2, kBitAct = 4, kBitPre = 8,
-              kBitIsWr = 16;
 
 struct Planes {
   const int32_t* __restrict__ arrived;
@@ -58,12 +56,9 @@ __global__ void frfcfs_select_kernel(Planes p,
   if (r >= rows) return;  // the whole warp leaves together
 
   const int32_t* s = scalars + static_cast<size_t>(r) * kNScalars;
-  const int t = s[kT];
-  const bool bus_ok = t >= s[kBusFree];
-  const bool wtr_ok = t >= s[kWtr];
-  const bool rtw_ok = t >= s[kRtw];
-  const bool drain = s[kDrain] == 1;
-  const bool capped = row_hit_cap > 0 && s[kStreak] >= row_hit_cap;
+  const frfcfs::Channel ch =
+      frfcfs::make_channel(s[kT], s[kBusFree], s[kWtr], s[kRtw],
+                           s[kDrain] == 1, s[kStreak], row_hit_cap);
 
   int best = -1;
   int best_i = INT_MAX;
@@ -71,41 +66,18 @@ __global__ void frfcfs_select_kernel(Planes p,
   const size_t base = static_cast<size_t>(r) * q;
   for (int i = lane; i < q; i += 32) {
     const size_t k = base + i;
-    const bool arrived = p.arrived[k] == 1;
-    const bool is_wr = p.is_write[k] == 1;
-    const int open_e = p.open_e[k];
-    const int row = p.row[k];
-    const bool row_hit = (open_e == row) && arrived;
-    const bool closed = (open_e < 0) && arrived;
-    const bool side_ok = is_wr ? drain : !drain;
-    const bool rd = row_hit && !is_wr && t >= p.nrd[k] && bus_ok && wtr_ok &&
-                    !drain;
-    const bool wr = row_hit && is_wr && t >= p.nwr[k] && bus_ok && rtw_ok &&
-                    drain;
-    const bool act = closed && t >= p.nact[k] && p.faw_ok[k] == 1 && side_ok;
-    const bool pre = arrived && open_e >= 0 && open_e != row &&
-                     t >= p.npre[k] && p.hit_pend[k] == 0 && side_ok;
-    // int32 wrap-around arithmetic, as the reference computes it
-    const unsigned age = kBig - static_cast<unsigned>(p.arrival[k]);
-    unsigned score = 0;
-    if (rd || wr) {
-      score = 3 * kBig + age;
-    } else if (act) {
-      score = 2 * kBig + age;
-    } else if (pre) {
-      score = kBig + age;
-    }
-    if (capped) {
-      if (rd || wr) score = kBig + age;
-      if (act) score = 3 * kBig + age;
-    }
-    const int sc = static_cast<int>(score);
+    const frfcfs::Slot slot{p.arrived[k] == 1, p.is_write[k] == 1,
+                            p.open_e[k],       p.row[k],
+                            p.nrd[k],          p.nwr[k],
+                            p.nact[k],         p.npre[k],
+                            p.faw_ok[k] == 1,  p.hit_pend[k] != 0,
+                            p.arrival[k]};
+    int bits;
+    const int sc = frfcfs::score(slot, ch, &bits);
     if (sc > best) {  // strict: a lane visits slots in increasing order
       best = sc;
       best_i = i;
-      best_bits = (rd ? kBitRd : 0) | (wr ? kBitWr : 0) |
-                  (act ? kBitAct : 0) | (pre ? kBitPre : 0) |
-                  (is_wr ? kBitIsWr : 0);
+      best_bits = bits;
     }
   }
 
@@ -122,26 +94,9 @@ __global__ void frfcfs_select_kernel(Planes p,
   }
 
   if (lane == 0) {
-    const bool any_cmd = best > 0;
-    const bool rd_ok = best_bits & kBitRd;
-    const bool wr_ok = best_bits & kBitWr;
-    const bool act_ok = best_bits & kBitAct;
-    const bool pre_ok = best_bits & kBitPre;
-    const bool is_wr = best_bits & kBitIsWr;
-    // under the cap inversion an ACT can outrank a CAS
-    const bool s_cas = any_cmd && (rd_ok || wr_ok) && !(capped && act_ok);
-    const bool s_act = any_cmd && act_ok && !s_cas;
-    const bool s_pre = any_cmd && pre_ok && !s_cas && !s_act;
-    int cmd = kNone;
-    if (s_cas) {
-      cmd = is_wr ? kWr : kRd;
-    } else if (s_act) {
-      cmd = kAct;
-    } else if (s_pre) {
-      cmd = kPre;
-    }
     out[2 * static_cast<size_t>(r)] = best_i;
-    out[2 * static_cast<size_t>(r) + 1] = cmd;
+    out[2 * static_cast<size_t>(r) + 1] =
+        frfcfs::command(best, best_bits, ch.capped);
   }
 }
 

@@ -1,7 +1,11 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
+* `weave_window.weave_window` — one whole window of the weave phase
+  (every step's refresh, drain, FR-FCFS select, command apply and
+  stats; dense or event-horizon) in one launch: the card's weave route
+  (``csrc/weave_window.cu``).
 * `bank_timing.frfcfs_select` — FR-FCFS eligibility + select, the body
-  of every weave step (``csrc/bank_timing.cu``).
+  of every step of the stepwise weave route (``csrc/bank_timing.cu``).
 * `addr_decode.decode_packed` — Skylake XOR address decode of every
   injected request on the DDR4 geometry (``csrc/addr_decode.cu``).
 * `flash_attention.flash_attention` — block-wise online-softmax GQA
@@ -10,13 +14,15 @@
   on the CUDA cores (``csrc/flash_attention.cu``).
 
 All build on first use (`_build`) and count their launches (and
-`flash_attention` its launches per route).
+`flash_attention` its launches per route, `weave_window` its steps).
 """
 from repro_torch.kernels.addr_decode import decode_packed
 from repro_torch.kernels.bank_timing import frfcfs_select
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.weave_window import weave_window
 
-WRAPPERS = {"frfcfs_select": frfcfs_select, "decode_packed": decode_packed,
+WRAPPERS = {"weave_window": weave_window, "frfcfs_select": frfcfs_select,
+            "decode_packed": decode_packed,
             "flash_attention": flash_attention}
 
 
@@ -28,5 +34,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "steps"):
+            fn.steps = 0
         if hasattr(fn, "launches_by_route"):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)

@@ -8,8 +8,8 @@ shared library with a plain C interface::
          -Xcompiler -fPIC -c csrc/<name>.cu
     nvcc -shared -o build/kernels/libreprotorch-<hash>.so *.o
 
-The library's name carries a hash of the sources and flags, so an
-edited source rebuilds on first use and an unchanged one is loaded as
+The library's name carries a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds on first use and an unchanged one is loaded as
 built.  Nothing is built or loaded at import time.
 """
 from __future__ import annotations
@@ -52,11 +52,16 @@ def sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[pathlib.Path]:
+    """The shared headers the sources include (part of the hash)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256()
     for flag in ARCH_FLAGS + COMPILE_FLAGS:
         h.update(flag.encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
