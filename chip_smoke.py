@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
 
 1. **build** — nvcc builds the kernels' shared library from
    ``src/repro_torch/csrc`` (or finds a fresh build); the ptxas report
-   (registers, spills) of the Hopper flash kernel and of the weave
-   kernel, and the flash kernel's shared memory.
+   (registers, spills) of the Hopper flash kernel, the weave kernel and
+   the interface kernel, and the flash kernel's shared memory.
 2. **kernels** — each per-call CUDA kernel against its plain PyTorch
    version on the card: ``frfcfs_select`` and ``decode_packed`` bit for
    bit over the main path's shapes, then both timed at the main path's
@@ -23,7 +23,19 @@ Phases, each printing one JSON line:
    routes are timed beside ``scaled_dot_product_attention`` as a
    yardstick (the Hopper route in bf16, the CUDA-core route in fp32 and
    on the same bf16 inputs).
-3. **weave** — the two weave routes on the card, window by window on
+3. **inject** — the two routes of the bound phase and interface hand-off
+   on the card, window by window on the same state (4 windows, four
+   points, the queues partly full after the first): ``window_inject``
+   (one launch per window) against the eager ``generate`` ->
+   ``inject_queue`` -> ``update`` (whose Skylake decode is one
+   ``decode_packed`` launch), bit for bit in the seven queue planes, the
+   core state, ``injected`` and ``l_ir_cycles``, on stages 01 (simple),
+   05 and 07 (Skylake XOR, without and with prefetch) on ddr4_2666 (one
+   and two sockets, interleaved and partitioned), stages 07 and 01 on
+   ddr5_4800 (xor_fold and simple) and 07 on hbm2e (xor_fold; one and
+   two sockets).  The launch counts of this phase give
+   ``decode_packed``'s row.
+4. **weave** — the two weave routes on the card, window by window on
    the same injected state (3 windows, paces 4 and 48): ``weave_window``
    (one launch per window) against the stepwise loop (``dram.tick`` /
    ``next_event`` with one ``frfcfs_select`` launch per step), bit for
@@ -33,21 +45,23 @@ Phases, each printing one JSON line:
    dense and event; then the card's fused route against the CPU's
    stepwise route on one case.  The launch counts of this phase give
    ``frfcfs_select``'s row.
-4. **main_path** — the repository's default benchmark run of the full
+5. **main_path** — the repository's default benchmark run of the full
    paper stack: ``sweep(get_stage("07-prefetch", windows=48,
    warmup=16), paces=(1, 4, 12, 24, 48, 64), write_mixes=(0, 16, 32))``
    on ``ddr4_2666``, with every kernel's launch count and the weave
-   steps read just after: ``weave_window`` x 96 (48 windows x two engine
-   batches), 40,032 steps, ``frfcfs_select`` x 0.  Then the same sweep
-   under ``torch.profiler`` (a ``profile`` line: the weave kernel's
-   device time, the device's idle share) and ``weave_window`` timed at
-   the sweep's two batches beside the stepwise route on the same state
-   (``weave_timing``), and a ``main_path_weave`` line: the sweep's wall,
-   the weave phase's device time, µs per step.
-5. **parity** — one stage-07 ``run_point`` on the card (the fused
+   steps read just after: ``window_inject`` and ``weave_window`` x 96
+   each (48 windows x two engine batches), 40,032 weave steps,
+   ``frfcfs_select`` and ``decode_packed`` x 0.  Then the same sweep
+   under ``torch.profiler`` (a ``profile`` line: the two kernels' device
+   time, the device's idle share), ``weave_window`` and
+   ``window_inject`` timed at the sweep's two batches beside their plain
+   routes on the same state (``weave_timing``, ``inject_timing``), and a
+   ``main_path_weave`` line: the sweep's wall, the weave phase's device
+   time, µs per step.
+6. **parity** — one stage-07 ``run_point`` on the card (the fused
    route) and on the CPU (the stepwise route) through the same port:
    equal integers, float views within 1e-6.
-6. **lm_path** — the dense LM serving path at the full width and depth
+7. **lm_path** — the dense LM serving path at the full width and depth
    of tinyllama-1.1b (bf16, weights from a seed, flash kernel on): five
    forwards over 2 x 2048 tokens (each 22 launches of the Hopper route,
    none of the CUDA-core one; the median wall gives tokens/s), one more
@@ -56,7 +70,7 @@ Phases, each printing one JSON line:
    line), prefill of the first 2047 tokens (22 Hopper launches) + one
    decode step agreeing with the forward's last position, and the
    greedy Engine answering 8 requests on 4 slots.
-7. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
+8. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
    256 tokens, fp32 (the CUDA-core route), on the card and on the CPU
    (plain version), from the same weights, within 1e-4.
 
@@ -122,6 +136,22 @@ WEAVE_WINDOWS, WEAVE_PACES, WEAVE_WR = 3, (4, 48), 16
 WEAVE_CPU_CASE = ("07-prefetch", "ddr4_2666", 1, "event")
 MAIN_WEAVE_STEPS = 48 * (635 + 199)     # windows x (dense + event steps)
 MAIN_WEAVE_LAUNCHES = 96                # windows x engine batches
+MAIN_INJECT_LAUNCHES = 96               # windows x engine batches
+
+# inject phase: (stage, preset, sockets, channel ownership), each
+# INJECT_WINDOWS windows of INJECT_POINTS through both routes
+INJECT_CASES = [("01-baseline", "ddr4_2666", 1, "interleaved"),   # simple
+                ("05-addrmap", "ddr4_2666", 1, "interleaved"),    # skylake
+                ("07-prefetch", "ddr4_2666", 1, "interleaved"),   # + pf
+                ("07-prefetch", "ddr4_2666", 2, "interleaved"),
+                ("07-prefetch", "ddr4_2666", 2, "partitioned"),
+                ("07-prefetch", "ddr5_4800", 1, "interleaved"),   # xor_fold
+                ("07-prefetch", "ddr5_4800", 2, "partitioned"),
+                ("01-baseline", "ddr5_4800", 1, "interleaved"),   # simple
+                ("07-prefetch", "hbm2e", 1, "interleaved"),       # xor_fold
+                ("07-prefetch", "hbm2e", 2, "partitioned")]
+INJECT_WINDOWS = 4
+INJECT_POINTS = ((1, 0), (12, 16), (48, 32), (64, 48))    # (pace, wr_num)
 
 
 def emit(obj):
@@ -376,6 +406,74 @@ def max_diff(a, b):
     return worst, same
 
 
+def inject_phase(dev):
+    """Both routes of the bound phase and interface hand-off on the card,
+    window by window on the same state: `window_inject` (one launch)
+    must equal the eager route bit for bit in the queue, the core state,
+    ``injected`` and ``l_ir_cycles``; the window loop goes on through
+    `_window_step` (the card's routes), so the queues are partly full
+    from the second window on."""
+    from repro_torch import kernels
+    from repro_torch.core import get_stage, platform, workload
+
+    kernels.reset_launch_counts()
+    rows, failed, worst = [], [], 0.0
+    fused_s = eager_s = 0.0
+    with torch.inference_mode():
+        for case in INJECT_CASES:
+            stage, preset, sockets, owner = case
+            cfg = get_stage(stage, preset=preset, n_sockets=sockets,
+                            socket_channels=owner, windows=INJECT_WINDOWS,
+                            warmup=0)
+            clock, wcfg = cfg.clock(), cfg.workload_config()
+            paces = torch.tensor([p for p, _ in INJECT_POINTS],
+                                 dtype=torch.int32, device=dev)
+            wrs = torch.tensor([w for _, w in INJECT_POINTS],
+                               dtype=torch.int32, device=dev)
+            frontend = workload.MessFrontend(paces, wrs, wcfg)
+            carry = platform._init_carry(cfg, frontend, len(paces), dev)
+            same_all, injected, occupancy = True, 0, []
+            for w in range(cfg.windows):
+                occupancy.append(float(carry[0].valid.float().mean()))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fused = platform._bound_inject_fused(cfg, clock, wcfg,
+                                                     frontend, carry, w)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eager = platform._bound_inject_eager(cfg, clock, wcfg,
+                                                     frontend, carry, w)
+                torch.cuda.synchronize()
+                fused_s += t1 - t0
+                eager_s += time.perf_counter() - t1
+                diff, same = max_diff(fused, eager)
+                worst = max(worst, diff)
+                same_all &= same
+                injected += int(fused[2].sum())
+                carry, _ = platform._window_step(cfg, clock, wcfg, frontend,
+                                                 carry, w)
+            rows.append({"case": list(case), "windows": cfg.windows,
+                         "q": carry[0].valid.shape[-1],
+                         "injected": injected,
+                         "occupancy_before": occupancy,
+                         "bit_identical": same_all})
+            if not same_all or not injected or max(occupancy[1:]) <= 0:
+                failed.append(case)
+        counts = kernels.launch_counts()
+    emit({"phase": "inject", "cases": rows, "windows": INJECT_WINDOWS,
+          "points": [list(p) for p in INJECT_POINTS],
+          "max_abs_diff": worst, "launches": counts, "fused_s": fused_s,
+          "eager_s": eager_s})
+    n_windows = 2 * len(INJECT_CASES) * INJECT_WINDOWS   # compared + loop
+    if failed:
+        raise AssertionError(f"window_inject and the eager route differ "
+                             f"(or injected nothing): {failed}")
+    if counts["window_inject"] != n_windows or counts["decode_packed"] <= 0:
+        raise AssertionError(f"inject phase launches {counts}: expected "
+                             f"{n_windows} window_inject, decode_packed > 0")
+    return worst, counts["decode_packed"]
+
+
 def weave_case(case, dev, windows=WEAVE_WINDOWS):
     """The stage config, frontend and first carry of one weave case."""
     from repro_torch.core import get_stage, platform, workload
@@ -479,9 +577,10 @@ def weave_phase(dev):
     return worst, counts["frfcfs_select"]
 
 
-def weave_batch(cfg, dev, engine, w):
+def main_batch(cfg, dev, engine, w):
     """The main path's batch of one engine (its points, as the knee
-    routing gives them) after window ``w``'s bound phase and injection."""
+    routing gives them) at the start of window ``w``: ``(cfg, clock,
+    wcfg, frontend, carry)``."""
     from repro_torch.core import mess, platform, workload
 
     pts = [(p, wr) for wr in FAST_MIXES for p in FAST_PACES
@@ -495,8 +594,70 @@ def weave_batch(cfg, dev, engine, w):
     for i in range(w):
         carry, _ = platform._window_step(cfg, clock, wcfg, frontend, carry,
                                          i)
+    return cfg, clock, wcfg, frontend, carry
+
+
+def weave_batch(cfg, dev, engine, w):
+    """The main path's batch of one engine after window ``w``'s bound
+    phase and injection."""
+    from repro_torch.core import platform
+
+    cfg, clock, wcfg, frontend, carry = main_batch(cfg, dev, engine, w)
     queue = platform._bound_inject(cfg, clock, wcfg, frontend, carry, w)[0]
     return cfg, clock, platform._tick_kw(cfg, clock, dev), queue, carry[1]
+
+
+def inject_timing(cfg, dev, w=8):
+    """`window_inject` at the main path's two batches (window ``w`` of the
+    FAST sweep): the kernel's device time (its C entry point on prepared
+    arguments, in a CUDA graph), one call of the card's route
+    (`_bound_inject_fused`, checks and allocation included), the eager
+    route on the same state (its plain version), one whole
+    `_window_step` on the card's routes, their agreement, and the bytes
+    bound (every input read once, every output written once)."""
+    from repro_torch.core import addrmap, platform
+    from repro_torch.kernels.window_inject import ops as iops
+
+    out = {}
+    with torch.inference_mode():
+        for engine in ("dense", "event"):
+            cfg_e, clock, wcfg, frontend, carry = main_batch(cfg, dev,
+                                                             engine, w)
+            args = (cfg_e, clock, wcfg, frontend, carry, w)
+            want = platform._bound_inject_eager(*args)
+            got = platform._bound_inject_fused(*args)
+            diff, same = max_diff(got, want)
+            queue, _, fstate, l_ir, lat_est = carry
+            cpu = cfg_e.platform.cpu
+            c_args, res = iops.prepare(
+                queue, fstate, frontend.pace, frontend.wr_num, l_ir,
+                lat_est, w=w, wcfg=wcfg, clock=clock,
+                mapping=addrmap.decode_route(wcfg.mapping, wcfg.dram),
+                window_cycles=cpu.window_cycles,
+                window_ps=cpu.window_cycles * cpu.cpu_ps_per_clk)
+            ms = device_ms(lambda: iops.launch(
+                c_args, torch.cuda.current_stream().cuda_stream), 20)
+            io_bytes = sum(x.numel() * x.element_size()
+                           for x in list(res["inputs"])
+                           + [res["queue"], res["core"], res["point"]])
+            B, C, Q = queue.valid.shape
+            out[engine] = dict(
+                ms=ms, call_ms=time_ms(
+                    lambda: platform._bound_inject_fused(*args), 50),
+                plain_ms=time_ms(
+                    lambda: platform._bound_inject_eager(*args), 20),
+                window_step_ms=time_ms(lambda: platform._window_step(
+                    cfg_e, clock, wcfg, frontend, carry, w), 20),
+                bytes=io_bytes, bound_ms=io_bytes / MEM_BYTES_PER_S * 1e3,
+                points=B, max_abs_diff=diff, bit_identical=same,
+                shape=f"B={B} points x {wcfg.n_cores * 80} candidates, "
+                      f"{C} channels x {Q} slots")
+    emit({"phase": "inject_timing", "window": w, "timing": out})
+    bad = [e for e, t in out.items() if not t["bit_identical"]]
+    if bad:
+        raise AssertionError(f"window_inject and the eager route differ at "
+                             f"the main path's batch: {bad}")
+    return out
 
 
 def weave_timing(cfg, dev, w=8):
@@ -581,9 +742,9 @@ def device_busy(dev_events):
 
 
 def profile_sweep(cfg, unprofiled_wall_s):
-    """The main path's sweep once more under torch.profiler: the weave
-    kernel's device time, the device's busy time by kernel and its idle
-    share over the sweep's wall (profiled and not)."""
+    """The main path's sweep once more under torch.profiler: the weave and
+    interface kernels' device time, the device's busy time by kernel and
+    its idle share over the sweep's wall (profiled and not)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import sweep
@@ -606,6 +767,7 @@ def profile_sweep(cfg, unprofiled_wall_s):
         return out
     busy, window = device_busy(dev_events)
     weave = [e for e in dev_events if "weave_window" in e.name]
+    inject = [e for e in dev_events if "window_inject" in e.name]
     by_name = {}
     for e in dev_events:
         n, c = by_name.get(e.name, (0.0, 0))
@@ -615,6 +777,10 @@ def profile_sweep(cfg, unprofiled_wall_s):
         weave_launches=len(weave),
         weave_device_s=sum(e.time_range.end - e.time_range.start
                            for e in weave) / 1e6,
+        inject_launches=len(inject),
+        inject_device_s=sum(e.time_range.end - e.time_range.start
+                            for e in inject) / 1e6,
+        other_kernels=len(dev_events) - len(weave) - len(inject),
         device_busy_s=busy / 1e6, device_window_s=window / 1e6,
         idle_share_of_wall=1 - busy / wall_us,
         idle_share_of_unprofiled_wall=1 - busy / (unprofiled_wall_s * 1e6),
@@ -796,6 +962,7 @@ def main():
     # the Hopper flash kernel's own report: entry, spills, registers
     sm90 = log.split("== flash_attention_sm90.cu\n")[-1].split("\n== ")[0]
     weave_log = log.split("== weave_window.cu\n")[-1].split("\n== ")[0]
+    inject_log = log.split("== window_inject.cu\n")[-1].split("\n== ")[0]
     smem = _build.function("flash_attention_sm90_smem_bytes", [ctypes.c_int])
 
     def report(text):
@@ -808,6 +975,7 @@ def main():
           "seconds": _build.build_info["seconds"], "ptxas": regs,
           "flash_sm90_ptxas": report(sm90),
           "weave_window_ptxas": report(weave_log),
+          "window_inject_ptxas": report(inject_log),
           "flash_sm90_smem_bytes": {d: smem(d) for d in (64, 128)}})
 
     # ---- 2. kernels vs their plain versions ----------------------------
@@ -878,10 +1046,13 @@ def main():
                              f"{mismatches}")
     max_err["flash_attention"], timing["flash_attention"] = check_flash(dev)
 
-    # ---- 3. the weave routes against each other --------------------------
+    # ---- 3. the interface routes against each other ----------------------
+    max_err["window_inject"], decode_launches = inject_phase(dev)
+
+    # ---- 4. the weave routes against each other --------------------------
     max_err["weave_window"], select_launches = weave_phase(dev)
 
-    # ---- 4. the main path -----------------------------------------------
+    # ---- 5. the main path -----------------------------------------------
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     res = sweep(cfg, paces=FAST_PACES, write_mixes=FAST_MIXES)
@@ -904,15 +1075,18 @@ def main():
           "views": {f: getattr(res, f).tolist() for f in (
               "sim_bw", "sim_lat", "if_bw", "if_lat", "app_bw", "app_lat",
               "chase_lat")}})
-    if launches["decode_packed"] <= 0:
-        raise AssertionError("the main path never launched decode_packed")
     if (launches["weave_window"] != MAIN_WEAVE_LAUNCHES
+            or launches["window_inject"] != MAIN_INJECT_LAUNCHES
             or launches["frfcfs_select"] != 0
+            or launches["decode_packed"] != 0
             or weave_steps != MAIN_WEAVE_STEPS):
         raise AssertionError(
             f"main path: weave_window x {launches['weave_window']} "
-            f"(expected {MAIN_WEAVE_LAUNCHES}), frfcfs_select x "
-            f"{launches['frfcfs_select']} (expected 0), {weave_steps} "
+            f"(expected {MAIN_WEAVE_LAUNCHES}), window_inject x "
+            f"{launches['window_inject']} (expected "
+            f"{MAIN_INJECT_LAUNCHES}), frfcfs_select x "
+            f"{launches['frfcfs_select']} and decode_packed x "
+            f"{launches['decode_packed']} (expected 0), {weave_steps} "
             f"weave steps (expected {MAIN_WEAVE_STEPS})")
     peak = cfg.platform.dram.peak_gbs
     for f in ("sim_bw", "sim_lat", "if_bw", "if_lat", "app_bw", "app_lat",
@@ -930,7 +1104,9 @@ def main():
     # kernel at the main path's two batches
     prof = profile_sweep(cfg, wall)
     timing["weave_window"] = weave_timing(cfg, dev)
+    timing["window_inject"] = inject_timing(cfg, dev)
     weave_dev_s = prof.get("weave_device_s")
+    idle_share = prof.get("idle_share_of_unprofiled_wall")
     emit({"phase": "main_path_weave", "wall_s": wall,
           "weave_launches": launches["weave_window"],
           "weave_steps": weave_steps,
@@ -940,9 +1116,14 @@ def main():
               t["ms"] for t in timing["weave_window"].values()) / 1e3,
           "us_per_step": (weave_dev_s * 1e6 / weave_steps
                           if weave_dev_s else None),
-          "idle_share_of_wall": prof.get("idle_share_of_unprofiled_wall")})
+          "inject_launches": launches["window_inject"],
+          "inject_device_s": prof.get("inject_device_s"),
+          "inject_device_s_from_timing": cfg.windows * sum(
+              t["ms"] for t in timing["window_inject"].values()) / 1e3,
+          "host_ms_per_window_batch": wall * 1e3 / MAIN_INJECT_LAUNCHES,
+          "idle_share_of_wall": idle_share})
 
-    # ---- 5. parity: the card against the CPU through the same port -----
+    # ---- 6. parity: the card against the CPU through the same port -----
     small = get_stage("07-prefetch", windows=8, warmup=2)
     on_card = run_point(small, [4, 48], 16)
     on_cpu = run_point(small, [4, 48], 16, device="cpu")
@@ -960,18 +1141,20 @@ def main():
     if not worst <= RTOL:
         raise AssertionError(f"float views differ by {worst} > {RTOL}")
 
-    # ---- 6-7. the dense LM serving path, and its card-vs-CPU parity ------
+    # ---- 7-8. the dense LM serving path, and its card-vs-CPU parity ------
     flash_routes = lm_path(dev)
     launches["flash_attention"] = sum(flash_routes.values())
     lm_parity(dev)
 
     # ---- the kernel table, the card, the result ---------------------------
-    # launches: weave_window / decode_packed from the main path's sweep,
-    # frfcfs_select from the weave phase's stepwise route (its path since
-    # the main path takes the fused kernel; 0 on the main path),
+    # launches: weave_window / window_inject from the main path's sweep,
+    # frfcfs_select from the weave phase's stepwise route and
+    # decode_packed from the inject phase's eager route (their paths since
+    # the main path takes the fused kernels; 0 on the main path),
     # flash_attention from the LM path's forward; its row carries the
     # route the forward takes (sm90_bf16), and both routes under "routes"
     launches["frfcfs_select"] = select_launches
+    launches["decode_packed"] = decode_launches
     flash_src = {"sm90_bf16": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "cuda_core": "src/repro_torch/csrc/flash_attention.cu"}
     weave_t = timing["weave_window"]
@@ -982,10 +1165,23 @@ def main():
         plain_ms_event=weave_t["event"]["plain_ms"],
         bound_ms_event=weave_t["event"]["bound_ms"],
         shape_event=weave_t["event"]["shape"])
+    inject_t = timing["window_inject"]
+    timing["window_inject"] = dict(
+        inject_t["dense"], ms_event=inject_t["event"]["ms"],
+        call_ms_event=inject_t["event"]["call_ms"],
+        plain_ms_event=inject_t["event"]["plain_ms"],
+        bound_ms_event=inject_t["event"]["bound_ms"],
+        window_step_ms_event=inject_t["event"]["window_step_ms"],
+        shape_event=inject_t["event"]["shape"])
     sources = {"weave_window": (
                    "src/repro_torch/csrc/weave_window.cu",
                    "src/repro/kernels/bank_timing/kernel.py:97 + the weave "
                    "scans src/repro/core/platform.py:198-239"),
+               "window_inject": (
+                   "src/repro_torch/csrc/window_inject.cu",
+                   "src/repro/kernels/addr_decode/kernel.py:57 + "
+                   "workload.generate / inject_queue / MessFrontend.update "
+                   "src/repro/core/workload.py:210-395"),
                "frfcfs_select": ("src/repro_torch/csrc/bank_timing.cu",
                                  "src/repro/kernels/bank_timing/kernel.py:97"),
                "decode_packed": ("src/repro_torch/csrc/addr_decode.cu",
@@ -1015,9 +1211,17 @@ def main():
                 "us_per_step", "ms_event", "us_per_step_event",
                 "call_ms_event", "plain_ms_event", "bound_ms_event",
                 "shape_event")})
+        if name == "window_inject":
+            table[-1].update({k: t[k] for k in (
+                "ms_event", "call_ms_event", "plain_ms_event",
+                "bound_ms_event", "window_step_ms", "window_step_ms_event",
+                "shape_event")}, idle_share_of_sweep=idle_share)
         if name == "frfcfs_select":
             table[-1].update(path="weave phase, stepwise route",
                              main_path_launches=0)
+        if name == "decode_packed":
+            table[-1].update(path="inject phase, eager route "
+                                  "(addrmap.decode)", main_path_launches=0)
     table[-1]["routes"] = [
         {"route": r, "source": flash_src[r], "launches": flash_routes[r],
          "max_abs_err": {k: e for k, e in flash_err.items()

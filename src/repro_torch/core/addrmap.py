@@ -183,6 +183,17 @@ def _is_default_geometry(dram: DramParams | None) -> bool:
         dram.lines_per_row, dram.rows_per_bank) == _DDR4_GEOMETRY
 
 
+def decode_route(mapping: str, dram: DramParams | None = None) -> str:
+    """The decode a mapping takes on a geometry: ``"simple"``,
+    ``"skylake_xor"`` (the DDR4 geometry only) or ``"xor_fold"``."""
+    if mapping not in MAPPINGS:
+        raise ValueError(f"unknown mapping {mapping!r}; "
+                         f"one of {sorted(MAPPINGS)}")
+    if mapping == "simple" or _is_default_geometry(dram):
+        return mapping
+    return "xor_fold"
+
+
 def decode(line, mapping: str = "simple",
            dram: DramParams | None = None) -> DecodedAddr:
     """Decode cache-line indices against a mapping + device geometry.
@@ -191,12 +202,10 @@ def decode(line, mapping: str = "simple",
     ``addr_decode`` kernel wrapper; on another geometry it falls back to
     the generic `decode_xor_fold` (same scatter properties).
     """
-    if mapping not in MAPPINGS:
-        raise ValueError(f"unknown mapping {mapping!r}; "
-                         f"one of {sorted(MAPPINGS)}")
-    if mapping == "simple":
+    route = decode_route(mapping, dram)
+    if route == "simple":
         return decode_simple(line, dram=dram)
-    if _is_default_geometry(dram):
+    if route == "skylake_xor":
         return DecodedAddr(*unpack(decode_packed(_lines(line))))
     return decode_xor_fold(line, dram)
 

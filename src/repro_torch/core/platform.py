@@ -15,13 +15,17 @@ returns the three memory-performance views.  Per window:
 4. **PI update**: ``l_ir' = 0.95 * l_ir + 0.05 * avg weave latency``.
 
 The window loop is a Python loop over batched tensors (the batch axis
-replaces the reference's ``vmap``).  The weave phase has two routes,
-picked by where the state lies (`_weave_route`): on the card one
-`weave_window` kernel launch runs the whole window (`_weave_fused`); on
-the CPU the stepwise loops `_weave_dense` / `_weave_event` run one
-`dram.tick` per step (they are also the kernel's plain version).  Entry
-points take ``device=None``, which means ``"cuda"``; without a card
-they raise.
+replaces the reference's ``vmap``).  Steps 1-2 and the weave phase each
+have two routes, picked by where the state lies.  Bound phase and
+interface (`_inject_route`): on the card one `window_inject` launch
+(`_bound_inject_fused`, the Mess frontend only; another frontend
+raises); on the CPU the eager ``generate`` -> ``inject_queue`` ->
+``update`` (`_bound_inject_eager`, also the kernel's plain version).
+Weave (`_weave_route`): on the card one `weave_window` launch runs the
+whole window (`_weave_fused`); on the CPU the stepwise loops
+`_weave_dense` / `_weave_event` run one `dram.tick` per step (also that
+kernel's plain version).  Entry points take ``device=None``, which
+means ``"cuda"``; without a card they raise.
 """
 from __future__ import annotations
 
@@ -31,13 +35,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core import dram, workload
+from repro_torch.core import addrmap, dram, workload
 from repro_torch.core.clocking import ClockModel, make_clock
 from repro_torch.core.dram import SchedulerPolicy
 from repro_torch.core.noc import NocModel, make_noc
 from repro_torch.core.timing import DEFAULT_PLATFORM, PlatformParams
 from repro_torch.core.workload import WorkloadConfig
 from repro_torch.kernels.weave_window import weave_window
+from repro_torch.kernels.window_inject import window_inject
 
 PI_KEEP = 0.95       # paper: 95% previous estimate
 PI_BLEND = 0.05      # paper: 5% new cycle-accurate average
@@ -235,9 +240,11 @@ def _weave_route(queue):
         else _weave_stepwise
 
 
-def _bound_inject(cfg, clock, wcfg, frontend, carry, w: int):
-    """The window's bound phase and interface hand-off (MSHR closed-loop
-    budget): ``(queue', fstate', injected, l_ir_cycles)``."""
+def _bound_inject_eager(cfg, clock, wcfg, frontend, carry, w: int):
+    """The eager route of the window's bound phase and interface hand-off
+    (MSHR closed-loop budget, ``generate``, ``inject_queue``, ``update``):
+    ``(queue', fstate', injected, l_ir_cycles)``.  The CPU's route, and
+    the `window_inject` kernel's plain version."""
     queue, _, fstate, l_ir, lat_est = carry
     cpu = cfg.platform.cpu
     l_ir_cycles = torch.clamp(torch.round(l_ir).to(_I32), min=1)
@@ -249,6 +256,36 @@ def _bound_inject(cfg, clock, wcfg, frontend, carry, w: int):
                                                         w, wcfg)
     return (queue, frontend.update(fstate, aux, acc_demand), injected,
             l_ir_cycles)
+
+
+def _bound_inject_fused(cfg, clock, wcfg, frontend, carry, w: int):
+    """The card's route: the same in one `window_inject` launch, equal bit
+    for bit to `_bound_inject_eager` (the Mess frontend only)."""
+    if type(frontend) is not workload.MessFrontend:
+        raise NotImplementedError(
+            f"{type(frontend).__name__} on the card: only the Mess "
+            f"frontend has the window_inject kernel; the trace frontends "
+            f"are ROADMAP Queue 1 item 8")
+    queue, _, fstate, l_ir, lat_est = carry
+    cpu = cfg.platform.cpu
+    return window_inject(
+        queue, fstate, frontend.pace, frontend.wr_num, l_ir, lat_est, w=w,
+        wcfg=wcfg, clock=clock,
+        mapping=addrmap.decode_route(wcfg.mapping, wcfg.dram),
+        window_cycles=cpu.window_cycles,
+        window_ps=cpu.window_cycles * cpu.cpu_ps_per_clk)
+
+
+def _inject_route(queue):
+    """Card state takes the fused kernel, CPU state the eager route."""
+    return _bound_inject_fused if queue.valid.device.type == "cuda" \
+        else _bound_inject_eager
+
+
+def _bound_inject(cfg, clock, wcfg, frontend, carry, w: int):
+    """The window's bound phase and interface hand-off on the route the
+    state's device gives: ``(queue', fstate', injected, l_ir_cycles)``."""
+    return _inject_route(carry[0])(cfg, clock, wcfg, frontend, carry, w)
 
 
 def _tick_kw(cfg: StageConfig, clock: ClockModel, device) -> dict:

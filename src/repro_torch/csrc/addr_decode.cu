@@ -5,7 +5,8 @@
 // 32-bit cache-line index maps to one packed word:
 //   ch 3b | rank 1b << 3 | bank 4b << 4 | col 7b << 8 | row 17b << 15
 // from the MC-select XOR, the mod-3 channel fold, the bank-group/bank and
-// rank XORs, the column fold and the row bits.
+// rank XORs, the column fold and the row bits (addr_decode.cuh, shared
+// with window_inject.cu, which runs the same body on the main path).
 //
 // What bounds it on an H100: 4 bytes in and 4 bytes out per line and a
 // few dozen integer operations, so it is bound by bytes -- and at the
@@ -17,35 +18,20 @@
 
 #include <cstdint>
 
+#include "addr_decode.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 8;  // 8 resident blocks on each SM
-
-__device__ __forceinline__ uint32_t bit(uint32_t x, int i) {
-  return (x >> i) & 1u;
-}
 
 __global__ void decode_packed_kernel(const uint32_t* __restrict__ lines,
                                      uint32_t* __restrict__ out, int64_t n) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
-       i < n; i += stride) {
-    const uint32_t l = lines[i];
-    const uint32_t mc = bit(l, 0) ^ bit(l, 6) ^ bit(l, 11) ^ bit(l, 17);
-    const uint32_t ch3 = ((l >> 1) ^ (l >> 7) ^ (l >> 13) ^ (l >> 19)) % 3u;
-    const uint32_t ch = mc * 3u + ch3;
-    const uint32_t bg0 = bit(l, 2) ^ bit(l, 12);
-    const uint32_t bg1 = bit(l, 3) ^ bit(l, 14);
-    const uint32_t ba0 = bit(l, 4) ^ bit(l, 15);
-    const uint32_t ba1 = bit(l, 5) ^ bit(l, 16);
-    const uint32_t bank = bg0 | (bg1 << 1) | (ba0 << 2) | (ba1 << 3);
-    const uint32_t rank = bit(l, 8) ^ bit(l, 18);
-    const uint32_t col = (l ^ (l >> 9)) % 128u;
-    const uint32_t row = (l >> 9) & 0x1FFFFu;
-    out[i] = ch | (rank << 3) | (bank << 4) | (col << 8) | (row << 15);
-  }
+       i < n; i += stride)
+    out[i] = addr_decode::pack(addr_decode::skylake_xor(lines[i]));
 }
 
 }  // namespace

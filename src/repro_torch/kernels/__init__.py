@@ -6,8 +6,13 @@
   (``csrc/weave_window.cu``).
 * `bank_timing.frfcfs_select` — FR-FCFS eligibility + select, the body
   of every step of the stepwise weave route (``csrc/bank_timing.cu``).
-* `addr_decode.decode_packed` — Skylake XOR address decode of every
-  injected request on the DDR4 geometry (``csrc/addr_decode.cu``).
+* `window_inject.window_inject` — one whole window's bound phase and
+  interface hand-off (generate, decode under every mapping, admission,
+  queue scatter, frontend update) in one launch: the card's route for
+  the Mess frontend (``csrc/window_inject.cu``).
+* `addr_decode.decode_packed` — Skylake XOR address decode on the DDR4
+  geometry, ``addrmap.decode``'s card route (``csrc/addr_decode.cu``;
+  its body, ``csrc/addr_decode.cuh``, is shared with `window_inject`).
 * `flash_attention.flash_attention` — block-wise online-softmax GQA
   attention of the LM prefill forward: bf16 at head dim 64 or 128 on
   the tensor cores (``csrc/flash_attention_sm90.cu``), everything else
@@ -20,9 +25,10 @@ from repro_torch.kernels.addr_decode import decode_packed
 from repro_torch.kernels.bank_timing import frfcfs_select
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.weave_window import weave_window
+from repro_torch.kernels.window_inject import window_inject
 
-WRAPPERS = {"weave_window": weave_window, "frfcfs_select": frfcfs_select,
-            "decode_packed": decode_packed,
+WRAPPERS = {"weave_window": weave_window, "window_inject": window_inject,
+            "frfcfs_select": frfcfs_select, "decode_packed": decode_packed,
             "flash_attention": flash_attention}
 
 

@@ -1,0 +1,7 @@
+"""One window's bound phase and interface hand-off in one kernel launch."""
+from repro_torch.kernels.window_inject.ops import (MAPPINGS, MAX_Q,
+                                                   PARAM_NAMES, pack_params,
+                                                   prepare, window_inject)
+
+__all__ = ["MAPPINGS", "MAX_Q", "PARAM_NAMES", "pack_params", "prepare",
+           "window_inject"]
