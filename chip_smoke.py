@@ -13,8 +13,9 @@ Phases, each printing one JSON line:
    the interface kernel, and the flash kernel's shared memory.
 2. **kernels** — each per-call CUDA kernel against its plain PyTorch
    version on the card: ``frfcfs_select`` and ``decode_packed`` bit for
-   bit over the main path's shapes, then both timed at the main path's
-   batch; ``flash_attention`` at the shapes of ``tests/test_kernels.py``
+   bit over the main path's shapes, then ``frfcfs_select`` timed at the
+   Mess sweep's dense batch and ``decode_packed`` at the trace route's
+   window batch (and at the sweep's); ``flash_attention`` at the shapes of ``tests/test_kernels.py``
    plus a decode (Sq = 1) and a ragged query tile at D = 128 and 64, in
    fp32 (within 2e-6) and bf16 (within 2e-2), each check on the route
    that ``route`` gives it (bf16 at D 64 or 128: the Hopper kernel; the
@@ -33,8 +34,7 @@ Phases, each printing one JSON line:
    05 and 07 (Skylake XOR, without and with prefetch) on ddr4_2666 (one
    and two sockets, interleaved and partitioned), stages 07 and 01 on
    ddr5_4800 (xor_fold and simple) and 07 on hbm2e (xor_fold; one and
-   two sockets).  The launch counts of this phase give
-   ``decode_packed``'s row.
+   two sockets).
 4. **weave** — the two weave routes on the card, window by window on
    the same injected state (3 windows, paces 4 and 48): ``weave_window``
    (one launch per window) against the stepwise loop (``dram.tick`` /
@@ -61,7 +61,22 @@ Phases, each printing one JSON line:
 6. **parity** — one stage-07 ``run_point`` on the card (the fused
    route) and on the CPU (the stepwise route) through the same port:
    equal integers, float views within 1e-6.
-7. **lm_path** — the dense LM serving path at the full width and depth
+7. **replay** — the application perspective on the trace route (the
+   eager bound phase and injection on card tensors, whose Skylake decode
+   is one ``decode_packed`` launch, and one ``weave_window`` launch per
+   window batch): the six apps (``n=2048``, 4 windows) at stages 01, 07
+   and 10 and the three mixes of ``app_validation.MIXES`` on two sockets
+   at stage 10, card against CPU (counts, cursors and runtimes equal,
+   float views within 1e-6); then the validation ladder at its full
+   setting (``app_validation.run_preset("ddr4_2666", full=True)``: 6
+   apps x 8192 accesses, 96 windows, five stages) with each stage's
+   wall, host ms per window batch, runtimes, MAPE, dense re-runs and
+   launches (``weave_window`` >= 96 and ``window_inject`` 0 at every
+   stage, ``decode_packed`` >= 96 at 07 and 10 and 0 at 01, 03, 04),
+   the multiprogrammed ladder (``run_mixes``, FAST), and stage 10 once
+   more under ``torch.profiler`` (device time by kernel, idle share).
+   The ladder's launches give ``decode_packed``'s row.
+8. **lm_path** — the dense LM serving path at the full width and depth
    of tinyllama-1.1b (bf16, weights from a seed, flash kernel on): five
    forwards over 2 x 2048 tokens (each 22 launches of the Hopper route,
    none of the CUDA-core one; the median wall gives tokens/s), one more
@@ -70,7 +85,7 @@ Phases, each printing one JSON line:
    line), prefill of the first 2047 tokens (22 Hopper launches) + one
    decode step agreeing with the forward's last position, and the
    greedy Engine answering 8 requests on 4 slots.
-8. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
+9. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
    256 tokens, fp32 (the CUDA-core route), on the card and on the CPU
    (plain version), from the same weights, within 1e-4.
 
@@ -152,6 +167,20 @@ INJECT_CASES = [("01-baseline", "ddr4_2666", 1, "interleaved"),   # simple
                 ("07-prefetch", "hbm2e", 2, "partitioned")]
 INJECT_WINDOWS = 4
 INJECT_POINTS = ((1, 0), (12, 16), (48, 32), (64, 48))    # (pace, wr_num)
+
+# replay phase: the six apps through the card's trace route and the CPU's
+# eager route, then the validation ladder at its full setting
+REPLAY_N, REPLAY_WINDOWS, REPLAY_WARMUP = 2048, 4, 1
+REPLAY_STAGES = ("01-baseline", "07-prefetch", "10-delay-buffer")
+REPLAY_MIX_STAGE, REPLAY_MIX_SOCKETS = "10-delay-buffer", 2
+# exact on both routes: the counts, cursors and the runtimes made of them
+REPLAY_EXACT = ("progress", "runtime_windows", "done", "n_rd", "n_wr",
+                "injected", "weave_events", "weave_sat", "progress_final",
+                "core_runtime_windows", "core_done", "app_runtime_windows",
+                "app_done")
+# stages of the ladder whose decode is Skylake XOR on ddr4_2666
+LADDER_XOR_STAGES = ("07-prefetch", "10-delay-buffer")
+LADDER_PROFILED_STAGE = "10-delay-buffer"
 
 
 def emit(obj):
@@ -741,46 +770,43 @@ def device_busy(dev_events):
     return busy, max(z for _, z in spans) - spans[0][0]
 
 
-def profile_sweep(cfg, unprofiled_wall_s):
-    """The main path's sweep once more under torch.profiler: the weave and
-    interface kernels' device time, the device's busy time by kernel and
-    its idle share over the sweep's wall (profiled and not)."""
+def profile_run(head, run, unprofiled_wall_s, kernels):
+    """``run()`` once more under torch.profiler: the device time and
+    launches of each kernel in ``kernels`` (key prefix -> a substring of
+    its name), the device's busy time by kernel and its idle share over
+    the run's wall (profiled and not).  ``head`` starts the JSON line."""
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import sweep
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sweep(cfg, paces=FAST_PACES, write_mixes=FAST_MIXES)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {"phase": "profile", "what": "the main path's FAST sweep",
-           "wall_s_profiled": wall_us / 1e6,
-           "device_events": len(dev_events)}
+    out = dict(head, wall_s_profiled=wall_us / 1e6,
+               device_events=len(dev_events))
     if not dev_events:
         out["note"] = "the profiler showed no device time on this machine"
         emit(out)
         return out
     busy, window = device_busy(dev_events)
-    weave = [e for e in dev_events if "weave_window" in e.name]
-    inject = [e for e in dev_events if "window_inject" in e.name]
+    n_named = 0
+    for key, word in kernels.items():
+        named = [e for e in dev_events if word in e.name]
+        n_named += len(named)
+        out[f"{key}_launches"] = len(named)
+        out[f"{key}_device_s"] = sum(e.time_range.end - e.time_range.start
+                                     for e in named) / 1e6
     by_name = {}
     for e in dev_events:
         n, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (n + e.time_range.end - e.time_range.start, c + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     out.update(
-        weave_launches=len(weave),
-        weave_device_s=sum(e.time_range.end - e.time_range.start
-                           for e in weave) / 1e6,
-        inject_launches=len(inject),
-        inject_device_s=sum(e.time_range.end - e.time_range.start
-                            for e in inject) / 1e6,
-        other_kernels=len(dev_events) - len(weave) - len(inject),
+        other_kernels=len(dev_events) - n_named,
         device_busy_s=busy / 1e6, device_window_s=window / 1e6,
         idle_share_of_wall=1 - busy / wall_us,
         idle_share_of_unprofiled_wall=1 - busy / (unprofiled_wall_s * 1e6),
@@ -788,6 +814,179 @@ def profile_sweep(cfg, unprofiled_wall_s):
                      for n, (us, c) in top])
     emit(out)
     return out
+
+
+def profile_sweep(cfg, unprofiled_wall_s):
+    """The main path's sweep once more under torch.profiler (the weave
+    and interface kernels)."""
+    from repro_torch.core import sweep
+
+    return profile_run(
+        {"phase": "profile", "what": "the main path's FAST sweep"},
+        lambda: sweep(cfg, paces=FAST_PACES, write_mixes=FAST_MIXES),
+        unprofiled_wall_s, {"weave": "weave_window",
+                            "inject": "window_inject"})
+
+
+def compare_replay(card, cpu):
+    """Worst relative float error between two replay dicts; raises where
+    an exact key (counts, cursors, runtimes made of them) differs."""
+    worst = 0.0
+    for k, ref in cpu.items():
+        got = card[k]
+        if k in REPLAY_EXACT or not np.issubdtype(ref.dtype, np.floating):
+            if not np.array_equal(got, ref, equal_nan=ref.dtype.kind == "f"):
+                raise AssertionError(f"replay {k}: card {got.tolist()} != "
+                                     f"cpu {ref.tolist()}")
+            continue
+        both = np.isfinite(ref)
+        if not np.array_equal(both, np.isfinite(got)):
+            raise AssertionError(f"replay {k}: card {got} vs cpu {ref}")
+        rel = np.abs(got[both] - ref[both]) / np.maximum(np.abs(ref[both]),
+                                                         1e-30)
+        worst = max(worst, float(rel.max(initial=0.0)))
+    return worst
+
+
+def replay_parity(dev):
+    """The trace route on the card against the CPU's eager route: the six
+    apps at three stages, then the three mixes on two sockets."""
+    from repro_torch import kernels
+    from repro_torch.bench.app_validation import MIXES
+    from repro_torch.core import get_stage
+    from repro_torch.traces import (assign_traces, make_suite, replay_mixes,
+                                    replay_suite, split_cores, stack_mixes,
+                                    stack_traces, to)
+
+    knobs = dict(windows=REPLAY_WINDOWS, warmup=REPLAY_WARMUP)
+    names, traces = make_suite(n=REPLAY_N)
+    batch = stack_traces(traces)
+    n_cores = 24 * REPLAY_MIX_SOCKETS
+    mixes = stack_mixes([assign_traces(make_suite(n=REPLAY_N, names=k)[1],
+                                       split_cores(len(k), n_cores))
+                         for _, k in MIXES])
+    cases = [(st, 1, batch, replay_suite) for st in REPLAY_STAGES] + [
+        (REPLAY_MIX_STAGE, REPLAY_MIX_SOCKETS, mixes, replay_mixes)]
+    rows, worst = [], 0.0
+    for stage, sockets, data, fn in cases:
+        cfg = get_stage(stage, n_sockets=sockets, **knobs)
+        on_card_data = to(data, dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = fn(cfg, on_card_data)
+        card_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        t0 = time.perf_counter()
+        cpu = fn(cfg, data, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        rel = compare_replay(card, cpu)
+        worst = max(worst, rel)
+        batches = cfg.windows * (1 + int((card["weave_sat"] > 0).any()))
+        rows.append({"stage": stage, "sockets": sockets,
+                     "what": "3 mixes" if fn is replay_mixes else "6 apps",
+                     "ints_equal": True, "max_rel_err": rel,
+                     "dense_reruns": int((card["weave_sat"] > 0).sum()),
+                     "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
+                     "injected": card["injected"].tolist()})
+        xor = cfg.mapping == "skylake_xor"
+        if (launches["weave_window"] != batches
+                or launches["window_inject"] != 0
+                or launches["decode_packed"] != (batches if xor else 0)):
+            raise AssertionError(f"replay {stage}: launches {launches}, "
+                                 f"expected {batches} weave_window, "
+                                 f"{batches if xor else 0} decode_packed, "
+                                 f"0 window_inject")
+    emit({"phase": "replay", "part": "card_vs_cpu", "apps": list(names),
+          "n": REPLAY_N, **knobs, "cases": rows, "max_rel_err": worst,
+          "rtol": RTOL})
+    if not worst <= RTOL:
+        raise AssertionError(f"replay float views differ by {worst} > "
+                             f"{RTOL}")
+    return worst
+
+
+def profile_replay(cfg, batch, unprofiled_wall_s):
+    """One stage of the ladder once more under torch.profiler (the weave
+    kernel and the trace route's decode)."""
+    from repro_torch.traces import replay_suite
+
+    return profile_run(
+        {"phase": "replay", "part": "profile", "stage": cfg.name},
+        lambda: replay_suite(cfg, batch), unprofiled_wall_s,
+        {"weave": "weave_window", "decode": "decode_packed"})
+
+
+def ladder(dev):
+    """The application-validation ladder at its full setting on the card
+    (6 apps x 8192 accesses, 96 windows, the five stages), with each
+    stage's launches; then the multiprogrammed ladder (FAST), and one
+    stage profiled.  Returns the launches of the whole ladder and the
+    profile."""
+    from repro_torch import kernels
+    from repro_torch.bench import app_validation as av
+    from repro_torch.core import get_stage
+    from repro_torch.traces import make_suite, stack_traces, to
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = av.run_preset("ddr4_2666", full=True)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    stages, bad = [], []
+    for stage, out in results.items():
+        reruns = int((out["weave_sat"] > 0).sum())
+        batches = av.FULL["windows"] * (1 + int(reruns > 0))
+        n = out["launches"]
+        stages.append({
+            "stage": stage, "wall_s": out["wall_s"],
+            "window_batches": batches,
+            "host_ms_per_window_batch": out["wall_s"] * 1e3 / batches,
+            "mape_pct": out["mape_pct"], "dense_reruns": reruns,
+            "runtime_ms": dict(zip(out["apps"],
+                                   out["runtime_ms"].tolist())),
+            "anchor_ms": dict(zip(out["apps"], out["anchor_ms"].tolist())),
+            "done": out["done"].tolist(),
+            "weave_events": out["weave_events"].tolist(),
+            "launches": n})
+        xor = stage in LADDER_XOR_STAGES
+        if (n["weave_window"] < av.FULL["windows"] or n["window_inject"]
+                or (n["decode_packed"] < av.FULL["windows"] if xor
+                    else n["decode_packed"])):
+            bad.append((stage, n))
+        for k in ("runtime_ms", "sim_bw_gbs", "if_lat_ns"):
+            if not np.isfinite(out[k]).all() or (out[k] <= 0).any():
+                bad.append((stage, k, out[k].tolist()))
+    emit({"phase": "replay", "part": "ladder", "preset": "ddr4_2666",
+          "knobs": av.FULL, "apps": list(results[av.STAGES[0]]["apps"]),
+          "wall_s": wall, "stages": stages, "launches": launches})
+    if bad:
+        raise AssertionError(f"ladder: launches or results out of rule: "
+                             f"{bad} (expected weave_window >= 96, "
+                             f"window_inject 0, decode_packed >= 96 at "
+                             f"{LADDER_XOR_STAGES} and 0 elsewhere)")
+
+    t0 = time.perf_counter()
+    mixes = av.run_mixes("ddr4_2666", full=False)
+    emit({"phase": "replay", "part": "mix_ladder", "preset": "ddr4_2666",
+          "knobs": av.FAST, "wall_s": time.perf_counter() - t0,
+          "stages": [{"stage": st, "wall_s": out["wall_s"],
+                      "mix_mape_pct": dict(zip(
+                          [m for m, _ in out["mixes"]],
+                          out["mix_mape_pct"])),
+                      "app_runtime_ms": {
+                          m: dict(zip(a, out["app_runtime_ms"][i].tolist()))
+                          for i, (m, a) in enumerate(out["mixes"])},
+                      "solo_runtime_ms": {k: float(v) for k, v in
+                                          out["solo_runtime_ms"].items()},
+                      "dense_reruns": int((out["weave_sat"] > 0).sum())}
+                     for st, out in mixes.items()]})
+
+    cfg = get_stage(LADDER_PROFILED_STAGE, windows=av.FULL["windows"],
+                    warmup=av.FULL["warmup"])
+    batch = to(stack_traces(make_suite(n=av.FULL["n"])[1]), dev)
+    prof = profile_replay(cfg, batch,
+                          results[LADDER_PROFILED_STAGE]["wall_s"])
+    return launches, prof
 
 
 def lm_path(dev):
@@ -1000,7 +1199,9 @@ def main():
                     mismatches["frfcfs_select"] += int((diff != 0).sum())
                 checked["frfcfs_select"] += n_dense * C
     n_main = n_dense * cfg.workload_config().n_cores * 80
-    for n in (1, 100, 4097, n_main, 1 << 20):
+    # the trace route's decode: six apps x 24 cores x 80 candidates
+    n_replay = 6 * cfg.workload_config().n_cores * 80
+    for n in (1, 100, 4097, n_replay, n_main, 1 << 20):
         lines = chase_lines(rng, n, dev)
         diff = (decode_packed(lines).long()
                 - decode_packed_plain(lines).long()).abs()
@@ -1010,19 +1211,26 @@ def main():
         checked["decode_packed"] += n
     torch.cuda.synchronize()
 
-    # timing at the main path's dense batch: B points x 6 channels x 256
+    # timing: frfcfs_select at the main path's dense batch (B points x 6
+    # channels x 256), decode_packed at the trace route's window batch
     rows, Q = n_dense * cfg.platform.dram.n_channels, 256
     planes, scal = select_inputs(rng, rows, Q, dev)
-    lines = chase_lines(rng, n_main, dev)
-    bits = to_int32_bits(lines & 0xFFFFFFFF).contiguous()
-    out = torch.empty_like(bits)
     launch = _build.function("decode_packed_launch", decode_ops._ARGTYPES)
 
-    def decode_kernel():
-        err = launch(bits.data_ptr(), out.data_ptr(), n_main,
-                     torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"decode_packed launch: CUDA error {err}")
+    def decode_kernel(n):
+        """The kernel's C entry point on ``n`` prepared lines."""
+        bits = to_int32_bits(chase_lines(rng, n, dev)
+                             & 0xFFFFFFFF).contiguous()
+        out = torch.empty_like(bits)
+
+        def run():
+            err = launch(bits.data_ptr(), out.data_ptr(), n,
+                         torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"decode_packed launch: CUDA error {err}")
+        return run
+
+    lines = chase_lines(rng, n_replay, dev)
 
     # ms: device time per launch; call_ms: one wrapper call in the eager
     # loop; plain_ms: the plain version on the same card and inputs
@@ -1034,10 +1242,12 @@ def main():
             bytes=rows * (11 * Q * 4 + 8 * 4) + rows * 2 * 4,
             shape=f"{rows}x{Q}"),
         "decode_packed": dict(
-            ms=device_ms(decode_kernel, 200),
+            ms=device_ms(decode_kernel(n_replay), 200),
             call_ms=time_ms(lambda: decode_packed(lines), 500),
             plain_ms=time_ms(lambda: decode_packed_plain(lines), 50),
-            bytes=n_main * 4 * 2, shape=f"{n_main}"),
+            bytes=n_replay * 4 * 2, shape=f"{n_replay}",
+            ms_at_sweep_batch=device_ms(decode_kernel(n_main), 200),
+            sweep_batch_shape=f"{n_main}"),
     }
     emit({"phase": "kernels", "checked": checked, "mismatches": mismatches,
           "max_abs_err": max_err, "timing": timing})
@@ -1141,20 +1351,25 @@ def main():
     if not worst <= RTOL:
         raise AssertionError(f"float views differ by {worst} > {RTOL}")
 
-    # ---- 7-8. the dense LM serving path, and its card-vs-CPU parity ------
+    # ---- 7. the application perspective on the trace route --------------
+    replay_rel = replay_parity(dev)
+    ladder_launches, replay_prof = ladder(dev)
+
+    # ---- 8-9. the dense LM serving path, and its card-vs-CPU parity ------
     flash_routes = lm_path(dev)
     launches["flash_attention"] = sum(flash_routes.values())
     lm_parity(dev)
 
     # ---- the kernel table, the card, the result ---------------------------
-    # launches: weave_window / window_inject from the main path's sweep,
-    # frfcfs_select from the weave phase's stepwise route and
-    # decode_packed from the inject phase's eager route (their paths since
-    # the main path takes the fused kernels; 0 on the main path),
-    # flash_attention from the LM path's forward; its row carries the
-    # route the forward takes (sm90_bf16), and both routes under "routes"
+    # launches: weave_window / window_inject from the main path's sweep
+    # (weave_window's ladder launches beside them), frfcfs_select from the
+    # weave phase's stepwise route (0 on the main path), decode_packed from
+    # the replay ladder's trace route (its path since the Mess sweep takes
+    # window_inject), flash_attention from the LM path's forward; its row
+    # carries the route the forward takes (sm90_bf16), and both routes
+    # under "routes"
     launches["frfcfs_select"] = select_launches
-    launches["decode_packed"] = decode_launches
+    launches["decode_packed"] = ladder_launches["decode_packed"]
     flash_src = {"sm90_bf16": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "cuda_core": "src/repro_torch/csrc/flash_attention.cu"}
     weave_t = timing["weave_window"]
@@ -1210,7 +1425,8 @@ def main():
             table[-1].update({k: t[k] for k in (
                 "us_per_step", "ms_event", "us_per_step_event",
                 "call_ms_event", "plain_ms_event", "bound_ms_event",
-                "shape_event")})
+                "shape_event")},
+                replay_launches=ladder_launches["weave_window"])
         if name == "window_inject":
             table[-1].update({k: t[k] for k in (
                 "ms_event", "call_ms_event", "plain_ms_event",
@@ -1220,8 +1436,14 @@ def main():
             table[-1].update(path="weave phase, stepwise route",
                              main_path_launches=0)
         if name == "decode_packed":
-            table[-1].update(path="inject phase, eager route "
-                                  "(addrmap.decode)", main_path_launches=0)
+            table[-1].update(
+                path="replay, trace route", sweep_launches=0,
+                inject_phase_launches=decode_launches,
+                ms_at_sweep_batch=t["ms_at_sweep_batch"],
+                sweep_batch_shape=t["sweep_batch_shape"],
+                replay_profile_device_s=replay_prof.get("decode_device_s"),
+                replay_profile_launches=replay_prof.get("decode_launches"),
+                replay_card_vs_cpu_max_rel_err=replay_rel)
     table[-1]["routes"] = [
         {"route": r, "source": flash_src[r], "launches": flash_routes[r],
          "max_abs_err": {k: e for k, e in flash_err.items()

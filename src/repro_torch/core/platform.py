@@ -16,16 +16,19 @@ returns the three memory-performance views.  Per window:
 
 The window loop is a Python loop over batched tensors (the batch axis
 replaces the reference's ``vmap``).  Steps 1-2 and the weave phase each
-have two routes, picked by where the state lies.  Bound phase and
-interface (`_inject_route`): on the card one `window_inject` launch
-(`_bound_inject_fused`, the Mess frontend only; another frontend
-raises); on the CPU the eager ``generate`` -> ``inject_queue`` ->
-``update`` (`_bound_inject_eager`, also the kernel's plain version).
-Weave (`_weave_route`): on the card one `weave_window` launch runs the
-whole window (`_weave_fused`); on the CPU the stepwise loops
-`_weave_dense` / `_weave_event` run one `dram.tick` per step (also that
-kernel's plain version).  Entry points take ``device=None``, which
-means ``"cuda"``; without a card they raise.
+have two routes.  Bound phase and interface (`_inject_route`, by where
+the state lies and the frontend's type): on the card the Mess frontend
+takes one `window_inject` launch (`_bound_inject_fused`) and the trace
+frontend the eager route on card tensors (the trace route, whose
+Skylake decode is one `decode_packed` launch); any other frontend on
+the card raises.  On the CPU every frontend takes the eager
+``bound`` -> ``inject_queue`` -> ``update`` (`_bound_inject_eager`,
+also the kernel's plain version).  Weave (`_weave_route`): on the card
+one `weave_window` launch runs the whole window (`_weave_fused`); on
+the CPU the stepwise loops `_weave_dense` / `_weave_event` run one
+`dram.tick` per step (also that kernel's plain version).  Entry points
+take ``device=None``, which means ``"cuda"``; without a card they
+raise.
 """
 from __future__ import annotations
 
@@ -242,9 +245,10 @@ def _weave_route(queue):
 
 def _bound_inject_eager(cfg, clock, wcfg, frontend, carry, w: int):
     """The eager route of the window's bound phase and interface hand-off
-    (MSHR closed-loop budget, ``generate``, ``inject_queue``, ``update``):
-    ``(queue', fstate', injected, l_ir_cycles)``.  The CPU's route, and
-    the `window_inject` kernel's plain version."""
+    (MSHR closed-loop budget, the frontend's ``bound``, ``inject_queue``,
+    ``update``): ``(queue', fstate', injected, l_ir_cycles)``.  The CPU's
+    route, the trace frontend's route on the card, and the
+    `window_inject` kernel's plain version."""
     queue, _, fstate, l_ir, lat_est = carry
     cpu = cfg.platform.cpu
     l_ir_cycles = torch.clamp(torch.round(l_ir).to(_I32), min=1)
@@ -259,13 +263,12 @@ def _bound_inject_eager(cfg, clock, wcfg, frontend, carry, w: int):
 
 
 def _bound_inject_fused(cfg, clock, wcfg, frontend, carry, w: int):
-    """The card's route: the same in one `window_inject` launch, equal bit
-    for bit to `_bound_inject_eager` (the Mess frontend only)."""
+    """The Mess frontend's route on the card: the same in one
+    `window_inject` launch, equal bit for bit to `_bound_inject_eager`."""
     if type(frontend) is not workload.MessFrontend:
         raise NotImplementedError(
             f"{type(frontend).__name__} on the card: only the Mess "
-            f"frontend has the window_inject kernel; the trace frontends "
-            f"are ROADMAP Queue 1 item 8")
+            f"frontend has the window_inject kernel")
     queue, _, fstate, l_ir, lat_est = carry
     cpu = cfg.platform.cpu
     return window_inject(
@@ -276,16 +279,31 @@ def _bound_inject_fused(cfg, clock, wcfg, frontend, carry, w: int):
         window_ps=cpu.window_cycles * cpu.cpu_ps_per_clk)
 
 
-def _inject_route(queue):
-    """Card state takes the fused kernel, CPU state the eager route."""
-    return _bound_inject_fused if queue.valid.device.type == "cuda" \
-        else _bound_inject_eager
+def _inject_route(queue, frontend):
+    """The route of the bound phase and interface hand-off, by rule: CPU
+    state takes the eager route; card state takes the fused kernel with
+    the Mess frontend and the eager route on card tensors (the trace
+    route) with the trace frontend.  Any other frontend on the card
+    raises: the choice is by type, never a fallback."""
+    if queue.valid.device.type != "cuda":
+        return _bound_inject_eager
+    if type(frontend) is workload.MessFrontend:
+        return _bound_inject_fused
+    # imported here: the traces package imports this module
+    from repro_torch.traces.frontend import TraceFrontend
+    if type(frontend) is TraceFrontend:
+        return _bound_inject_eager
+    raise NotImplementedError(
+        f"{type(frontend).__name__} on the card: the card's bound phase "
+        f"has a route for MessFrontend (window_inject) and TraceFrontend "
+        f"(the trace route) only")
 
 
 def _bound_inject(cfg, clock, wcfg, frontend, carry, w: int):
-    """The window's bound phase and interface hand-off on the route the
-    state's device gives: ``(queue', fstate', injected, l_ir_cycles)``."""
-    return _inject_route(carry[0])(cfg, clock, wcfg, frontend, carry, w)
+    """The window's bound phase and interface hand-off on the route
+    `_inject_route` gives: ``(queue', fstate', injected, l_ir_cycles)``."""
+    return _inject_route(carry[0], frontend)(cfg, clock, wcfg, frontend,
+                                             carry, w)
 
 
 def _tick_kw(cfg: StageConfig, clock: ClockModel, device) -> dict:

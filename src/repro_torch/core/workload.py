@@ -32,6 +32,7 @@ N_CORES = N_CORES_PER_SOCKET
 CAP_DEMAND = 64            # max demand candidates / core / window
 CAP_PF = 16                # max prefetch candidates / core / window
 CAND = CAP_DEMAND + CAP_PF
+SEGMENT_LINES = 64         # traffic stream segment length
 BACKLOG_MAX = 192
 CHASE_REGION_BITS = 26     # 4 GB pointer-chase region
 #: per-core outstanding-miss bound (Skylake L2 superqueue): the closed loop

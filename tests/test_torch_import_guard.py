@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the port runs with
-``jax`` blocked."""
+``chip_smoke.py`` imports JAX or the JAX package, and the port (a Mess
+point, a trace replay, a dense forward) runs with ``jax`` blocked."""
 import ast
 import pathlib
 import subprocess
@@ -38,6 +38,12 @@ from repro_torch.core import get_stage, run_point
 out = run_point(get_stage("07-prefetch", windows=1, warmup=0), [2, 8], 16,
                 device="cpu")
 assert int(out["n_rd"].sum()) > 0
+import repro_torch.bench.app_validation
+from repro_torch.traces import make_suite, replay_suite, stack_traces
+rep = replay_suite(get_stage("01-baseline", windows=1, warmup=0),
+                   stack_traces(make_suite(n=64, names=("stream",))[1]),
+                   device="cpu")
+assert int(rep["injected"][0]) > 0
 from repro_torch.configs.registry import get_smoke
 from repro_torch.models.registry import get_model
 cfg = get_smoke("tinyllama-1.1b")

@@ -67,10 +67,12 @@ class _OtherFrontend(workload.MessFrontend):
 def test_route_rule_cpu_takes_eager_route():
     cfg = get_stage("07-prefetch", windows=2, warmup=0)
     q = dram.init_queue(cfg.platform.dram, cfg.policy)
-    assert platform._inject_route(q) is platform._bound_inject_eager
+    pace = torch.tensor([4], dtype=torch.int32)
+    fe = workload.MessFrontend(pace, pace, cfg.workload_config())
+    assert platform._inject_route(q, fe) is platform._bound_inject_eager
     on_card = types.SimpleNamespace(
         valid=types.SimpleNamespace(device=torch.device("cuda")))
-    assert platform._inject_route(on_card) is platform._bound_inject_fused
+    assert platform._inject_route(on_card, fe) is platform._bound_inject_fused
     kernels.reset_launch_counts()
     out = platform.run_point(cfg, [4], 16, device="cpu")
     assert kernels.launch_counts()["window_inject"] == 0
@@ -84,7 +86,9 @@ def test_other_frontend_on_card_raises():
     carry = platform._init_carry(cfg, fe, 1, "cpu")
     on_card = types.SimpleNamespace(
         valid=types.SimpleNamespace(device=torch.device("cuda")))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError,
+                       match="_OtherFrontend on the card: the card's bound "
+                             "phase has a route for MessFrontend"):
         platform._bound_inject(cfg, cfg.clock(), cfg.workload_config(), fe,
                                (on_card,) + tuple(carry[1:]), 0)
     with pytest.raises(NotImplementedError, match="_OtherFrontend"):
