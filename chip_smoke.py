@@ -45,6 +45,15 @@ Phases, each printing one JSON line:
    dense and event; then the card's fused route against the CPU's
    stepwise route on one case.  The launch counts of this phase give
    ``frfcfs_select``'s row.
+   **telemetry** (run after phase 6, so that the main path's host
+   timing follows the same phases as before) — the same grid with both
+   recorders on: the recording
+   instance of ``weave_window`` (``<true, true>``) against the stepwise
+   loop with ``dram.tick``'s flags, on the card, bit for bit in every
+   state field, stat, ``tele_*`` plane, ``TeleState`` and ``cmd_*``
+   field; the plain instance on the same state gives the same state and
+   stats (the flags move nothing); the event engine with a budget that
+   covers the window gives the dense planes.
 5. **main_path** — the repository's default benchmark run of the full
    paper stack: ``sweep(get_stage("07-prefetch", windows=48,
    warmup=16), paces=(1, 4, 12, 24, 48, 64), write_mixes=(0, 16, 32))``
@@ -75,8 +84,26 @@ Phases, each printing one JSON line:
    stage, ``decode_packed`` >= 96 at 07 and 10 and 0 at 01, 03, 04),
    the multiprogrammed ladder (``run_mixes``, FAST), and stage 10 once
    more under ``torch.profiler`` (device time by kernel, idle share).
+   The ladder runs with telemetry, as the reference's does (the
+   telemetry instance of ``weave_window``, the ``if_p50/95/99`` per app).
    The ladder's launches give ``decode_packed``'s row.
-8. **lm_path** — the dense LM serving path at the full width and depth
+8. **perspectives** — the port's ``bench.perspectives`` ladder (stages
+   01-10, one STREAM + GUPS mix, telemetry on) at ``SMOKE`` on the card,
+   every ladder value held within 1e-9 of the reference's
+   ``reports/benchmarks/perspectives.json`` (read, never written) and its
+   summaries equal; 240 telemetry launches, and no other weave instance;
+   stages 01 and 10 at 4 windows on the card against the CPU (planes and
+   summaries equal); then ``FULL`` (96 windows, n = 2^17), the paper's
+   setting: wall, host ms per window batch, the ladder.  The SMOKE
+   ladder's launches give the recording instance's row.
+9. **cmd_oracle** — the port's ``bench.cmd_oracle`` SMOKE cells on the
+   card (both engines with ``cmd_trace``): equal dense and event streams,
+   no protocol violation, equal stream statistics, one exported
+   ``.cmd.trace`` validated; one DDR5 cell's card stream (and raw
+   records) against its CPU stream.  Then ``record_timing``: the
+   recording instance (both recorders) at the Mess sweep's window 8 and
+   at the perspectives ladder's batch, beside the plain instance.
+10. **lm_path** — the dense LM serving path at the full width and depth
    of tinyllama-1.1b (bf16, weights from a seed, flash kernel on): five
    forwards over 2 x 2048 tokens (each 22 launches of the Hopper route,
    none of the CUDA-core one; the median wall gives tokens/s), one more
@@ -85,7 +112,7 @@ Phases, each printing one JSON line:
    line), prefill of the first 2047 tokens (22 Hopper launches) + one
    decode step agreeing with the forward's last position, and the
    greedy Engine answering 8 requests on 4 slots.
-9. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
+11. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
    256 tokens, fp32 (the CUDA-core route), on the card and on the CPU
    (plain version), from the same weights, within 1e-4.
 
@@ -606,6 +633,399 @@ def weave_phase(dev):
     return worst, counts["frfcfs_select"]
 
 
+def rec_diff(a, b):
+    """`max_diff` over trees that may hold None (an unset recorder)."""
+    if a is None or b is None:
+        return (0.0, True) if a is None and b is None else (float("inf"),
+                                                            False)
+    if isinstance(a, (tuple, list)) and not isinstance(a, torch.Tensor):
+        worst, same = 0.0, len(a) == len(b)
+        for x, y in zip(a, b):
+            d, e = rec_diff(x, y)
+            worst, same = max(worst, d), same and e
+        return worst, same
+    return max_diff(a, b)
+
+
+def telemetry_phase(dev):
+    """The recording instances of `weave_window` on the card against the
+    stepwise route on the card (`dram.tick` with the flags), window by
+    window on the same injected state and telemetry carry, over the weave
+    phase's grid: bit for bit in every state field, stat, ``tele_*``
+    plane, ``TeleState`` and ``cmd_*`` field.  On each window also: the
+    plain instance on the same state gives the same state and stats (the
+    flags move nothing), and on the dense cases the event engine with a
+    budget that covers the window gives the dense planes."""
+    from repro_torch import kernels
+    from repro_torch.core import dram, platform
+    from repro_torch.kernels.weave_window import weave_window
+
+    kernels.reset_launch_counts()
+    rows, failed, worst = [], [], 0.0
+    fused_s = stepwise_s = 0.0
+    counts = {"tele": 0, "cmds": 0, "refs": 0, "idle_records": 0}
+    with torch.inference_mode():
+        for case in WEAVE_CASES:
+            cfg0, frontend, carry = weave_case(case, dev)
+            cfg = dataclasses.replace(cfg0, telemetry=True, cmd_trace=True)
+            carry = carry[:5] + (dram.init_tele(
+                cfg.platform.dram, len(WEAVE_PACES), dev),)
+            clock, wcfg = cfg.clock(), cfg.workload_config()
+            same_all = flags_neutral = engines_equal = True
+            for w in range(cfg.windows):
+                queue = platform._bound_inject(cfg, clock, wcfg, frontend,
+                                               carry, w)[0]
+                kw = platform._tick_kw(cfg, clock, dev)
+                args = (clock, kw, queue, carry[1], w, carry[5])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fused = platform._weave_fused(cfg, *args)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step = platform._weave_stepwise(cfg, *args)
+                torch.cuda.synchronize()
+                fused_s += t1 - t0
+                stepwise_s += time.perf_counter() - t1
+                diff, same = rec_diff(fused, step)
+                worst = max(worst, diff)
+                same_all &= same
+                plain = platform._weave_fused(cfg0, *args[:-1])
+                flags_neutral &= rec_diff(fused[:5], plain)[1]
+                if cfg.weave == "dense":
+                    full = dataclasses.replace(
+                        cfg, weave="event",
+                        weave_events=clock.ticks_per_window_static)
+                    ev = platform._weave_fused(full, *args)
+                    engines_equal &= rec_diff(fused[5][0], ev[5][0])[1]
+                    engines_equal &= not bool(ev[4].any())
+                cmds = fused[5][2]
+                counts["tele"] += int(fused[5][0].n_cas_rd.sum())
+                counts["cmds"] += int((cmds.cmd != 0).sum())
+                counts["refs"] += int(cmds.ref.sum())
+                counts["idle_records"] += int((cmds.cmd == 0).sum())
+                carry, _ = platform._window_step(cfg, clock, wcfg, frontend,
+                                                 carry, w)
+            rows.append({"case": list(case), "windows": cfg.windows,
+                         "bit_identical": same_all,
+                         "flags_move_nothing": flags_neutral,
+                         "event_planes_equal_dense": engines_equal})
+            if not (same_all and flags_neutral and engines_equal):
+                failed.append(case)
+        launches = dict(kernels.launch_counts(),
+                        by_instance=dict(weave_window.launches_by_instance))
+    emit({"phase": "telemetry", "cases": rows, "windows": WEAVE_WINDOWS,
+          "paces": list(WEAVE_PACES), "max_abs_diff": worst,
+          "mismatched_cases": len(failed), "recorded": counts,
+          "launches": launches, "fused_s": fused_s,
+          "stepwise_s": stepwise_s})
+    if failed:
+        raise AssertionError(f"recording weave_window and the stepwise "
+                             f"route differ: {failed}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"telemetry phase recorded nothing: {counts}")
+    n_rec = len(WEAVE_CASES) * WEAVE_WINDOWS * 2     # compared + loop
+    if launches["by_instance"]["telemetry+cmd_trace"] < n_rec:
+        raise AssertionError(f"telemetry phase launches {launches}")
+    return worst
+
+
+def record_launch(cfg, clock, kw, queue, banks, tele, w):
+    """The C entry point of ``cfg``'s recording instance on prepared
+    buffers: ``(launch, bytes, steps)``, bytes = state and recorder carry
+    in, state, increments and record out."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.weave_window import ops as wops
+
+    B, C, Q = queue.valid.shape
+    d = cfg.platform.dram
+    start, end = clock.window_start_tick(w), clock.window_end_tick(w)
+    event = cfg.weave == "event"
+    n_steps = cfg.event_budget() if event else clock.ticks_per_window_static
+    inp, res = wops.pack_inputs(queue, banks)
+    rin, rout = wops.pack_recorder(
+        tele, B, C, d.banks_per_channel, d.ranks_per_channel, n_steps,
+        queue.valid.device, telemetry=cfg.telemetry,
+        cmd_trace=cfg.cmd_trace)
+    params = wops.pack_params(d, cfg.policy, **{
+        k: kw[k] for k in ("tick2cpu_num", "tick2cpu_den",
+                           "cpu_ps_per_clk")})
+    c_params = (ctypes.c_int * len(params))(*params)
+    fn = _build.function("weave_window_record_launch",
+                         wops._RECORD_ARGTYPES)
+    ptrs = ([x.data_ptr() for x in inp.values()]
+            + [x.data_ptr() for x in res.values()]
+            + [rin[k].data_ptr() if k in rin else None
+               for k in ("opened", "burst")]
+            + [rout[k].data_ptr() if k in rout else None
+               for k in ("opened", "burst", "counters", "busy", "hist",
+                         "rec")])
+
+    def launch():
+        err = fn(*ptrs, ctypes.addressof(c_params), len(params), B * C, Q,
+                 d.banks_per_channel, d.ranks_per_channel, start, end,
+                 start + clock.ticks_per_window_static, n_steps, int(event),
+                 int(cfg.telemetry), int(cfg.cmd_trace),
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"weave_window_record_launch: error {err}")
+
+    launch.buffers = (inp, res, rin, rout)   # alive while launch is
+    io_bytes = sum(x.numel() * x.element_size() for x in list(inp.values())
+                   + list(res.values()) + list(rin.values())
+                   + list(rout.values()))
+    return launch, io_bytes, n_steps
+
+
+RECORD_INSTANCES = {"plain": (False, False), "telemetry": (True, False),
+                    "cmd_trace": (False, True),
+                    "telemetry+cmd_trace": (True, True)}
+
+
+def record_timing(cfg, dev, persp_cfg, persp_state, w=8):
+    """The recording instances at the main path's two batches (window
+    ``w`` of the FAST sweep) and at the perspectives ladder's batch.
+    First, on the same state: the recording instance (both recorders)
+    against the stepwise route with the flags (its plain version, the
+    dense batch).  Then each instance's device time (its C entry point in
+    a CUDA graph; ``plain`` the same entry point with no recorder), one
+    wrapper call, and the bytes bound of each."""
+    from repro_torch.core import dram, platform
+
+    out, diffs = {}, {}
+    with torch.inference_mode():
+        for engine in ("dense", "event"):
+            cfg_e, clock, kw, queue, banks = weave_batch(cfg, dev, engine, w)
+            tele = dram.init_tele(cfg_e.platform.dram, queue.valid.shape[0],
+                                  dev)
+            args = (clock, kw, queue, banks, w, tele)
+            both = dataclasses.replace(cfg_e, telemetry=True, cmd_trace=True)
+            row = {}
+            if engine == "dense":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = platform._weave_stepwise(both, *args)
+                torch.cuda.synchronize()
+                row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                got = platform._weave_fused(both, *args)
+                row["max_abs_diff"], row["bit_identical"] = rec_diff(got,
+                                                                     want)
+                diffs = {f"{i}.{j}": rec_diff(x, y)[1]
+                         for i, (a, b) in enumerate(zip(got, want))
+                         for j, (x, y) in enumerate(
+                             zip(a, b) if isinstance(a, tuple) else [(a, b)])}
+            for name, (tl, ct) in RECORD_INSTANCES.items():
+                icfg = dataclasses.replace(cfg_e, telemetry=tl, cmd_trace=ct)
+                launch, io_bytes, n_steps = record_launch(
+                    icfg, clock, kw, queue, banks, tele, w)
+                row[name] = dict(
+                    ms=device_ms(launch, 5), bytes=io_bytes,
+                    bound_ms=io_bytes / MEM_BYTES_PER_S * 1e3)
+            row.update(
+                ms=row["telemetry+cmd_trace"]["ms"],
+                bytes=row["telemetry+cmd_trace"]["bytes"],
+                bound_ms=row["telemetry+cmd_trace"]["bound_ms"],
+                call_ms=time_ms(lambda: platform._weave_fused(both, *args),
+                                5),
+                steps=n_steps,
+                rows=queue.valid.shape[0] * queue.valid.shape[1])
+            out[engine] = row
+        clock, kw, queue, banks, tele, pw = persp_state
+        row = {}
+        for name in ("plain", "telemetry"):
+            tl, ct = RECORD_INSTANCES[name]
+            icfg = dataclasses.replace(persp_cfg, telemetry=tl, cmd_trace=ct)
+            launch, io_bytes, n_steps = record_launch(
+                icfg, clock, kw, queue, banks, tele, pw)
+            row[name] = dict(ms=device_ms(launch, 10), bytes=io_bytes,
+                             bound_ms=io_bytes / MEM_BYTES_PER_S * 1e3)
+        out["perspectives"] = dict(
+            row, ms=row["telemetry"]["ms"],
+            bound_ms=row["telemetry"]["bound_ms"], steps=n_steps,
+            rows=queue.valid.shape[0] * queue.valid.shape[1],
+            stage=persp_cfg.name, window=pw)
+    emit({"phase": "record_timing", "window": w, "timing": out,
+          "fields_equal": diffs})
+    if not out["dense"]["bit_identical"]:
+        raise AssertionError(f"recording weave_window differs from the "
+                             f"stepwise route at the main path's batch: "
+                             f"{[k for k, v in diffs.items() if not v]}")
+    return out
+
+
+def perspectives_state(dev, w=8):
+    """The perspectives ladder's window batch (stage 10, SMOKE, telemetry
+    on) after window ``w``'s injection: ``(cfg, state)`` for
+    `record_timing`."""
+    from repro_torch.bench import perspectives
+    from repro_torch.core import get_stage, platform
+    from repro_torch.traces import (TraceFrontend, assign_traces,
+                                    split_cores, stack_mixes, to)
+    from repro_torch.traces.kernels import gups, stream
+
+    knobs = perspectives.SMOKE
+    cfg = get_stage(perspectives.LADDER[-1], windows=knobs["windows"],
+                    warmup=knobs["warmup"], telemetry=True)
+    wcfg, clock = cfg.workload_config(), cfg.clock()
+    mix = assign_traces([stream(n=knobs["n"]), gups(n=knobs["n"])],
+                        split_cores(2, wcfg.n_cores), phase_offsets=None)
+    fe = TraceFrontend(to(stack_mixes([mix]), dev), wcfg)
+    with torch.inference_mode():
+        carry = platform._init_carry(cfg, fe, 1, dev)
+        for i in range(w):
+            carry, _ = platform._window_step(cfg, clock, wcfg, fe, carry, i)
+        queue = platform._bound_inject(cfg, clock, wcfg, fe, carry, w)[0]
+    return cfg, (clock, platform._tick_kw(cfg, clock, dev), queue, carry[1],
+                 carry[5], w)
+
+
+def perspectives_phase(dev):
+    """The port's perspectives ladder on the card: SMOKE held against the
+    reference's ``reports/benchmarks/perspectives.json`` (rho per stage,
+    monotone_ok, end_to_end_gain within 1e-9), its launches; card vs CPU
+    at stages 01 and 10 (4 windows: planes and summaries equal); then
+    FULL, the paper's setting.  Returns the SMOKE ladder's launches."""
+    from repro_torch import kernels, obs
+    from repro_torch.bench import perspectives
+    from repro_torch.kernels.weave_window import weave_window
+
+    want = json.loads((ROOT / "reports" / "benchmarks"
+                       / "perspectives.json").read_text())
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    smoke = perspectives.main(full=False, device=dev, write=False)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts(),
+                    by_instance=dict(weave_window.launches_by_instance))
+    worst, bad = 0.0, []
+    for got_row, want_row in zip(smoke["ladder"], want["ladder"]):
+        for k, v in want_row.items():
+            g = got_row[k]
+            if isinstance(v, float):
+                worst = max(worst, abs(g - v))
+                if not abs(g - v) <= 1e-9:
+                    bad.append((want_row["stage"], k, g, v))
+            elif g != v:
+                bad.append((want_row["stage"], k, g, v))
+    for k in ("monotone_ok", "end_to_end_gain"):
+        if smoke[k] != want[k]:
+            bad.append((k, smoke[k], want[k]))
+    summaries_equal = smoke["summaries"] == want["summaries"]
+    n_batches = len(perspectives.LADDER) * perspectives.SMOKE["windows"]
+    emit({"phase": "perspectives", "part": "smoke",
+          "knobs": perspectives.SMOKE, "wall_s": wall,
+          "host_ms_per_window_batch": wall * 1e3 / n_batches,
+          "ladder": [{k: r[k] for k in ("stage", "rho_sim_app", "rho_sim_if",
+                                        "rho_if_app")}
+                     for r in smoke["ladder"]],
+          "monotone_ok": smoke["monotone_ok"],
+          "end_to_end_gain": smoke["end_to_end_gain"],
+          "max_abs_diff_vs_reference_file": worst,
+          "summaries_equal_reference_file": summaries_equal,
+          "stage_wall_s": smoke["wall_s"], "launches": launches})
+    if bad or not summaries_equal:
+        raise AssertionError(f"perspectives SMOKE differs from the "
+                             f"reference's file: {bad[:10]}, summaries "
+                             f"equal {summaries_equal}")
+    if (launches["by_instance"]["telemetry"] != n_batches
+            or launches["window_inject"] or launches["frfcfs_select"]):
+        raise AssertionError(f"perspectives launches {launches}: expected "
+                             f"{n_batches} telemetry weave_window")
+
+    # card vs CPU at two stages, 4 windows
+    cpu_rows = []
+    for stage in (perspectives.LADDER[0], perspectives.LADDER[-1]):
+        knobs = dict(perspectives.SMOKE, windows=4, warmup=1)
+        cfg, on_card, outs_c = perspectives.stage_run(stage, "ddr4_2666",
+                                                      device=dev, **knobs)
+        _, on_cpu, outs_p = perspectives.stage_run(stage, "ddr4_2666",
+                                                   device="cpu", **knobs)
+        planes = all(torch.equal(on_card[k].cpu(), on_cpu[k])
+                     for k in obs.TELE_KEYS if k != "tele_lat_est_ps")
+        lat_rel = float(((on_card["tele_lat_est_ps"].cpu()
+                          - on_cpu["tele_lat_est_ps"]).abs()
+                         / on_cpu["tele_lat_est_ps"].abs()).max())
+        summ = (obs.summarize(obs.collect(cfg, on_card, outs_c))
+                == obs.summarize(obs.collect(cfg, on_cpu, outs_p)))
+        cpu_rows.append({"stage": stage, "int_planes_equal": planes,
+                         "lat_est_max_rel_err": lat_rel,
+                         "summaries_equal": summ})
+        if not (planes and summ and lat_rel <= RTOL):
+            raise AssertionError(f"perspectives card vs CPU: {cpu_rows}")
+    emit({"phase": "perspectives", "part": "card_vs_cpu", "rows": cpu_rows})
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    full = perspectives.main(full=True, device=dev)
+    full_wall = time.perf_counter() - t0
+    n_full = len(perspectives.LADDER) * perspectives.FULL["windows"]
+    emit({"phase": "perspectives", "part": "full",
+          "knobs": perspectives.FULL, "wall_s": full_wall,
+          "host_ms_per_window_batch": full_wall * 1e3 / n_full,
+          "stage_wall_s": full["wall_s"],
+          "ladder": [{k: r[k] for k in ("stage", "rho_sim_app", "rho_sim_if",
+                                        "rho_if_app", "sim_lat_ns_mean",
+                                        "app_lat_ns_mean")}
+                     for r in full["ladder"]],
+          "monotone_ok": full["monotone_ok"],
+          "end_to_end_gain": full["end_to_end_gain"],
+          "exceptions": full["exceptions"],
+          "launches": dict(kernels.launch_counts(), by_instance=dict(
+              weave_window.launches_by_instance))})
+    for r in full["ladder"]:
+        if not all(np.isfinite(r[k]) for k in ("rho_sim_app",
+                                                "sim_lat_ns_mean")):
+            raise AssertionError(f"perspectives FULL: {r}")
+    return launches, wall
+
+
+def cmd_oracle_phase(dev):
+    """The port's command oracle on the card: every SMOKE cell with equal
+    dense and event streams, no violation, equal stream stats; one
+    exported trace validated; one cell's card stream against its CPU
+    stream (the event engine)."""
+    from repro_torch import kernels
+    from repro_torch.bench import cmd_oracle
+    from repro_torch.kernels.weave_window import weave_window
+    from repro_torch.oracle import diff_streams
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = cmd_oracle.main(full=False, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts(),
+                    by_instance=dict(weave_window.launches_by_instance))
+    n_batches = sum(2 * c[3] for c in cmd_oracle.SMOKE)
+    cell = next(c for c in cmd_oracle.SMOKE if c[1] == "ddr5_4800"
+                and c[2].app.startswith("mess"))
+    t1 = time.perf_counter()
+    _, v_card, s_card = cmd_oracle.record(*cell, "event", device=dev)
+    _, v_cpu, s_cpu = cmd_oracle.record(*cell, "event", device="cpu")
+    cpu_s = time.perf_counter() - t1
+    raw_equal = all(torch.equal(v_card[k].cpu(), v_cpu[k])
+                    for k in v_cpu if k.startswith("cmd_"))
+    same = diff_streams(s_card, s_cpu) is None
+    emit({"phase": "cmd_oracle", "wall_s": wall, "all_ok": report["all_ok"],
+          "cells": [{k: c[k] for k in ("stage", "preset", "app", "windows",
+                                       "n_commands", "counts",
+                                       "streams_identical", "legal_ok",
+                                       "mix_agree", "weave_sat", "wall_s")}
+                    | {"checks": sum(c["n_checked"].values()),
+                       "violations": sum(c["violation_counts"].values())}
+                    for c in report["cells"]],
+          "exported_rows": report["exported_rows"], "launches": launches,
+          "card_vs_cpu": {"cell": [cell[0], cell[1], cell[2].app, cell[3]],
+                          "engine": "event", "raw_records_equal": raw_equal,
+                          "streams_equal": same, "commands": len(s_card),
+                          "seconds": cpu_s}})
+    if not (report["all_ok"] and raw_equal and same):
+        raise AssertionError("cmd_oracle: a cell failed or the card's "
+                             "stream differs from the CPU's")
+    if launches["by_instance"]["cmd_trace"] != n_batches:
+        raise AssertionError(f"cmd_oracle launches {launches}: expected "
+                             f"{n_batches} cmd_trace weave_window")
+    return launches
+
+
 def main_batch(cfg, dev, engine, w):
     """The main path's batch of one engine (its points, as the knee
     routing gives them) at the start of window ``w``: ``(cfg, clock,
@@ -656,7 +1076,7 @@ def inject_timing(cfg, dev, w=8):
             want = platform._bound_inject_eager(*args)
             got = platform._bound_inject_fused(*args)
             diff, same = max_diff(got, want)
-            queue, _, fstate, l_ir, lat_est = carry
+            queue, _, fstate, l_ir, lat_est = carry[:5]
             cpu = cfg_e.platform.cpu
             c_args, res = iops.prepare(
                 queue, fstate, frontend.pace, frontend.wr_num, l_ir,
@@ -925,7 +1345,7 @@ def ladder(dev):
     from repro_torch import kernels
     from repro_torch.bench import app_validation as av
     from repro_torch.core import get_stage
-    from repro_torch.traces import make_suite, stack_traces, to
+    from repro_torch.traces import make_suite, replay_suite, stack_traces, to
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -947,6 +1367,10 @@ def ladder(dev):
             "anchor_ms": dict(zip(out["apps"], out["anchor_ms"].tolist())),
             "done": out["done"].tolist(),
             "weave_events": out["weave_events"].tolist(),
+            "if_p50_p95_p99_ns": {
+                app: av._if_percentiles_ns(out, av.FULL["warmup"],
+                                           i).tolist()
+                for i, app in enumerate(out["apps"])},
             "launches": n})
         xor = stage in LADDER_XOR_STAGES
         if (n["weave_window"] < av.FULL["windows"] or n["window_inject"]
@@ -956,6 +1380,13 @@ def ladder(dev):
         for k in ("runtime_ms", "sim_bw_gbs", "if_lat_ns"):
             if not np.isfinite(out[k]).all() or (out[k] <= 0).any():
                 bad.append((stage, k, out[k].tolist()))
+        # the ladder runs with telemetry: every app's reads in its
+        # interface histogram, after warm-up as the percentiles read it
+        served = out["tele_hist_if_ps"].sum(axis=(1, 2, 3))
+        if not np.array_equal(served, out["tele_n_cas_rd"].sum(axis=(1, 2))):
+            bad.append((stage, "tele_hist_if_ps", served.tolist()))
+        if n["weave_window"] != n["weave_window_recording"]:
+            bad.append((stage, "weave_window instances", n))
     emit({"phase": "replay", "part": "ladder", "preset": "ddr4_2666",
           "knobs": av.FULL, "apps": list(results[av.STAGES[0]]["apps"]),
           "wall_s": wall, "stages": stages, "launches": launches})
@@ -978,14 +1409,29 @@ def ladder(dev):
                           for i, (m, a) in enumerate(out["mixes"])},
                       "solo_runtime_ms": {k: float(v) for k, v in
                                           out["solo_runtime_ms"].items()},
+                      "mix_if_p50_p95_p99_ns": {
+                          m: av._if_percentiles_ns(out, av.FAST["warmup"],
+                                                   i).tolist()
+                          for i, (m, _) in enumerate(out["mixes"])},
                       "dense_reruns": int((out["weave_sat"] > 0).sum())}
                      for st, out in mixes.items()]})
 
     cfg = get_stage(LADDER_PROFILED_STAGE, windows=av.FULL["windows"],
-                    warmup=av.FULL["warmup"])
+                    warmup=av.FULL["warmup"], telemetry=True)
     batch = to(stack_traces(make_suite(n=av.FULL["n"])[1]), dev)
     prof = profile_replay(cfg, batch,
                           results[LADDER_PROFILED_STAGE]["wall_s"])
+
+    # what telemetry costs the profiled stage: off, on, on, off
+    walls = {"off": [], "on": []}
+    for tele in ("off", "on", "on", "off"):
+        c = dataclasses.replace(cfg, telemetry=tele == "on")
+        t0 = time.perf_counter()
+        replay_suite(c, batch)
+        walls[tele].append(time.perf_counter() - t0)
+    emit({"phase": "replay", "part": "telemetry_cost",
+          "stage": cfg.name, "wall_s": walls,
+          "window_batches": 2 * cfg.windows})
     return launches, prof
 
 
@@ -1351,11 +1797,22 @@ def main():
     if not worst <= RTOL:
         raise AssertionError(f"float views differ by {worst} > {RTOL}")
 
+    # ---- the recording instances against the stepwise route (after the
+    # main path, whose host timing it would otherwise perturb) -----------
+    max_err["weave_window_recording"] = telemetry_phase(dev)
+
     # ---- 7. the application perspective on the trace route --------------
     replay_rel = replay_parity(dev)
     ladder_launches, replay_prof = ladder(dev)
 
-    # ---- 8-9. the dense LM serving path, and its card-vs-CPU parity ------
+    # ---- 8-9. the simulator perspective's recorders ----------------------
+    persp_launches, persp_wall = perspectives_phase(dev)
+    oracle_launches = cmd_oracle_phase(dev)
+    persp_cfg, persp_state = perspectives_state(dev)
+    timing["weave_window_recording"] = record_timing(cfg, dev, persp_cfg,
+                                                     persp_state)
+
+    # ---- 10-11. the dense LM serving path, and its card-vs-CPU parity ----
     flash_routes = lm_path(dev)
     launches["flash_attention"] = sum(flash_routes.values())
     lm_parity(dev)
@@ -1370,6 +1827,9 @@ def main():
     # under "routes"
     launches["frfcfs_select"] = select_launches
     launches["decode_packed"] = ladder_launches["decode_packed"]
+    # the recording instances' path: the perspectives SMOKE ladder
+    launches["weave_window_recording"] = persp_launches[
+        "weave_window_recording"]
     flash_src = {"sm90_bf16": "src/repro_torch/csrc/flash_attention_sm90.cu",
                  "cuda_core": "src/repro_torch/csrc/flash_attention.cu"}
     weave_t = timing["weave_window"]
@@ -1380,6 +1840,24 @@ def main():
         plain_ms_event=weave_t["event"]["plain_ms"],
         bound_ms_event=weave_t["event"]["bound_ms"],
         shape_event=weave_t["event"]["shape"])
+    rec_t = timing["weave_window_recording"]
+    timing["weave_window_recording"] = dict(
+        rec_t["dense"], ms_event=rec_t["event"]["ms"],
+        call_ms_event=rec_t["event"]["call_ms"],
+        bound_ms_event=rec_t["event"]["bound_ms"],
+        ms_perspectives=rec_t["perspectives"]["ms"],
+        bound_ms_perspectives=rec_t["perspectives"]["bound_ms"],
+        instance_ms={e: {n: rec_t[e][n]["ms"] for n in rec_t[e]
+                         if isinstance(rec_t[e][n], dict)}
+                     for e in ("dense", "event", "perspectives")},
+        shape=f"{rec_t['dense']['rows']} rows x {rec_t['dense']['steps']} "
+              f"dense steps, telemetry + command record",
+        shape_event=f"{rec_t['event']['rows']} rows x "
+                    f"{rec_t['event']['steps']} event steps",
+        shape_perspectives=f"{rec_t['perspectives']['rows']} rows x "
+                           f"{rec_t['perspectives']['steps']} event steps "
+                           f"({rec_t['perspectives']['stage']}, window "
+                           f"{rec_t['perspectives']['window']})")
     inject_t = timing["window_inject"]
     timing["window_inject"] = dict(
         inject_t["dense"], ms_event=inject_t["event"]["ms"],
@@ -1392,6 +1870,11 @@ def main():
                    "src/repro_torch/csrc/weave_window.cu",
                    "src/repro/kernels/bank_timing/kernel.py:97 + the weave "
                    "scans src/repro/core/platform.py:198-239"),
+               "weave_window_recording": (
+                   "src/repro_torch/csrc/weave_window.cu",
+                   "src/repro/kernels/bank_timing/kernel.py:97 + the weave "
+                   "scans src/repro/core/platform.py:159-305 + the "
+                   "recorders src/repro/core/dram.py:574-642"),
                "window_inject": (
                    "src/repro_torch/csrc/window_inject.cu",
                    "src/repro/kernels/addr_decode/kernel.py:57 + "
@@ -1427,6 +1910,19 @@ def main():
                 "call_ms_event", "plain_ms_event", "bound_ms_event",
                 "shape_event")},
                 replay_launches=ladder_launches["weave_window"])
+        if name == "weave_window_recording":
+            table[-1].update(
+                {k: t[k] for k in ("ms_event", "call_ms_event",
+                                   "bound_ms_event", "ms_perspectives",
+                                   "bound_ms_perspectives", "shape_event",
+                                   "shape_perspectives", "instance_ms")},
+                path="perspectives SMOKE ladder (telemetry instance)",
+                plain_instance_ms=timing["weave_window"]["ms"],
+                plain_instance_ms_event=timing["weave_window"]["ms_event"],
+                cmd_oracle_launches=oracle_launches[
+                    "weave_window_recording"],
+                ladder_launches=ladder_launches["weave_window_recording"],
+                perspectives_smoke_wall_s=persp_wall)
         if name == "window_inject":
             table[-1].update({k: t[k] for k in (
                 "ms_event", "call_ms_event", "plain_ms_event",

@@ -15,10 +15,15 @@ mixes of `MIXES` stacked into one batched replay per stage, each app's
 in-mix runtime and MAPE against the joint mix anchors next to its solo
 runtime.  ``--sockets 2`` runs either on the two-socket frontend.
 
+Every replay runs with telemetry on, as the reference's does, so each
+row also carries the interface-latency percentiles (``if_p50_ns`` /
+``if_p95_ns`` / ``if_p99_ns``, per mix ``mix_if_p*_ns``) from the
+``tele_hist_if_ps`` histogram; on the card the weave is then the
+telemetry instance of `weave_window`.
+
 CSV: ``reports/torch/app_validation[_<preset>][_2s].csv``, one row per
 (stage, app), and ``app_validation_mix[...]``, one row per (stage, mix,
-app).  The columns are the JAX benchmark's without its interface-latency
-percentiles, which need the telemetry recorder.
+app), with the JAX benchmark's columns.
 
 Usage (on the card; ``--device cpu`` runs the plain versions):
     python -m repro_torch.bench.app_validation [--full] [--preset P]
@@ -35,6 +40,7 @@ from repro_torch.core import get_stage
 from repro_torch.core.platform import resolve_device
 from repro_torch.core.presets import PRESET_ORDER
 from repro_torch.core.workload import N_CORES_PER_SOCKET
+from repro_torch.obs.telemetry import hist_percentiles
 from repro_torch.traces import (anchor_mix_ms, anchor_suite_ms,
                                 assign_traces, make_suite, mape,
                                 replay_mixes, replay_suite, split_cores,
@@ -59,6 +65,14 @@ OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "reports" / "torch"
 
 def emit(name: str, us_per_call: float, derived: str):
     print(f"{name},{us_per_call:.1f},{derived}", flush=True)
+
+
+def _if_percentiles_ns(out, warmup: int, i: int):
+    """p50/p95/p99 of the CPU-perceived read latency for one batch row,
+    from the interface-view histogram ``tele_hist_if_ps`` (W', C, B)
+    after warm-up, in ns."""
+    hist = out["tele_hist_if_ps"][i, warmup:]
+    return hist_percentiles(hist) * 1e-3               # ps -> ns
 
 
 def _suffix(preset: str, sockets: int) -> str:
@@ -107,7 +121,8 @@ def run_preset(preset: str = "ddr4_2666", full: bool = False,
     rows, results = [], {}
     for stage in stages:
         cfg = get_stage(stage, preset=preset, windows=knobs["windows"],
-                        warmup=knobs["warmup"], n_sockets=sockets)
+                        warmup=knobs["warmup"], n_sockets=sockets,
+                        telemetry=True)
         out, wall, launches = _timed(
             lambda: replay_suite(cfg, batch, device=dev))
         err = mape(out["runtime_ms"], anchors)
@@ -117,6 +132,7 @@ def run_preset(preset: str = "ddr4_2666", full: bool = False,
         emit(f"app_validation.{mtag}.{stage}.mape_pct",
              wall / len(names) * 1e6, f"{err:.1f}")
         for i, nm in enumerate(names):
+            p50, p95, p99 = _if_percentiles_ns(out, knobs["warmup"], i)
             rows.append(dict(
                 preset=preset, stage=stage, app=nm, sockets=sockets,
                 runtime_ms=f"{out['runtime_ms'][i]:.5f}",
@@ -124,6 +140,8 @@ def run_preset(preset: str = "ddr4_2666", full: bool = False,
                 err_pct=f"{100 * (out['runtime_ms'][i] / anchors[i] - 1):.1f}",
                 sim_lat_ns=f"{out['sim_lat_ns'][i]:.1f}",
                 if_lat_ns=f"{out['if_lat_ns'][i]:.1f}",
+                if_p50_ns=f"{p50:.1f}", if_p95_ns=f"{p95:.1f}",
+                if_p99_ns=f"{p99:.1f}",
                 app_lat_ns=f"{out['app_lat_ns'][i]:.1f}",
                 sim_bw_gbs=f"{out['sim_bw_gbs'][i]:.1f}",
             ))
@@ -172,7 +190,8 @@ def run_mixes(preset: str = "ddr4_2666", full: bool = False,
     rows, results = [], {}
     for stage in stages:
         cfg = get_stage(stage, preset=preset, windows=knobs["windows"],
-                        warmup=knobs["warmup"], n_sockets=sockets)
+                        warmup=knobs["warmup"], n_sockets=sockets,
+                        telemetry=True)
         (out, solo), wall, _ = _timed(lambda: (
             replay_mixes(cfg, mix_batch, device=dev),
             replay_suite(cfg, solo_batch, device=dev)))
@@ -184,6 +203,7 @@ def run_mixes(preset: str = "ddr4_2666", full: bool = False,
             errs.append(mape(pred, anchors[m]))
             emit(f"app_mix.{mtag}.{stage}.{mix_name}.mape_pct", us,
                  f"{errs[-1]:.1f}")
+            p50, p95, p99 = _if_percentiles_ns(out, knobs["warmup"], m)
             for a, nm in enumerate(names):
                 rows.append(dict(
                     preset=preset, stage=stage, mix=mix_name, app=nm,
@@ -194,6 +214,8 @@ def run_mixes(preset: str = "ddr4_2666", full: bool = False,
                     solo_runtime_ms=f"{solo_rt[nm]:.5f}",
                     solo_anchor_ms=f"{solo_anchor[nm]:.5f}",
                     mix_bw_gbs=f"{out['sim_bw_gbs'][m]:.1f}",
+                    mix_if_p50_ns=f"{p50:.1f}", mix_if_p95_ns=f"{p95:.1f}",
+                    mix_if_p99_ns=f"{p99:.1f}",
                 ))
         out.update(mixes=[(b[0], b[1]) for b in built], anchor_ms=anchors,
                    mix_mape_pct=errs, solo_runtime_ms=solo_rt, wall_s=wall)

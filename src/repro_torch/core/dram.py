@@ -16,6 +16,11 @@ The eligibility + FR-FCFS select block of `tick` is the ``bank_timing``
 kernel (`repro_torch.kernels.bank_timing.frfcfs_select`): the gathers
 that feed it stay here, the select runs in the kernel on the card (its
 plain version on the CPU), and the command apply follows here.
+
+`tick`'s two recorder flags are the reference's: ``telemetry`` returns
+the step's event-accounted counter planes (`TickTele`) and threads the
+`TeleState`; ``cmd_trace`` returns the step's command record
+(`TickCmd`).  With both off the step is the same computation as before.
 """
 from __future__ import annotations
 
@@ -29,8 +34,13 @@ import torch
 from repro_torch.core.timing import DramParams
 from repro_torch.kernels.bank_timing import N_SCALARS, frfcfs_select
 
-# command codes
-NONE, RD, WR, ACT, PRE = 0, 1, 2, 3, 4
+# command codes (REF is never selected: refresh is deadline-driven in
+# `tick`; the command recorder and the legality checker use it)
+NONE, RD, WR, ACT, PRE, REF = 0, 1, 2, 3, 4, 5
+
+#: log2 latency-histogram buckets: bucket ``b`` counts values in
+#: ``[2^b, 2^(b+1))``; values past the top edge clip into the last one
+N_HIST = 24
 
 _BIG = 1 << 28
 _I32 = torch.int32
@@ -141,6 +151,95 @@ def zero_stats(dram: DramParams, batch: int = 1,
                      chase_rd=zi, sum_chase_lat_ticks=zi)
 
 
+class TickTele(NamedTuple):
+    """One step's telemetry increments, per channel ``(B, C)`` unless
+    noted; every field int32.
+
+    Event counts and event-accounted time integrals only (never a
+    per-step sample), so both weave engines accumulate the same window
+    totals.  Row locality follows from the command mix (``hits = cas -
+    act``, ``misses = act - pre``, ``conflicts = pre``).
+    """
+
+    n_act: torch.Tensor          # ACT commands issued
+    n_pre: torch.Tensor          # PRE commands issued
+    n_cas_rd: torch.Tensor       # read CAS (== TickStats.served_rd)
+    n_cas_wr: torch.Tensor       # write CAS
+    n_ref: torch.Tensor          # refresh events (per rank deadline)
+    drain_enter: torch.Tensor    # write-drain service bursts entered
+    drain_ticks: torch.Tensor    # drain service dwell (burst spans)
+    busy_ticks: torch.Tensor     # (B, C, RB) row-open time, at row close
+    hist_rd_ticks: torch.Tensor  # (B, C, N_HIST) read latency, DRAM ticks
+    hist_if_ps: torch.Tensor     # (B, C, N_HIST) CPU-perceived read ps
+
+
+class TeleState(NamedTuple):
+    """Telemetry carry across steps and windows: each bank's last ACT
+    tick (busy time accrues when the row closes) and the channel's
+    current write-CAS burst (drain dwell accrues at each write grant)."""
+
+    opened_at: torch.Tensor      # (B, C, RB) int32 tick of the last ACT
+    last_wr_t: torch.Tensor      # (B, C) int32 tick of the last write CAS
+    wr_burst: torch.Tensor       # (B, C) bool: the last CAS was a write
+
+
+class TickCmd(NamedTuple):
+    """One step's command record (``cmd_trace``), per channel ``(B, C)``.
+
+    ``cmd`` is the granted `NONE`/`RD`/`WR`/`ACT`/`PRE`; ``t`` the
+    evaluated tick; ``fbank`` the flat bank of the selected slot (slot 0
+    when nothing is granted, as the reference's argmax over zero scores
+    picks); ``row`` the ACT/CAS row, else -1; ``ref`` (B, C, R) bool the
+    ranks whose refresh deadline fired; ``ref_bank`` (B, C, R) the
+    pre-rotation REFsb bank of each firing, -1 otherwise and for
+    all-bank refresh.
+    """
+
+    cmd: torch.Tensor
+    t: torch.Tensor
+    fbank: torch.Tensor
+    row: torch.Tensor
+    ref: torch.Tensor
+    ref_bank: torch.Tensor
+
+
+def zero_tele(dram: DramParams, batch: int = 1, device="cpu") -> TickTele:
+    """A zeroed per-channel `TickTele` accumulator."""
+    B, C, RB = batch, dram.n_channels, dram.banks_per_channel
+    zc = torch.zeros((B, C), dtype=_I32, device=device)
+    zh = torch.zeros((B, C, N_HIST), dtype=_I32, device=device)
+    return TickTele(n_act=zc, n_pre=zc, n_cas_rd=zc, n_cas_wr=zc, n_ref=zc,
+                    drain_enter=zc, drain_ticks=zc,
+                    busy_ticks=torch.zeros((B, C, RB), dtype=_I32,
+                                           device=device),
+                    hist_rd_ticks=zh, hist_if_ps=zh)
+
+
+def init_tele(dram: DramParams, batch: int = 1, device="cpu") -> TeleState:
+    """Fresh telemetry carry (no bank opened, no write burst)."""
+    B, C, RB = batch, dram.n_channels, dram.banks_per_channel
+    return TeleState(
+        opened_at=torch.zeros((B, C, RB), dtype=_I32, device=device),
+        last_wr_t=torch.zeros((B, C), dtype=_I32, device=device),
+        wr_burst=torch.zeros((B, C), dtype=torch.bool, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _hist_edges(device) -> torch.Tensor:
+    return torch.tensor([1 << b for b in range(1, N_HIST)], dtype=_I32,
+                        device=device)
+
+
+def log2_bucket(v: torch.Tensor) -> torch.Tensor:
+    """``floor(log2(max(v, 1)))`` clipped to ``[0, N_HIST - 1]``, int32.
+
+    Integer-exact (the count of powers of two 2^1..2^(N_HIST-1) at or
+    below ``v``; no float log), so bucket edges land on powers of two.
+    """
+    v = v.to(_I32)
+    return (v[..., None] >= _hist_edges(v.device)).sum(-1, dtype=_I32)
+
+
 def init_queue(dram: DramParams, policy: SchedulerPolicy,
                n_sockets: int = 1, *, batch: int = 1,
                device="cpu") -> QueueState:
@@ -187,7 +286,9 @@ def _gather(field, idx):
 def tick(queue: QueueState, banks: BankState, t, *,
          dram: DramParams, policy: SchedulerPolicy,
          tick2cpu_num: int, tick2cpu_den: int, cpu_ps_per_clk: int,
-         active=True, planes: BankPlanes | None = None):
+         active=True, planes: BankPlanes | None = None,
+         telemetry: bool = False, tele: TeleState | None = None,
+         cmd_trace: bool = False):
     """Advance the memory system by one DRAM tick.
 
     Args:
@@ -203,8 +304,14 @@ def tick(queue: QueueState, banks: BankState, t, *,
             ticks grant nothing and refresh nothing; the drain flag still
             settles); bool or (B, C).
         planes: the device's `BankPlanes`; defaults to `bank_planes`.
+        telemetry: also return the step's `TickTele` and the threaded
+            `TeleState` (``tele``, or `init_tele`'s when None).
+        tele: the telemetry carry; read only with ``telemetry=True``.
+        cmd_trace: also return the step's `TickCmd`.
     Returns:
-        ``(queue', banks', TickStats)``.
+        ``(queue', banks', TickStats)``; ``telemetry=True`` appends
+        ``(TickTele, TeleState)`` and ``cmd_trace=True`` a trailing
+        `TickCmd` (in that order when both are on).
     """
     B, C, Q = queue.valid.shape
     dev = queue.valid.device
@@ -214,6 +321,8 @@ def tick(queue: QueueState, banks: BankState, t, *,
     t = _per_channel(t, B, C, _I32, dev)
     active = _per_channel(active, B, C, torch.bool, dev)
     t_r = t[..., None]
+    open_row_pre = banks.open_row       # telemetry: busy at refresh close
+    ref_slot_pre = banks.ref_slot       # cmd_trace: the REFsb bank
 
     # ---- refresh: all-bank closes the rank, REFsb one rotating bank ----
     ref_due = active[..., None] & (t_r >= banks.next_ref)          # (B,C,R)
@@ -364,7 +473,51 @@ def tick(queue: QueueState, banks: BankState, t, *,
         chase_rd=s_chase_rd.to(_I32),
         sum_chase_lat_ticks=torch.where(s_chase_rd, rd_lat, 0),
     )
-    return queue, banks, stats
+    if not telemetry and not cmd_trace:
+        return queue, banks, stats
+
+    extras = ()
+    if telemetry:
+        # accounted at events (grants, refresh deadlines, row closes),
+        # never sampled per step, so both engines give the same planes
+        if tele is None:
+            tele = init_tele(dram, B, dev)
+        # row-open time when the row closes: a refresh over an open row,
+        # or a PRE of the selected bank (ACT and PRE never share a step)
+        busy = torch.where(refmask & (open_row_pre >= 0),
+                           t_r - tele.opened_at, 0)
+        opened_at = torch.where(act_sel, t_r, tele.opened_at)
+        busy = busy + torch.where(pre_sel, t_r - opened_at, 0)
+        # a maximal run of write CAS is one drain burst; its dwell (first
+        # to last write grant, plus one burst) accrues at each write
+        enter = s_wr & ~tele.wr_burst
+        dwell = torch.where(s_wr, torch.where(tele.wr_burst,
+                                              t - tele.last_wr_t, dram.tBL),
+                            0)
+        last_wr_t = torch.where(s_wr, t, tele.last_wr_t)
+        wr_burst = torch.where(s_cas, s_wr, tele.wr_burst)
+        hist = torch.arange(N_HIST, dtype=_I32, device=dev)
+        rd_c = s_rd[..., None]
+        tele_inc = TickTele(
+            n_act=s_act.to(_I32), n_pre=s_pre.to(_I32),
+            n_cas_rd=s_rd.to(_I32), n_cas_wr=s_wr.to(_I32),
+            n_ref=ref_due.sum(2, dtype=_I32),
+            drain_enter=enter.to(_I32), drain_ticks=dwell.to(_I32),
+            busy_ticks=busy.to(_I32),
+            hist_rd_ticks=(rd_c & (log2_bucket(rd_lat)[..., None] == hist))
+            .to(_I32),
+            hist_if_ps=(rd_c & (log2_bucket(if_lat_i)[..., None] == hist))
+            .to(_I32))
+        extras = (tele_inc, TeleState(opened_at, last_wr_t, wr_burst))
+    if cmd_trace:
+        no_bank = torch.full_like(ref_slot_pre, -1)
+        extras += (TickCmd(
+            cmd=cmd.to(_I32), t=t, fbank=s_fb,
+            row=torch.where(s_act | s_cas, s_row, -1),
+            ref=ref_due,
+            ref_bank=(torch.where(ref_due, ref_slot_pre, no_bank)
+                      if dram.same_bank_refresh else no_bank)),)
+    return (queue, banks, stats) + extras
 
 
 def next_event(queue: QueueState, banks: BankState, t, end: int, *,

@@ -190,8 +190,18 @@ def sweep(cfg: StageConfig, paces=DEFAULT_PACES, write_mixes=WRITE_MIXES,
 
     Every (mix, pace) point of the grid is knee-routed by `_run_points`
     in one pass, so each weave engine runs once for the whole grid.
-    ``device=None`` means ``"cuda"``.
+    ``device=None`` means ``"cuda"``.  ``cfg.telemetry`` runs through the
+    merge (its planes are per window, shaped alike on both engines);
+    ``cfg.cmd_trace`` raises, as the reference's does.
     """
+    if cfg.cmd_trace:
+        # the per-step `cmd_*` records have engine-dependent step axes
+        # (dense: ticks per window, event: the budget), so the knee-routed
+        # merge cannot stack them; record command streams through
+        # `platform.run_frontend` on one engine instead
+        raise ValueError("cmd_trace is unsupported in mess.sweep's "
+                         "knee-routed engine mix; run run_frontend "
+                         "with an explicit weave engine instead")
     dev = resolve_device(device)
     paces, write_mixes = tuple(paces), tuple(write_mixes)
     grid_p = [p for _ in write_mixes for p in paces]

@@ -26,9 +26,15 @@ the card raises.  On the CPU every frontend takes the eager
 also the kernel's plain version).  Weave (`_weave_route`): on the card
 one `weave_window` launch runs the whole window (`_weave_fused`); on
 the CPU the stepwise loops `_weave_dense` / `_weave_event` run one
-`dram.tick` per step (also that kernel's plain version).  Entry points
-take ``device=None``, which means ``"cuda"``; without a card they
-raise.
+`dram.tick` per step (also that kernel's plain version).
+
+The recorder flags ``telemetry`` and ``cmd_trace`` keep both routes: on
+the card the window runs in the recording instance of the same
+`weave_window` kernel (never the stepwise loop), on the CPU the
+stepwise loops call `dram.tick` with the flags.  The views then carry
+the ``tele_*`` planes and ``cmd_*`` records, batch axis first.  Entry
+points take ``device=None``, which means ``"cuda"``; without a card
+they raise.
 """
 from __future__ import annotations
 
@@ -72,8 +78,12 @@ class StageConfig:
     to ``"dense"`` while the per-window event budget covers the window,
     flagged in ``weave_sat`` otherwise) or ``"dense"``.
     ``weave_events`` overrides the clock-derived event budget.
-    ``telemetry`` and ``cmd_trace`` are the reference's recorder flags;
-    they are not ported yet and must stay False.
+    ``telemetry`` records the event-accounted counter planes and log2
+    latency histograms (`dram.TickTele`) and the interface series
+    (queue depth, MSHR budget, latency estimate) as ``tele_*`` views;
+    ``cmd_trace`` records every weave step's command (`dram.TickCmd`) as
+    ``cmd_*`` views.  On the card both run in the recording instances of
+    the `weave_window` kernel; off, every output is as without them.
     """
 
     name: str = "01-baseline"
@@ -99,9 +109,6 @@ class StageConfig:
         if self.weave not in ("dense", "event"):
             raise ValueError(
                 f"weave must be 'dense' or 'event', got {self.weave!r}")
-        for flag in ("telemetry", "cmd_trace"):
-            if getattr(self, flag):
-                raise ValueError(f"{flag}=True is not ported yet")
 
     def clock(self) -> ClockModel:
         return make_clock(self.clock_mode, self.platform)
@@ -159,26 +166,70 @@ def _ordered_sum(x, dim: int):
     return acc
 
 
-def _add_stats(acc: dram.TickStats, s: dram.TickStats) -> dram.TickStats:
-    return dram.TickStats(*(a + b for a, b in zip(acc, s)))
+def _add_stats(acc, s):
+    return type(acc)(*(a + b for a, b in zip(acc, s)))
 
 
-def _weave_dense(cfg, clock, tick_kw, queue, banks, w):
+def _tick_flags(cfg) -> dict:
+    return dict(telemetry=cfg.telemetry, cmd_trace=cfg.cmd_trace)
+
+
+class _Recorder:
+    """The recorder flags' accumulators over one window's steps: the
+    `TickTele` planes, the threaded `TeleState` and the per-step
+    `TickCmd` records (stacked on a step axis after the batch axis)."""
+
+    def __init__(self, cfg, tele, batch, dev):
+        d = cfg.platform.dram
+        self.cfg = cfg
+        self.tacc = self.tstate = None
+        if cfg.telemetry:
+            self.tacc = dram.zero_tele(d, batch, dev)
+            self.tstate = tele if tele is not None else dram.init_tele(
+                d, batch, dev)
+        self.cmds = []
+
+    def kw(self) -> dict:
+        return dict(_tick_flags(self.cfg), tele=self.tstate)
+
+    def add(self, rest):
+        """Take `dram.tick`'s return tail (after the stats)."""
+        if self.cfg.telemetry:
+            self.tacc = _add_stats(self.tacc, rest[0])
+            self.tstate, rest = rest[1], rest[2:]
+        if self.cfg.cmd_trace:
+            self.cmds.append(rest[0])
+
+    def record(self):
+        """``(TickTele | None, TeleState | None, TickCmd | None)``."""
+        cmds = (dram.TickCmd(*(torch.stack(f, 1) for f in zip(*self.cmds)))
+                if self.cfg.cmd_trace else None)
+        return self.tacc, self.tstate, cmds
+
+
+def _recording(cfg) -> bool:
+    return cfg.telemetry or cfg.cmd_trace
+
+
+def _weave_dense(cfg, clock, tick_kw, queue, banks, w, tele=None):
     """Reference engine: one step per DRAM tick of the window."""
     start, end = clock.window_start_tick(w), clock.window_end_tick(w)
     B = queue.valid.shape[0]
     dev = queue.valid.device
     acc = dram.zero_stats(cfg.platform.dram, B, dev)
+    rec = _Recorder(cfg, tele, B, dev)
     for t in range(start, start + clock.ticks_per_window_static):
-        queue, banks, s = dram.tick(queue, banks, t, active=t < end,
-                                    **tick_kw)
+        queue, banks, s, *rest = dram.tick(queue, banks, t, active=t < end,
+                                           **tick_kw, **rec.kw())
         acc = _add_stats(acc, s)
+        rec.add(rest)
     events = torch.full((B,), end - start, dtype=_I32, device=dev)
     sat = torch.zeros((B,), dtype=torch.bool, device=dev)
-    return queue, banks, acc, events, sat
+    out = (queue, banks, acc, events, sat)
+    return out + (rec.record(),) if _recording(cfg) else out
 
 
-def _weave_event(cfg, clock, tick_kw, queue, banks, w):
+def _weave_event(cfg, clock, tick_kw, queue, banks, w, tele=None):
     """Event-horizon engine: each step jumps every channel to its own
     next tick where eligibility can change.  A channel whose events are
     exhausted parks at ``horizon - 1`` with ``active=False``."""
@@ -189,15 +240,17 @@ def _weave_event(cfg, clock, tick_kw, queue, banks, w):
     dev = queue.valid.device
     nev_kw = dict(dram=d, policy=cfg.policy, planes=tick_kw["planes"])
     acc = dram.zero_stats(d, B, dev)
+    rec = _Recorder(cfg, tele, B, dev)
     t = torch.full((B, d.n_channels), start - 1, dtype=_I32, device=dev)
     live_steps = torch.zeros((B, d.n_channels), dtype=_I32, device=dev)
     for _ in range(cfg.event_budget()):
         tn = dram.next_event(queue, banks, t, horizon, **nev_kw)
         tau = torch.clamp(tn, max=horizon - 1)
-        queue, banks, s = dram.tick(queue, banks, tau,
-                                    active=(tn < horizon) & (tau < end),
-                                    **tick_kw)
+        queue, banks, s, *rest = dram.tick(
+            queue, banks, tau, active=(tn < horizon) & (tau < end),
+            **tick_kw, **rec.kw())
         acc = _add_stats(acc, s)
+        rec.add(rest)
         live_steps = live_steps + (tn < end).to(_I32)
         t = tau
     # the busiest channel's event count binds
@@ -206,21 +259,31 @@ def _weave_event(cfg, clock, tick_kw, queue, banks, w):
     # (not `end`: a pending tail arrival carries a drain update): flag
     sat = (dram.next_event(queue, banks, t, horizon, **nev_kw)
            < horizon).any(1)
-    return queue, banks, acc, events, sat
+    out = (queue, banks, acc, events, sat)
+    return out + (rec.record(),) if _recording(cfg) else out
 
 
-def _weave_stepwise(cfg, clock, tick_kw, queue, banks, w):
-    """The stepwise route: `_weave_dense` or `_weave_event`."""
+def _weave_stepwise(cfg, clock, tick_kw, queue, banks, w, tele=None):
+    """The stepwise route: `_weave_dense` or `_weave_event`.
+
+    Returns ``(queue', banks', TickStats, events, sat)``; with a recorder
+    flag on, a sixth item ``(TickTele, TeleState, TickCmd)`` (None for
+    an unset flag), the `TickCmd` fields stacked ``(B, steps, C, ...)``.
+    """
     weave = _weave_dense if cfg.weave == "dense" else _weave_event
-    return weave(cfg, clock, tick_kw, queue, banks, w)
+    return weave(cfg, clock, tick_kw, queue, banks, w, tele)
 
 
-def _weave_fused(cfg, clock, tick_kw, queue, banks, w):
-    """The card's route: the window in one `weave_window` launch, equal
-    bit for bit to `_weave_stepwise`."""
+def _weave_fused(cfg, clock, tick_kw, queue, banks, w, tele=None):
+    """The card's route: the window in one `weave_window` launch (its
+    recording instance under a recorder flag), equal bit for bit to
+    `_weave_stepwise`, and returning the same."""
     start, end = clock.window_start_tick(w), clock.window_end_tick(w)
     event = cfg.weave == "event"
-    queue, banks, st, live_steps, sat = weave_window(
+    if cfg.telemetry and tele is None:
+        tele = dram.init_tele(cfg.platform.dram, queue.valid.shape[0],
+                              queue.valid.device)
+    queue, banks, st, live_steps, sat, *rec = weave_window(
         queue, banks, start=start, end=end,
         horizon=start + clock.ticks_per_window_static,
         n_steps=(cfg.event_budget() if event
@@ -228,13 +291,20 @@ def _weave_fused(cfg, clock, tick_kw, queue, banks, w):
         event=event, dram=tick_kw["dram"], policy=tick_kw["policy"],
         tick2cpu_num=tick_kw["tick2cpu_num"],
         tick2cpu_den=tick_kw["tick2cpu_den"],
-        cpu_ps_per_clk=tick_kw["cpu_ps_per_clk"])
+        cpu_ps_per_clk=tick_kw["cpu_ps_per_clk"],
+        tele=tele if cfg.telemetry else None, **_tick_flags(cfg))
     if event:
         events = live_steps.amax(1)
     else:
         events = torch.full((queue.valid.shape[0],), end - start,
                             dtype=_I32, device=queue.valid.device)
-    return queue, banks, dram.TickStats(*st), events, sat.any(1)
+    out = (queue, banks, dram.TickStats(*st), events, sat.any(1))
+    if not _recording(cfg):
+        return out
+    tacc, tstate, cmds = rec[0]
+    return out + ((dram.TickTele(*tacc) if tacc is not None else None,
+                   dram.TeleState(*tstate) if tstate is not None else None,
+                   dram.TickCmd(*cmds) if cmds is not None else None),)
 
 
 def _weave_route(queue):
@@ -249,7 +319,7 @@ def _bound_inject_eager(cfg, clock, wcfg, frontend, carry, w: int):
     ``update``): ``(queue', fstate', injected, l_ir_cycles)``.  The CPU's
     route, the trace frontend's route on the card, and the
     `window_inject` kernel's plain version."""
-    queue, _, fstate, l_ir, lat_est = carry
+    queue, _, fstate, l_ir, lat_est = carry[:5]
     cpu = cfg.platform.cpu
     l_ir_cycles = torch.clamp(torch.round(l_ir).to(_I32), min=1)
     window_ps = cpu.window_cycles * cpu.cpu_ps_per_clk
@@ -269,7 +339,7 @@ def _bound_inject_fused(cfg, clock, wcfg, frontend, carry, w: int):
         raise NotImplementedError(
             f"{type(frontend).__name__} on the card: only the Mess "
             f"frontend has the window_inject kernel")
-    queue, _, fstate, l_ir, lat_est = carry
+    queue, _, fstate, l_ir, lat_est = carry[:5]
     cpu = cfg.platform.cpu
     return window_inject(
         queue, fstate, frontend.pace, frontend.wr_num, l_ir, lat_est, w=w,
@@ -318,16 +388,19 @@ def _tick_kw(cfg: StageConfig, clock: ClockModel, device) -> dict:
 
 def _window_step(cfg: StageConfig, clock: ClockModel, wcfg: WorkloadConfig,
                  frontend, carry, w: int):
-    _, banks, _, l_ir, lat_est = carry
+    _, banks, _, l_ir, lat_est, tele = carry
     cpu = cfg.platform.cpu
     d = cfg.platform.dram
     queue, fstate, injected, l_ir_cycles = _bound_inject(
         cfg, clock, wcfg, frontend, carry, w)
+    if cfg.telemetry:
+        queue_depth = queue.valid.sum(2, dtype=_I32)     # (B, C)
 
     # weave phase
     tick_kw = _tick_kw(cfg, clock, queue.valid.device)
-    queue, banks, st, events, sat = _weave_route(queue)(
-        cfg, clock, tick_kw, queue, banks, w)
+    queue, banks, st, events, sat, *rec = _weave_route(queue)(
+        cfg, clock, tick_kw, queue, banks, w, tele)
+    tacc, tele, cmds = rec[0] if rec else (None, None, None)
 
     n_rd = st.served_rd.sum(1, dtype=_I32)
     sum_rd_lat = st.sum_rd_lat_ticks.sum(1, dtype=_I32)
@@ -338,7 +411,8 @@ def _window_step(cfg: StageConfig, clock: ClockModel, wcfg: WorkloadConfig,
     lat_w = _fma32(sum_rd_lat / n1, d.dram_ps_per_clk,
                    torch.full_like(lat_est, float(wcfg.cache_path_cycles
                                                   * cpu.cpu_ps_per_clk)))
-    lat_est = torch.where(n_rd > 0, 0.5 * lat_est + 0.5 * lat_w, lat_est)
+    lat_est_next = torch.where(n_rd > 0, 0.5 * lat_est + 0.5 * lat_w,
+                               lat_est)
 
     # PI controller (Sec. 3.4): blend in the weave-phase average latency
     if cfg.pi_latency:
@@ -361,12 +435,26 @@ def _window_step(cfg: StageConfig, clock: ClockModel, wcfg: WorkloadConfig,
         injected=injected, ticks=torch.full_like(n_rd, ticks),
         progress=frontend.progress(fstate))
     diag = dict(weave_events=events, weave_sat=sat)
-    return (queue, banks, fstate, l_ir_next, lat_est), (out, diag)
+    if cfg.telemetry:
+        # the counter planes, and the interface series at the window's
+        # boundaries: queue depth after injection, the MSHR budget the
+        # bound phase had (from the window's first latency estimate,
+        # as both bound-phase routes compute it) and the new estimate
+        window_ps = cpu.window_cycles * cpu.cpu_ps_per_clk
+        diag.update({f"tele_{k}": v for k, v in tacc._asdict().items()},
+                    tele_queue_depth=queue_depth,
+                    tele_mshr_budget=workload.littles_law_budget(
+                        lat_est, window_ps),
+                    tele_lat_est_ps=lat_est_next)
+    if cfg.cmd_trace:
+        diag.update({f"cmd_{k}": v for k, v in cmds._asdict().items()})
+    return (queue, banks, fstate, l_ir_next, lat_est_next, tele), (out, diag)
 
 
 def _init_carry(cfg: StageConfig, frontend, batch: int, dev):
     """The window loop's first carry: empty queues, precharged banks,
-    the frontend's initial state, ``l_ir`` and the latency estimate."""
+    the frontend's initial state, ``l_ir``, the latency estimate and the
+    telemetry carry (None with ``telemetry`` off)."""
     d = cfg.platform.dram
     queue = dram.init_queue(d, cfg.policy, n_sockets=cfg.n_sockets,
                             batch=batch, device=dev)
@@ -378,7 +466,8 @@ def _init_carry(cfg: StageConfig, frontend, batch: int, dev):
                         * cfg.platform.cpu.cpu_ps_per_clk
                         + (d.tCL + d.tBL) * d.dram_ps_per_clk),
         dtype=_F32, device=dev)
-    return (queue, banks, frontend.init_state(), l_ir, lat_est)
+    tele = dram.init_tele(d, batch, dev) if cfg.telemetry else None
+    return (queue, banks, frontend.init_state(), l_ir, lat_est, tele)
 
 
 def run_frontend(cfg: StageConfig, frontend, *, batch: int, device=None):
@@ -392,8 +481,9 @@ def run_frontend(cfg: StageConfig, frontend, *, batch: int, device=None):
         device: ``None`` means ``"cuda"``.
     Returns:
         ``(views, outs)``: the aggregated three-view dict of (B,)
-        tensors (see `_aggregate`) and the per-window `WindowOut`
-        trajectory, each field (W, B).
+        tensors (see `_aggregate`; with a recorder flag also the raw
+        ``tele_*`` / ``cmd_*`` series, (B, W, ...)) and the per-window
+        `WindowOut` trajectory, each field (W, B).
     """
     dev = resolve_device(device)
     clock = cfg.clock()
@@ -448,6 +538,9 @@ def _aggregate(cfg: StageConfig, outs: WindowOut, diag):
     View 1 (simulator) counts DRAM ticks x ``dram_ps_per_clk``; view 2
     (interface) CPU-perceived picoseconds; view 3 (application) CPU
     cycles of bound-phase load-to-use.  Bandwidths GB/s, latencies ns.
+    The telemetry planes and command records pass through raw, the full
+    window axis after the batch axis: ``(B, W, ...)``, as the
+    reference's ``vmap`` of its ``(W, ...)`` series stacks them.
     """
     W = outs.l_ir.shape[0]
     dev = outs.l_ir.device
@@ -489,4 +582,6 @@ def _aggregate(cfg: StageConfig, outs: WindowOut, diag):
         injected=ksum(outs.injected),
         weave_events=ksum(diag["weave_events"]),
         weave_sat=diag["weave_sat"].to(_I32).sum(0, dtype=_I32),
+        **{k: v.transpose(0, 1).contiguous() for k, v in diag.items()
+           if k.startswith(("tele_", "cmd_"))},
     )

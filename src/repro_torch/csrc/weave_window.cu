@@ -46,6 +46,22 @@
 // converts with round-to-nearest; its float32 sum adds in step order with
 // no contraction.
 //
+// The recorders (`StageConfig.telemetry` / `cmd_trace`) are compile-time
+// variants: `weave_window_kernel<kTele, kCmd>`, four instances.  The
+// <false, false> instance is the kernel without them.  Telemetry keeps
+// the reference's event-accounted planes: busy time and each bank's last
+// ACT tick in the registers of the bank's owner thread; the command
+// counters and the write-burst state in the registers of the row's last
+// warp (the same value in each lane); the two log2 latency histograms in
+// shared memory, added to by the row's last thread alone (at most one
+// read a step).  The command record is one row of 4 + 2 * ranks int32
+// per step and row (cmd, t, fbank, row, then ref and ref_bank per rank),
+// one field a lane of the last warp, written after the argmax on every
+// step, inactive ones included, where the slot is 0 as the reference's
+// argmax over all-zero scores gives.  The bank owners (the first warps)
+// carry a step's critical path; the last warp's recorder work overlaps
+// it.
+//
 // Packed parameter vector, in the order of PARAM_NAMES in ops.py:
 //   tCL tRCD tRP tRAS tBL tCCD_S tCCD_L tWR tWTR_L tRTP tRRD_S tRRD_L tFAW
 //   tCWL tRTRS tREFI tRFC tRC banks_per_rank banks_per_group
@@ -65,6 +81,8 @@ constexpr int kMaxRB = 64;   // banks a channel
 constexpr int kMaxR = 4;     // ranks a channel
 constexpr int kMaxWarps = kMaxQ / 32;
 constexpr int kSlotBits = 10;
+constexpr int kNHist = 24;   // log2 latency buckets (dram.N_HIST)
+constexpr int kNCounters = 7;
 constexpr int kNParams = 28;
 constexpr int kBigTick = 1 << 28;  // "no event" (the reference's _BIG)
 constexpr unsigned kFull = 0xffffffffu;
@@ -80,6 +98,12 @@ constexpr int kBusFree = 0, kWtr = 1, kRtw = 2, kLastRank = 3, kDrain = 4,
 // integer stats of the (5, rows) output; the float sum goes apart
 constexpr int kServedRd = 0, kServedWr = 1, kSumRdLat = 2, kChaseRd = 3,
               kSumChaseLat = 4;
+// telemetry counters of the (7, rows) output, in TickTele's order
+constexpr int kNAct = 0, kNPre = 1, kNCasRd = 2, kNCasWr = 3, kNRef = 4,
+              kDrainEnter = 5, kDrainTicks = 6;
+// command record fields (then ref[ranks], ref_bank[ranks])
+constexpr int kRecCmd = 0, kRecT = 1, kRecFbank = 2, kRecRow = 3,
+              kRecRef = 4;
 
 struct Params {
   int tCL, tRCD, tRP, tRAS, tBL, tCCD_S, tCCD_L, tWR, tWTR_L, tRTP, tRRD_S,
@@ -110,6 +134,36 @@ struct Io {
   float* __restrict__ stats_f;
   int32_t* __restrict__ live;
   int32_t* __restrict__ sat;
+};
+
+// The recorders' inputs and outputs: TeleState in (opened_at (rows, rb);
+// last_wr_t, wr_burst (2, rows)) and out (fresh, the same shapes), the
+// window's increments (counters (7, rows), busy (rows, rb), histograms
+// (2, rows, kNHist)) and the command record (n_steps, rows, 4 + 2 ranks).
+struct TeleIo {
+  const int32_t* __restrict__ opened_in;
+  const int32_t* __restrict__ burst_in;
+  int32_t* __restrict__ opened_out;
+  int32_t* __restrict__ burst_out;
+  int32_t* __restrict__ counters;
+  int32_t* __restrict__ busy;
+  int32_t* __restrict__ hist;
+  int32_t* __restrict__ rec;
+};
+
+// Telemetry's shared memory (dynamic: the <false, *> instances take none).
+struct TeleSmem {
+  int hist[2][kNHist];  // read latency in ticks, interface latency in ps
+};
+
+// Telemetry's registers: the bank's busy time and last ACT tick in its
+// owner thread; the counters and write-burst state in the last warp.
+struct TeleRegs {
+  unsigned busy;
+  int opened_at;
+  unsigned n[kNCounters];
+  int last_wr_t;
+  bool wr_burst;
 };
 
 struct Smem {
@@ -165,6 +219,38 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
   if (a % b != 0 && ((a < 0) != (b < 0))) --q;
   return q;
+}
+
+// `dram.log2_bucket`: floor(log2(max(v, 1))) clipped to kNHist - 1
+__device__ __forceinline__ int log2_bucket(int v) {
+  return min(31 - __clz(max(v, 1)), kNHist - 1);
+}
+
+// Field `f` of one step's command record, by lane `f` of the row's last
+// warp: the refresh fields read the deadlines and REFsb slots before the
+// step moves them.
+__device__ __forceinline__ void write_record(int32_t* rec, int f, int cmd,
+                                             int t, int fbank, int row,
+                                             const RowRegs& rr, bool active,
+                                             const Params& p,
+                                             const Window& win) {
+  int v;
+  if (f == kRecCmd) {
+    v = cmd;
+  } else if (f == kRecT) {
+    v = t;
+  } else if (f == kRecFbank) {
+    v = fbank;
+  } else if (f == kRecRow) {
+    v = row;
+  } else {
+    const int k = (f - kRecRef) % win.ranks;
+    const bool due = active && t >= pick(rr.next_ref, k);
+    v = f < kRecRef + win.ranks
+            ? (due ? 1 : 0)
+            : (p.same_bank_refresh && due ? pick(rr.ref_slot, k) : -1);
+  }
+  rec[f] = v;
 }
 
 __device__ __forceinline__ bool settle_drain(bool drain, int nw, int nr,
@@ -237,13 +323,19 @@ __device__ __forceinline__ int next_event(Smem& sm, int* cnt_buf,
   return min(max(ev, t + 1), end);
 }
 
-// `dram.tick` of the row at `t`.
-__device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
+// `dram.tick` of the row at `t`; with kTele its telemetry planes, with
+// kCmd its record at `rec`.
+template <bool kTele, bool kCmd>
+__device__ __forceinline__ void tick(Smem& sm, TeleSmem& ts, TeleRegs& tr,
+                                     int32_t* rec, int* cnt_buf, SlotRegs& s,
                                      RowRegs& rr, Stats& st, const Params& p,
                                      const Window& win, int nwarps, int t,
                                      bool active) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int nbanks = p.banks_per_rank;
+  // the row's last warp keeps the recorders; lane f writes record field f
+  const bool rec_warp = (tid >> 5) == nwarps - 1;
+  const bool rec_lane = rec_warp && lane < kRecRef + 2 * win.ranks;
 
   // refresh: all-bank closes the rank, REFsb one rotating bank; each
   // bank's owner applies it (the deadlines move with the apply below)
@@ -254,6 +346,10 @@ __device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
     if (p.same_bank_refresh)
       due = due && tid % nbanks == pick(rr.ref_slot, rank);
     if (due) {
+      if constexpr (kTele) {  // a refresh closes an open row: its busy time
+        if (sm.open_row[tid] >= 0)
+          tr.busy += static_cast<unsigned>(wrap_sub(t, tr.opened_at));
+      }
       sm.open_row[tid] = -1;
       sm.next_act[tid] = max(sm.next_act[tid], t + p.tRFC);
     }
@@ -267,6 +363,11 @@ __device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
   *cnt_buf ^= 1;
   const bool drain = settle_drain(rr.drain, nw, nr, p);
   if (!active) {  // grants nothing, refreshes nothing
+    if constexpr (kCmd) {
+      if (rec_lane)
+        write_record(rec, lane, frfcfs::kNone, t, sm.fbank[0], -1, rr, false,
+                     p, win);
+    }
     rr.drain = drain;
     return;
   }
@@ -316,6 +417,25 @@ __device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
   const int s_fb = sm.fbank[sel];
   const int s_rank = s_fb / nbanks;
   const int s_bg = (s_fb % nbanks) / p.banks_per_group;
+  if constexpr (kCmd) {
+    if (rec_lane)
+      write_record(rec, lane, cmd, t, s_fb,
+                   s_act || s_cas ? sm.row[sel] : -1, rr, true, p, win);
+  }
+  if (kTele && rec_warp) {  // a write-CAS run is one drain burst
+    tr.n[kNAct] += s_act;
+    tr.n[kNPre] += s_pre;
+    tr.n[kNCasRd] += s_rd;
+    tr.n[kNCasWr] += s_wr;
+    if (s_wr) {
+      tr.n[kDrainEnter] += !tr.wr_burst;
+      tr.n[kDrainTicks] +=
+          tr.wr_burst ? static_cast<unsigned>(wrap_sub(t, tr.last_wr_t))
+                      : static_cast<unsigned>(p.tBL);
+      tr.last_wr_t = t;
+    }
+    if (s_cas) tr.wr_burst = s_wr;
+  }
 
   // apply the command: bank planes by their owners
   if (tid < win.rb && any_cmd) {
@@ -330,6 +450,7 @@ __device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
       if (same_rank) nact = max(nact, t + p.tRRD_S);
       if (same_grp) nact = max(nact, t + p.tRRD_L);
       if (at_sel) {
+        if constexpr (kTele) tr.opened_at = t;
         orow = sm.row[sel];
         nact = max(nact, t + p.tRC);
         nrd = t + p.tRCD;
@@ -345,6 +466,8 @@ __device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
       if (at_sel && s_wr) npre = max(npre, t + (p.tCWL + p.tBL + p.tWR));
     }
     if (s_pre && at_sel) {
+      if constexpr (kTele)
+        tr.busy += static_cast<unsigned>(wrap_sub(t, tr.opened_at));
       orow = -1;
       nact = max(nact, t + p.tRP);
     }
@@ -374,6 +497,7 @@ __device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
 #pragma unroll
   for (int k = 0; k < kMaxR; ++k) {
     if (k < win.ranks && t >= rr.next_ref[k]) {
+      if (kTele && rec_warp) ++tr.n[kNRef];
       rr.next_ref[k] += p.tREFI;
       if (p.same_bank_refresh)
         rr.ref_slot[k] = (rr.ref_slot[k] + 1) % nbanks;
@@ -391,6 +515,13 @@ __device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
                wrap_mul(sm.issue[sel], p.cpu_ps_per_clk));
   st.served_rd += s_rd;
   st.served_wr += s_wr;
+  if constexpr (kTele) {
+    if (tid == win.q - 1 && s_rd) {
+      // one thread: the atomics only spare the load-to-store latency
+      atomicAdd(&ts.hist[0][log2_bucket(rd_lat)], 1);
+      atomicAdd(&ts.hist[1][log2_bucket(if_lat)], 1);
+    }
+  }
   if (s_rd) {
     st.sum_rd_lat += static_cast<unsigned>(rd_lat);
     st.sum_if = __fadd_rn(st.sum_if, __int2float_rn(if_lat));
@@ -401,9 +532,12 @@ __device__ __forceinline__ void tick(Smem& sm, int* cnt_buf, SlotRegs& s,
   }
 }
 
+template <bool kTele, bool kCmd>
 __global__ void __launch_bounds__(kMaxQ, 1)
-    weave_window_kernel(Io io, Params p, Window win) {
+    weave_window_kernel(Io io, TeleIo tio, Params p, Window win) {
   __shared__ Smem sm;
+  extern __shared__ int tele_smem[];
+  TeleSmem& ts = *reinterpret_cast<TeleSmem*>(tele_smem);
   const int tid = threadIdx.x;
   const int row = blockIdx.x;
   const int rows = gridDim.x;
@@ -453,6 +587,21 @@ __global__ void __launch_bounds__(kMaxQ, 1)
         in ? io.ref_in[static_cast<size_t>(rows) * win.ranks + at] : 0;
   }
   Stats st{0u, 0u, 0u, 0u, 0u, 0.0f};
+  TeleRegs tr{};
+  if constexpr (kTele) {
+    if (tid < win.rb) {
+      tr.opened_at = tio.opened_in[static_cast<size_t>(row) * win.rb + tid];
+    }
+    if (tid < 2 * kNHist) ts.hist[tid / kNHist][tid % kNHist] = 0;
+    tr.last_wr_t = tio.burst_in[row];
+    tr.wr_burst = tio.burst_in[rows + row] != 0;
+  }
+  // this row's command record of step i
+  const int rec_len = 4 + 2 * win.ranks;
+  auto rec_at = [&](int i) {
+    return kCmd ? tio.rec + (static_cast<size_t>(i) * rows + row) * rec_len
+                : nullptr;
+  };
   int cnt_buf = 0;
   __syncthreads();
 
@@ -462,7 +611,8 @@ __global__ void __launch_bounds__(kMaxQ, 1)
   if (!win.event) {
     for (int i = 0; i < win.n_steps; ++i) {
       const int t = win.start + i;
-      tick(sm, &cnt_buf, s, rr, st, p, win, nwarps, t, t < win.end);
+      tick<kTele, kCmd>(sm, ts, tr, rec_at(i), &cnt_buf, s, rr, st, p, win,
+                        nwarps, t, t < win.end);
       live += t < win.end;
     }
   } else {
@@ -473,8 +623,8 @@ __global__ void __launch_bounds__(kMaxQ, 1)
       const int tn = next_event(sm, &cnt_buf, s, rr, p, win, nwarps, t,
                                 win.horizon);
       const int tau = min(tn, win.horizon - 1);
-      tick(sm, &cnt_buf, s, rr, st, p, win, nwarps, tau,
-           tn < win.horizon && tau < win.end);
+      tick<kTele, kCmd>(sm, ts, tr, rec_at(i), &cnt_buf, s, rr, st, p, win,
+                        nwarps, tau, tn < win.horizon && tau < win.end);
       live += tn < win.end;
       t = tau;
     }
@@ -534,6 +684,62 @@ __global__ void __launch_bounds__(kMaxQ, 1)
     io.live[row] = live;
     io.sat[row] = sat ? 1 : 0;
   }
+  if constexpr (kTele) {
+    if (tid < win.rb) {
+      const size_t at = static_cast<size_t>(row) * win.rb + tid;
+      tio.opened_out[at] = tr.opened_at;
+      tio.busy[at] = static_cast<int>(tr.busy);
+    }
+    if (tid < 2 * kNHist)
+      tio.hist[(static_cast<size_t>(tid / kNHist) * rows + row) * kNHist +
+               tid % kNHist] = ts.hist[tid / kNHist][tid % kNHist];
+    if (tid == win.q - 1) {
+#pragma unroll
+      for (int k = 0; k < kNCounters; ++k)
+        tio.counters[k * rows + row] = static_cast<int>(tr.n[k]);
+      tio.burst_out[row] = tr.last_wr_t;
+      tio.burst_out[rows + row] = tr.wr_burst ? 1 : 0;
+    }
+  }
+}
+
+// The launch of one instance; `ok` checks of the C entry points first.
+template <bool kTele, bool kCmd>
+int launch(const Io& io, const TeleIo& tio, const int* params, int rows,
+           const Window& win, void* stream) {
+  Params p;
+  int* dst = reinterpret_cast<int*>(&p);
+  for (int i = 0; i < kNParams; ++i) dst[i] = params[i];
+  weave_window_kernel<kTele, kCmd>
+      <<<rows, win.q, kTele ? sizeof(TeleSmem) : 0,
+         static_cast<cudaStream_t>(stream)>>>(io, tio, p, win);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool shape_ok(int n_params, int q, int rb, int ranks, const int* params) {
+  return n_params == kNParams && q > 0 && q <= kMaxQ && q % 32 == 0 &&
+         rb > 0 && rb <= kMaxRB && rb <= q && ranks > 0 && ranks <= kMaxR &&
+         ranks * params[18] == rb;
+}
+
+Io make_io(const void* q_in, const void* b_in, const void* faw_in,
+           const void* ref_in, const void* ch_in, void* q_out, void* b_out,
+           void* faw_out, void* ref_out, void* ch_out, void* stats_i,
+           void* stats_f, void* live, void* sat) {
+  return Io{static_cast<const int32_t*>(q_in),
+            static_cast<const int32_t*>(b_in),
+            static_cast<const int32_t*>(faw_in),
+            static_cast<const int32_t*>(ref_in),
+            static_cast<const int32_t*>(ch_in),
+            static_cast<int32_t*>(q_out),
+            static_cast<int32_t*>(b_out),
+            static_cast<int32_t*>(faw_out),
+            static_cast<int32_t*>(ref_out),
+            static_cast<int32_t*>(ch_out),
+            static_cast<int32_t*>(stats_i),
+            static_cast<float*>(stats_f),
+            static_cast<int32_t*>(live),
+            static_cast<int32_t*>(sat)};
 }
 
 }  // namespace
@@ -555,30 +761,49 @@ extern "C" int weave_window_launch(
     void* live, void* sat, const int* params, int n_params, int rows, int q,
     int rb, int ranks, int start, int end, int horizon, int n_steps,
     int event, void* stream) {
-  if (n_params != kNParams || q <= 0 || q > kMaxQ || q % 32 != 0 ||
-      rb <= 0 || rb > kMaxRB || rb > q || ranks <= 0 || ranks > kMaxR ||
-      ranks * params[18] != rb)
+  if (!shape_ok(n_params, q, rb, ranks, params))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0) return static_cast<int>(cudaSuccess);
-  Params p;
-  int* dst = reinterpret_cast<int*>(&p);
-  for (int i = 0; i < kNParams; ++i) dst[i] = params[i];
   const Window win{start, end, horizon, n_steps, event, q, rb, ranks};
-  const Io io{static_cast<const int32_t*>(q_in),
-              static_cast<const int32_t*>(b_in),
-              static_cast<const int32_t*>(faw_in),
-              static_cast<const int32_t*>(ref_in),
-              static_cast<const int32_t*>(ch_in),
-              static_cast<int32_t*>(q_out),
-              static_cast<int32_t*>(b_out),
-              static_cast<int32_t*>(faw_out),
-              static_cast<int32_t*>(ref_out),
-              static_cast<int32_t*>(ch_out),
-              static_cast<int32_t*>(stats_i),
-              static_cast<float*>(stats_f),
-              static_cast<int32_t*>(live),
-              static_cast<int32_t*>(sat)};
-  weave_window_kernel<<<rows, q, 0, static_cast<cudaStream_t>(stream)>>>(
-      io, p, win);
-  return static_cast<int>(cudaGetLastError());
+  const Io io = make_io(q_in, b_in, faw_in, ref_in, ch_in, q_out, b_out,
+                        faw_out, ref_out, ch_out, stats_i, stats_f, live, sat);
+  return launch<false, false>(io, TeleIo{}, params, rows, win, stream);
+}
+
+// The same window with the recorders: `telemetry` and `cmd_trace` pick the
+// instance.  After the arguments above: TeleState in, opened_at (rows, rb)
+// and (last_wr_t, wr_burst) (2, rows); TeleState out, the same shapes;
+// the increments, counters (7, rows) = n_act, n_pre, n_cas_rd, n_cas_wr,
+// n_ref, drain_enter, drain_ticks, busy (rows, rb) and the histograms
+// (2, rows, 24) = read latency in ticks, interface latency in ps; the
+// command record (n_steps, rows, 4 + 2 ranks).  Pointers of an unset flag
+// are not read and may be null.
+extern "C" int weave_window_record_launch(
+    const void* q_in, const void* b_in, const void* faw_in,
+    const void* ref_in, const void* ch_in, void* q_out, void* b_out,
+    void* faw_out, void* ref_out, void* ch_out, void* stats_i, void* stats_f,
+    void* live, void* sat, const void* opened_in, const void* burst_in,
+    void* opened_out, void* burst_out, void* counters, void* busy,
+    void* hist, void* rec, const int* params, int n_params, int rows, int q,
+    int rb, int ranks, int start, int end, int horizon, int n_steps,
+    int event, int telemetry, int cmd_trace, void* stream) {
+  if (!shape_ok(n_params, q, rb, ranks, params))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  const Window win{start, end, horizon, n_steps, event, q, rb, ranks};
+  const Io io = make_io(q_in, b_in, faw_in, ref_in, ch_in, q_out, b_out,
+                        faw_out, ref_out, ch_out, stats_i, stats_f, live, sat);
+  const TeleIo tio{static_cast<const int32_t*>(opened_in),
+                   static_cast<const int32_t*>(burst_in),
+                   static_cast<int32_t*>(opened_out),
+                   static_cast<int32_t*>(burst_out),
+                   static_cast<int32_t*>(counters),
+                   static_cast<int32_t*>(busy),
+                   static_cast<int32_t*>(hist),
+                   static_cast<int32_t*>(rec)};
+  if (telemetry && cmd_trace)
+    return launch<true, true>(io, tio, params, rows, win, stream);
+  if (telemetry) return launch<true, false>(io, tio, params, rows, win, stream);
+  if (cmd_trace) return launch<false, true>(io, tio, params, rows, win, stream);
+  return launch<false, false>(io, tio, params, rows, win, stream);
 }

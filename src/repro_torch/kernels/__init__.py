@@ -3,7 +3,8 @@
 * `weave_window.weave_window` — one whole window of the weave phase
   (every step's refresh, drain, FR-FCFS select, command apply and
   stats; dense or event-horizon) in one launch: the card's weave route
-  (``csrc/weave_window.cu``).
+  (``csrc/weave_window.cu``), with the telemetry planes and the
+  command record in its recording instances.
 * `bank_timing.frfcfs_select` — FR-FCFS eligibility + select, the body
   of every step of the stepwise weave route (``csrc/bank_timing.cu``).
 * `window_inject.window_inject` — one whole window's bound phase and
@@ -19,7 +20,8 @@
   on the CUDA cores (``csrc/flash_attention.cu``).
 
 All build on first use (`_build`) and count their launches (and
-`flash_attention` its launches per route, `weave_window` its steps).
+`flash_attention` its launches per route, `weave_window` its steps and
+its launches per instance: with the recorders or without).
 """
 from repro_torch.kernels.addr_decode import decode_packed
 from repro_torch.kernels.bank_timing import frfcfs_select
@@ -33,8 +35,13 @@ WRAPPERS = {"weave_window": weave_window, "window_inject": window_inject,
 
 
 def launch_counts() -> dict:
-    """Kernel launches per wrapper since the last `reset_launch_counts`."""
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Kernel launches per wrapper since the last `reset_launch_counts`,
+    and ``weave_window_recording``: those of `weave_window` that ran a
+    recording instance."""
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    by = weave_window.launches_by_instance
+    counts["weave_window_recording"] = sum(by.values()) - by["plain"]
+    return counts
 
 
 def reset_launch_counts() -> None:
@@ -42,5 +49,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "steps"):
             fn.steps = 0
-        if hasattr(fn, "launches_by_route"):
-            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        for by in ("launches_by_route", "launches_by_instance"):
+            if hasattr(fn, by):
+                setattr(fn, by, dict.fromkeys(getattr(fn, by), 0))

@@ -13,8 +13,17 @@ which the kernel matches bit for bit.  (It is not called from here:
 of `core`.)  The wrapper runs on the card only: a CPU tensor raises, and
 the platform routes CPU state to the stepwise loop.
 
-``weave_window.launches`` counts launches and ``weave_window.steps`` the
-weave steps they ran (launches x steps per window).
+With ``telemetry`` or ``cmd_trace`` the launch takes the recording
+instance of the same kernel (``weave_window_record_launch``: the
+reference's telemetry planes and per-step command records, bit for bit
+those of `dram.tick` with the flags); there is no fallback to another
+route.
+
+``weave_window.launches`` counts launches (every instance),
+``weave_window.launches_by_instance`` them per instance (``plain``,
+``telemetry``, ``cmd_trace``, ``telemetry+cmd_trace``) and
+``weave_window.steps`` the weave steps they ran (launches x steps per
+window).
 """
 from __future__ import annotations
 
@@ -45,6 +54,15 @@ _CHANNEL_REGS = ("bus_free", "wtr_until", "rtw_until", "last_rank", "drain",
                  "hit_streak")
 _ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_void_p]
              + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+_RECORD_ARGTYPES = ([ctypes.c_void_p] * 22 + [ctypes.c_void_p]
+                    + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+
+#: log2 latency buckets of the telemetry histograms (`dram.N_HIST`)
+N_HIST = 24
+#: the telemetry counters of the kernel's (7, rows) output, in
+#: `dram.TickTele`'s order (its other fields: busy, two histograms)
+TELE_COUNTERS = ("n_act", "n_pre", "n_cas_rd", "n_cas_wr", "n_ref",
+                 "drain_enter", "drain_ticks")
 
 
 def pack_params(dram, policy, *, tick2cpu_num: int, tick2cpu_den: int,
@@ -88,6 +106,52 @@ def pack_inputs(queue, banks):
     return inputs, outputs
 
 
+def instance(telemetry: bool, cmd_trace: bool) -> str:
+    """The kernel instance a flag pair runs."""
+    return "+".join(n for n, on in (("telemetry", telemetry),
+                                    ("cmd_trace", cmd_trace)) if on) \
+        or "plain"
+
+
+def pack_recorder(tele, B: int, C: int, RB: int, R: int, n_steps: int,
+                  dev, *, telemetry: bool, cmd_trace: bool):
+    """The recorders' packed inputs and fresh outputs (dicts of int32
+    tensors; the keys of an unset flag are absent).  ``tele`` is the
+    `TeleState` (int32 ``opened_at`` and ``last_wr_t``, bool
+    ``wr_burst``) and is copied, never aliased."""
+    empty = dict(dtype=torch.int32, device=dev)
+    inputs, outputs = {}, {}
+    if telemetry:
+        inputs.update(opened=tele[0].clone(
+                          memory_format=torch.contiguous_format),
+                      burst=torch.stack([tele[1], tele[2].to(torch.int32)]))
+        outputs.update(opened=torch.empty((B, C, RB), **empty),
+                       burst=torch.empty((2, B, C), **empty),
+                       counters=torch.empty((len(TELE_COUNTERS), B, C),
+                                            **empty),
+                       busy=torch.empty((B, C, RB), **empty),
+                       hist=torch.empty((2, B, C, N_HIST), **empty))
+    if cmd_trace:
+        outputs["rec"] = torch.empty((n_steps, B * C, 4 + 2 * R), **empty)
+    return inputs, outputs
+
+
+def _check_tele(tele, B, C, RB, dev):
+    if tele is None:
+        raise ValueError("telemetry=True needs the TeleState carry (tele)")
+    for name, x, shape, dtype in (
+            ("tele.opened_at", tele[0], (B, C, RB), torch.int32),
+            ("tele.last_wr_t", tele[1], (B, C), torch.int32),
+            ("tele.wr_burst", tele[2], (B, C), torch.bool)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {shape}")
+
+
 def _check(queue, banks, dram, n_steps):
     B, C, Q = queue.valid.shape
     RB, R = dram.banks_per_channel, dram.ranks_per_channel
@@ -127,7 +191,8 @@ def _check(queue, banks, dram, n_steps):
 
 def weave_window(queue, banks, *, start: int, end: int, horizon: int,
                  n_steps: int, event: bool, dram, policy,
-                 tick2cpu_num: int, tick2cpu_den: int, cpu_ps_per_clk: int):
+                 tick2cpu_num: int, tick2cpu_den: int, cpu_ps_per_clk: int,
+                 telemetry: bool = False, tele=None, cmd_trace: bool = False):
     """Run one weave window on the card.
 
     Args:
@@ -141,33 +206,60 @@ def weave_window(queue, banks, *, start: int, end: int, horizon: int,
         dram, policy: ``DramParams`` / ``SchedulerPolicy``.
         tick2cpu_num, tick2cpu_den, cpu_ps_per_clk: the clock's mapping
             of DRAM ticks to CPU picoseconds.
+        telemetry: record the telemetry planes; ``tele`` is then the
+            `TeleState` carry ``(opened_at, last_wr_t, wr_burst)``.
+        cmd_trace: record every step's command.
     Returns:
         ``(queue', banks', stats, live_steps, sat)``: the new state (same
         NamedTuple types), the six ``TickStats`` fields per (B, C) in
         their order, the (B, C) int32 count of steps before ``end``
         (event: ``tn < end``) and the (B, C) bool saturation flag (event
-        budget spent with an event pending before ``horizon``).
+        budget spent with an event pending before ``horizon``).  With a
+        recorder flag, a sixth item ``(tele_inc, tele', cmds)``, None
+        for an unset flag: the window's `TickTele` fields ((B, C), busy
+        (B, C, RB), histograms (B, C, N_HIST)), the new `TeleState`
+        fields, and the `TickCmd` fields of every step, ``(B, n_steps,
+        C)`` (``ref`` / ``ref_bank`` ``(B, n_steps, C, R)``).
     """
     _check(queue, banks, dram, n_steps)
     B, C, Q = queue.valid.shape
+    RB, R = dram.banks_per_channel, dram.ranks_per_channel
+    dev = queue.valid.device
+    recording = bool(telemetry or cmd_trace)
+    if telemetry:
+        _check_tele(tele, B, C, RB, dev)
     inp, out = pack_inputs(queue, banks)
+    rin, rout = pack_recorder(tele, B, C, RB, R, n_steps, dev,
+                              telemetry=telemetry, cmd_trace=cmd_trace)
     params = pack_params(dram, policy, tick2cpu_num=tick2cpu_num,
                          tick2cpu_den=tick2cpu_den,
                          cpu_ps_per_clk=cpu_ps_per_clk)
     c_params = (ctypes.c_int * len(params))(*params)
-    fn = _build.function("weave_window_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(queue.valid.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [inp[k].data_ptr() for k in ("queue", "banks", "faw", "refresh",
                                         "channel")]
     ptrs += [out[k].data_ptr() for k in ("queue", "banks", "faw", "refresh",
                                          "channel", "stats_i", "stats_f",
                                          "live", "sat")]
-    err = fn(*ptrs, ctypes.addressof(c_params), len(params), B * C, Q,
-             dram.banks_per_channel, dram.ranks_per_channel, int(start),
-             int(end), int(horizon), int(n_steps), int(bool(event)), stream)
+    window = (B * C, Q, RB, R, int(start), int(end), int(horizon),
+              int(n_steps), int(bool(event)))
+    if recording:
+        fn = _build.function("weave_window_record_launch", _RECORD_ARGTYPES)
+        ptrs += [rin[k].data_ptr() if k in rin else None
+                 for k in ("opened", "burst")]
+        ptrs += [rout[k].data_ptr() if k in rout else None
+                 for k in ("opened", "burst", "counters", "busy", "hist",
+                           "rec")]
+        err = fn(*ptrs, ctypes.addressof(c_params), len(params), *window,
+                 int(bool(telemetry)), int(bool(cmd_trace)), stream)
+    else:
+        fn = _build.function("weave_window_launch", _ARGTYPES)
+        err = fn(*ptrs, ctypes.addressof(c_params), len(params), *window,
+                 stream)
     if err:
         raise RuntimeError(f"weave_window launch failed: CUDA error {err}")
     weave_window.launches += 1
+    weave_window.launches_by_instance[instance(telemetry, cmd_trace)] += 1
     weave_window.steps += int(n_steps)
 
     bank_planes = dict(zip(_BANK_PLANES, out["banks"].unbind(0)))
@@ -180,9 +272,23 @@ def weave_window(queue, banks, *, start: int, end: int, horizon: int,
         for n in banks._fields)
     si = out["stats_i"]
     stats = (si[0], si[1], si[2], out["stats_f"], si[3], si[4])
-    return (queue._make(out["queue"].unbind(0)), banks_out, stats,
-            out["live"], out["sat"] != 0)
+    result = (queue._make(out["queue"].unbind(0)), banks_out, stats,
+              out["live"], out["sat"] != 0)
+    if not recording:
+        return result
+    tele_inc = tele_out = cmds = None
+    if telemetry:
+        tele_inc = (tuple(rout["counters"].unbind(0))
+                    + (rout["busy"],) + tuple(rout["hist"].unbind(0)))
+        tele_out = (rout["opened"], rout["burst"][0], rout["burst"][1] != 0)
+    if cmd_trace:
+        rec = rout["rec"].view(n_steps, B, C, -1).transpose(0, 1)
+        cmds = (rec[..., 0], rec[..., 1], rec[..., 2], rec[..., 3],
+                rec[..., 4:4 + R] != 0, rec[..., 4 + R:])
+    return result + ((tele_inc, tele_out, cmds),)
 
 
 weave_window.launches = 0
+weave_window.launches_by_instance = dict.fromkeys(
+    ("plain", "telemetry", "cmd_trace", "telemetry+cmd_trace"), 0)
 weave_window.steps = 0

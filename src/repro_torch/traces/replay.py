@@ -23,6 +23,7 @@ Outputs per application (numpy):
 * a predicted runtime: the window at which the trace was fully consumed
   (or an extrapolation from the final replay rate when the configured
   window count ends first);
+* with ``cfg.telemetry``, the ``tele_*`` planes, (A, W, ...);
 * beside the reference's keys: ``progress`` (the per-window per-core
   cursors, (A, W, n_cores)), ``injected`` and ``weave_events``.
 """
@@ -54,6 +55,10 @@ def _replay(cfg: StageConfig, batch, dev) -> dict:
                                device=dev)
     out = {k: views[k] for k in VIEW_KEYS + DIAG_KEYS}
     out["progress"] = outs.progress.transpose(0, 1)      # (B, W, n_cores)
+    if cfg.telemetry:
+        # the telemetry planes, (B, W, ...): the dense re-run's rows
+        # merge into them like every other key
+        out.update({k: v for k, v in views.items() if k.startswith("tele_")})
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 

@@ -88,10 +88,23 @@ def test_documented_step_counts():
     assert stages.get_stage("04-model-correct").event_budget() == 199
 
 
-def test_recorder_flags_are_not_ported():
-    for flag in ("telemetry", "cmd_trace"):
-        with pytest.raises(ValueError, match="not ported"):
-            stages.get_stage("07-prefetch", **{flag: True})
+@pytest.mark.parametrize("flag", ["telemetry", "cmd_trace"])
+def test_recorder_flags_build_and_sweep_refuses_cmd_trace(flag):
+    from repro.core import mess as ref_mess
+    from repro_torch.core import mess
+
+    cfg = stages.get_stage("07-prefetch", **{flag: True})
+    ref = ref_stages.get_stage("07-prefetch", **{flag: True})
+    assert getattr(cfg, flag) and cfg == stage_from_dict(
+        dataclasses.asdict(ref))
+    if flag == "telemetry":
+        return
+    with pytest.raises(ValueError) as want:
+        ref_mess.sweep(ref, paces=(4,), write_mixes=(0,))
+    for device in (None, "cpu"):
+        with pytest.raises(ValueError) as got:
+            mess.sweep(cfg, paces=(4,), write_mixes=(0,), device=device)
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("preset", ["ddr4_2666", "ddr5_4800", "hbm2e"])

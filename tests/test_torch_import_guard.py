@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, and the port (a Mess
-point, a trace replay, a dense forward) runs with ``jax`` blocked."""
+point, a trace replay, the telemetry and command recorders through
+``obs`` and ``oracle``, a dense forward) runs with ``jax`` blocked."""
 import ast
 import pathlib
 import subprocess
@@ -39,11 +40,23 @@ out = run_point(get_stage("07-prefetch", windows=1, warmup=0), [2, 8], 16,
                 device="cpu")
 assert int(out["n_rd"].sum()) > 0
 import repro_torch.bench.app_validation
+import repro_torch.bench.cmd_oracle
+import repro_torch.bench.perspectives
+import repro_torch.obs
+import repro_torch.oracle
 from repro_torch.traces import make_suite, replay_suite, stack_traces
 rep = replay_suite(get_stage("01-baseline", windows=1, warmup=0),
                    stack_traces(make_suite(n=64, names=("stream",))[1]),
                    device="cpu")
 assert int(rep["injected"][0]) > 0
+from repro_torch.obs import collect, summarize
+from repro_torch.oracle import check_stream, extract_stream
+rec_cfg = get_stage("07-prefetch", windows=2, warmup=0, telemetry=True,
+                    cmd_trace=True)
+views = run_point(rec_cfg, [8], 16, device="cpu")
+assert summarize(collect(rec_cfg, views))["commands"]["cas_rd"] > 0
+assert check_stream(extract_stream({k: v[0] for k, v in views.items()},
+                                   rec_cfg.platform.dram)).ok
 from repro_torch.configs.registry import get_smoke
 from repro_torch.models.registry import get_model
 cfg = get_smoke("tinyllama-1.1b")

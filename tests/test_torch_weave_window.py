@@ -31,6 +31,8 @@ from repro_torch.core.timing import PlatformParams
 from repro_torch.kernels.weave_window import (MAX_Q, PARAM_NAMES,
                                               pack_inputs, pack_params,
                                               weave_window)
+from repro_torch.kernels.weave_window.ops import (N_HIST, TELE_COUNTERS,
+                                                  pack_recorder)
 
 torch.set_num_threads(1)
 
@@ -183,8 +185,9 @@ class RowBlock:
     keeps.  Each method follows the kernel's phases in order.
     """
 
-    def __init__(self, q, b, p):
+    def __init__(self, q, b, p, tele=None, record=False, broken=None):
         self.p = p
+        self.broken = broken
         self.valid, self.is_write, self.arrival, self.issue, self.fbank, \
             self.row, self.chase = (q[k].astype(np.int64) for k in
                                     dram.QueueState._fields)
@@ -206,6 +209,17 @@ class RowBlock:
                           sum_chase_lat_ticks=0)
         self.bank = np.arange(self.RB)
         self.slot = np.arange(self.Q)
+        # telemetry: counters and write-burst state kept by the last warp,
+        # busy and last-ACT planes owned by each bank's thread, the two
+        # histograms added to by the last thread
+        self.tele = tele is not None
+        if self.tele:
+            self.counters = dict.fromkeys(TELE_COUNTERS, 0)
+            self.opened_at = tele[0].astype(np.int64)
+            self.last_wr_t, self.wr_burst = int(tele[1]), bool(tele[2])
+            self.busy = np.zeros(self.RB, np.int64)
+            self.hist = np.zeros((2, N_HIST), np.int64)
+        self.record = [] if record else None
 
     # block reductions as the kernel takes them: per warp, then across
     def _counts(self, arrived, is_wr):
@@ -287,6 +301,10 @@ class RowBlock:
             due = t >= np.asarray(self.next_ref)[rank_b]
             if p["same_bank_refresh"]:
                 due &= self.bank % nb == np.asarray(self.ref_slot)[rank_b]
+            if self.tele:
+                closes = due if self.broken == "busy_closed_rows" \
+                    else due & (self.open_row >= 0)
+                self.busy[closes] += t - self.opened_at[closes]
             self.open_row[due] = -1
             self.next_act[due] = np.maximum(self.next_act[due],
                                             t + p["tRFC"])
@@ -294,6 +312,8 @@ class RowBlock:
         arrived = (self.valid == 1) & (self.arrival <= t)
         drain = self._settle(*self._counts(arrived, is_wr))
         if not active:
+            if self.record is not None and self.broken != "no_idle_record":
+                self._record(t, NONE, 0, False)
             self.drain = drain
             return
         fb = self.fbank
@@ -306,7 +326,41 @@ class RowBlock:
         best, low = key >> 32, key & MASK32
         sel, bits = 1023 - (low >> 8), low & 0xFF
         cmd = self._command(best, bits, capped)
+        if self.record is not None:
+            self._record(t, cmd, sel, True)
+        if self.tele:
+            self._count(t, cmd)
         self._apply(t, cmd, sel, drain)
+
+    def _record(self, t, cmd, sel, active):
+        """The record row (one field a lane of the last warp): refresh
+        fields before the step moves the deadlines and REFsb slots."""
+        p = self.p
+        due = [active and t >= r for r in self.next_ref]
+        slot = self.ref_slot
+        if self.broken == "ref_bank_post":
+            slot = [(r + 1) % p["banks_per_rank"] for r in slot]
+        self.record.append(
+            [cmd, t, int(self.fbank[sel]),
+             int(self.row[sel]) if cmd in (RD, WR, ACT) else -1]
+            + [int(d) for d in due]
+            + [slot[k] if p["same_bank_refresh"] and due[k] else -1
+               for k in range(self.R)])
+
+    def _count(self, t, cmd):
+        """The counters and write-burst state the last warp keeps."""
+        c = self.counters
+        c["n_act"] += cmd == ACT
+        c["n_pre"] += cmd == PRE
+        c["n_cas_rd"] += cmd == RD
+        c["n_cas_wr"] += cmd == WR
+        if cmd == WR:
+            c["drain_enter"] += not self.wr_burst
+            c["drain_ticks"] += (t - self.last_wr_t if self.wr_burst
+                                 else self.p["tBL"])
+            self.last_wr_t = t
+        if cmd in (RD, WR):
+            self.wr_burst = cmd == WR
 
     @staticmethod
     def _command(best, bits, capped):
@@ -338,6 +392,8 @@ class RowBlock:
                 self.next_act = np.where(same_grp,
                                          mx(self.next_act, t + p["tRRD_L"]),
                                          self.next_act)
+                if self.tele:
+                    self.opened_at[at_sel] = t
                 self.open_row[at_sel] = self.row[sel]
                 self.next_act[at_sel] = mx(self.next_act[at_sel],
                                            t + p["tRC"])
@@ -352,6 +408,8 @@ class RowBlock:
                 lat = p["tRTP"] if s_rd else p["tCWL"] + p["tBL"] + p["tWR"]
                 self.next_pre[at_sel] = mx(self.next_pre[at_sel], t + lat)
             if s_pre:
+                if self.tele:
+                    self.busy[at_sel] += t - self.opened_at[at_sel]
                 self.open_row[at_sel] = -1
                 self.next_act[at_sel] = mx(self.next_act[at_sel],
                                            t + p["tRP"])
@@ -368,6 +426,8 @@ class RowBlock:
         self.drain = drain
         for k in range(self.R):
             if t >= self.next_ref[k]:
+                if self.tele:
+                    self.counters["n_ref"] += 1
                 self.next_ref[k] += p["tREFI"]
                 if p["same_bank_refresh"]:
                     self.ref_slot[k] = (self.ref_slot[k] + 1) % nb
@@ -380,6 +440,9 @@ class RowBlock:
                       - _w32(int(self.issue[sel]) * p["cpu_ps_per_clk"]))
         st["served_rd"] += int(s_rd)
         st["served_wr"] += int(s_wr)
+        if self.tele and s_rd:
+            self.hist[0, _bucket(rd_lat)] += 1
+            self.hist[1, _bucket(if_lat)] += 1
         if s_rd:
             st["sum_rd_lat_ticks"] = _w32(st["sum_rd_lat_ticks"] + rd_lat)
             st["sum_if_lat_ps"] = np.float32(st["sum_if_lat_ps"]
@@ -420,8 +483,14 @@ class RowBlock:
         return q, b
 
 
-def fused_emulation(cfg, clock, queue, banks, w):
-    """`_weave_fused`'s outputs, row by row through `RowBlock`."""
+def _bucket(v: int) -> int:
+    """The kernel's ``log2_bucket``: 31 - clz(max(v, 1)), clipped."""
+    return min(max(v, 1).bit_length() - 1, N_HIST - 1)
+
+
+def fused_emulation(cfg, clock, queue, banks, w, tele=None, broken=None):
+    """`_weave_fused`'s outputs, row by row through `RowBlock`; with a
+    recorder flag of ``cfg`` also its sixth item, as numpy."""
     d = cfg.platform.dram
     start, end = clock.window_start_tick(w), clock.window_end_tick(w)
     event = cfg.weave == "event"
@@ -439,10 +508,23 @@ def fused_emulation(cfg, clock, queue, banks, w):
                          else np.int32) for k in dram.TickStats._fields}
     live = np.zeros((B, C), np.int32)
     sat = np.zeros((B, C), bool)
+    tn = ([x.numpy() for x in tele] if cfg.telemetry else None)
+    RB, R = d.banks_per_channel, d.ranks_per_channel
+    n_steps_rec = []
+    tele_inc = dict(**{k: np.zeros((B, C), np.int32)
+                       for k in TELE_COUNTERS},
+                    busy_ticks=np.zeros((B, C, RB), np.int32),
+                    hist_rd_ticks=np.zeros((B, C, N_HIST), np.int32),
+                    hist_if_ps=np.zeros((B, C, N_HIST), np.int32))
+    tele_out = [np.zeros((B, C, RB), np.int32), np.zeros((B, C), np.int32),
+                np.zeros((B, C), bool)]
     for b in range(B):
         for c in range(C):
             blk = RowBlock({k: v[b, c] for k, v in qn.items()},
-                           {k: v[b, c] for k, v in bn.items()}, p)
+                           {k: v[b, c] for k, v in bn.items()}, p,
+                           tele=(None if tn is None
+                                 else [x[b, c] for x in tn]),
+                           record=cfg.cmd_trace, broken=broken)
             live[b, c], sat[b, c] = blk.window(
                 start, end, start + clock.ticks_per_window_static, n_steps,
                 event)
@@ -453,8 +535,32 @@ def fused_emulation(cfg, clock, queue, banks, w):
                 b_out[k][b, c] = v
             for k, v in blk.stats.items():
                 stats[k][b, c] = v
+            if blk.tele:
+                for k, v in blk.counters.items():
+                    tele_inc[k][b, c] = v
+                tele_inc["busy_ticks"][b, c] = blk.busy
+                tele_inc["hist_rd_ticks"][b, c] = blk.hist[0]
+                tele_inc["hist_if_ps"][b, c] = blk.hist[1]
+                tele_out[0][b, c] = blk.opened_at
+                tele_out[1][b, c] = blk.last_wr_t
+                tele_out[2][b, c] = blk.wr_burst
+            if blk.record is not None:
+                n_steps_rec.append(np.asarray(blk.record, np.int64))
     events = live.max(1) if event else np.full(B, end - start, np.int32)
-    return q_out, b_out, stats, events, sat.any(1)
+    out = (q_out, b_out, stats, events, sat.any(1))
+    if not (cfg.telemetry or cfg.cmd_trace):
+        return out
+    cmds = None
+    if cfg.cmd_trace:
+        if len({len(r) for r in n_steps_rec}) != 1:
+            return out + ((tele_inc, tele_out, "ragged record"),)
+        rec = np.stack(n_steps_rec).reshape(B, C, -1, 4 + 2 * R)
+        rec = rec.transpose(0, 2, 1, 3)                 # (B, steps, C, F)
+        cmds = dict(cmd=rec[..., 0], t=rec[..., 1], fbank=rec[..., 2],
+                    row=rec[..., 3], ref=rec[..., 4:4 + R] != 0,
+                    ref_bank=rec[..., 4 + R:])
+    return out + ((tele_inc if cfg.telemetry else None,
+                   tele_out if cfg.telemetry else None, cmds),)
 
 
 def _fill(rng, queue, banks, d, start, end, frac, first, tail=0):
@@ -550,6 +656,128 @@ def test_kernel_step_emulation_matches_stepwise(preset, backend, engine,
         assert sat_seen > 0                  # the budget ran out
 
 
+def _recorded_windows(preset, backend, engine, budget, tail, frac,
+                      broken=None):
+    """`_emulation_windows` with both recorder flags on: the emulation's
+    recorder outputs beside the stepwise loop's, window by window, the
+    telemetry carry threaded through the stepwise route."""
+    cfg = dataclasses.replace(_stage(preset, backend, window_cycles=120),
+                              weave=engine, weave_events=budget,
+                              telemetry=True, cmd_trace=True)
+    clock = cfg.clock()
+    clock = dataclasses.replace(
+        clock, ticks_per_window_static=clock.ticks_per_window_static + tail)
+    d = cfg.platform.dram
+    kw = platform._tick_kw(cfg, clock, "cpu")
+    rng = np.random.default_rng(len(preset) * 7 + len(backend) + budget
+                                + tail)
+    queue = dram.init_queue(d, cfg.policy)
+    banks = dram.init_banks(d)
+    tele = dram.init_tele(d)
+    for w in range(5, 8):
+        start, end = clock.window_start_tick(w), clock.window_end_tick(w)
+        queue, banks = _fill(rng, queue, banks, d, start, end, frac,
+                             w == 5, tail)
+        if w == 5:      # mid-flight: banks opened at various ticks
+            tele = tele._replace(opened_at=torch.as_tensor(rng.integers(
+                start - 200, start, tuple(tele.opened_at.shape)),
+                dtype=torch.int32))
+        want = platform._weave_stepwise(cfg, clock, kw, queue, banks, w, tele)
+        got = fused_emulation(cfg, clock, queue, banks, w, tele, broken)
+        yield w, want, got
+        queue, banks, tele = want[0], want[1], want[5][1]
+
+
+def _recorder_diff(want, got):
+    """The first recorder field where the emulation and the stepwise loop
+    differ, or None."""
+    tacc, tstate, cmds = want[5]
+    g_inc, g_out, g_cmds = got[5]
+    if isinstance(g_cmds, str):
+        return g_cmds
+    pairs = [(f"tele.{k}", v.numpy(), g_inc[k])
+             for k, v in tacc._asdict().items()]
+    pairs += [(f"tele_state.{k}", v.numpy(), g)
+              for (k, v), g in zip(tstate._asdict().items(), g_out)]
+    pairs += [(f"cmd.{k}", v.numpy(), g_cmds[k])
+              for k, v in cmds._asdict().items()]
+    for name, ref, emu in pairs:
+        if ref.shape != emu.shape or not np.array_equal(ref, emu):
+            return name
+    return None
+
+
+@pytest.mark.parametrize("preset,backend,engine,budget,tail,frac",
+                         EMULATION_CASES)
+def test_kernel_recorder_emulation_matches_stepwise(preset, backend, engine,
+                                                    budget, tail, frac):
+    """The recording instance's algorithm (counters in the last warp,
+    bank-owned busy planes, the last thread's histograms, one record row a
+    step, inactive steps included) against `dram.tick` with both flags,
+    bit for bit, with the state, stats, events and saturation flags."""
+    n_cmd = n_ref = n_idle = 0
+    for w, want, got in _recorded_windows(preset, backend, engine, budget,
+                                          tail, frac):
+        wq, wb = dram.state_to_numpy(want[0], want[1])
+        for name, ref in {**wq, **wb}.items():
+            emu = got[0][name] if name in got[0] else got[1][name]
+            np.testing.assert_array_equal(emu, ref,
+                                          err_msg=f"{name}, window {w}")
+        for name, ref in want[2]._asdict().items():
+            np.testing.assert_array_equal(got[2][name], ref.numpy(),
+                                          err_msg=f"stats.{name}, window {w}")
+        np.testing.assert_array_equal(got[3], want[3].numpy())
+        np.testing.assert_array_equal(got[4], want[4].numpy())
+        assert _recorder_diff(want, got) is None, \
+            f"{_recorder_diff(want, got)}, window {w}"
+        tacc, _, cmds = want[5]
+        # every served read lands in one bucket of each histogram
+        np.testing.assert_array_equal(tacc.hist_rd_ticks.sum(2),
+                                      want[2].served_rd)
+        np.testing.assert_array_equal(tacc.hist_if_ps.sum(2),
+                                      want[2].served_rd)
+        n_cmd += int((cmds.cmd != NONE).sum())
+        n_ref += int(cmds.ref.sum())
+        n_idle += int((cmds.cmd == NONE).sum())
+    assert n_cmd > 0 and n_ref > 0 and n_idle > 0
+
+
+@pytest.mark.parametrize("broken,case", [
+    ("busy_closed_rows", EMULATION_CASES[2]),
+    ("ref_bank_post", EMULATION_CASES[2]),      # REFsb
+    ("no_idle_record", EMULATION_CASES[7]),     # inactive steps past end
+])
+def test_broken_recorder_emulation_fails(broken, case):
+    """Each deliberately broken recorder (busy added for refreshed banks
+    that were closed; the REFsb bank read after its rotation; no record
+    on inactive steps) must disagree with the stepwise loop."""
+    diffs = [_recorder_diff(want, got)
+             for _, want, got in _recorded_windows(*case, broken)]
+    assert any(d is not None for d in diffs)
+
+
+def test_recorder_outputs_are_fresh_and_sized():
+    d = PRESETS["ddr5_4800"]
+    B, C, RB, R = 2, d.n_channels, d.banks_per_channel, d.ranks_per_channel
+    tele = dram.init_tele(d, B)
+    inp, out = pack_recorder(tele, B, C, RB, R, 7, "cpu", telemetry=True,
+                             cmd_trace=True)
+    assert len(_storages(out.values())) == len(out)
+    assert not _storages(out.values()) & (_storages(inp.values())
+                                          | _storages(tele))
+    assert not _storages(inp.values()) & _storages(tele)
+    assert out["counters"].shape == (len(TELE_COUNTERS), B, C)
+    assert out["hist"].shape == (2, B, C, N_HIST) and N_HIST == dram.N_HIST
+    assert TELE_COUNTERS == dram.TickTele._fields[:7]
+    assert out["rec"].shape == (7, B * C, 4 + 2 * R)
+    _, only_cmd = pack_recorder(None, B, C, RB, R, 7, "cpu",
+                                telemetry=False, cmd_trace=True)
+    assert set(only_cmd) == {"rec"}
+    src = CSRC.read_text()
+    assert f"kNHist = {N_HIST}" in src
+    assert f"kNCounters = {len(TELE_COUNTERS)}" in src
+
+
 # ---- on the card ---------------------------------------------------------
 
 CARD_CASES = [
@@ -619,3 +847,51 @@ def test_run_point_on_card_matches_cpu(cuda):
             torch.testing.assert_close(got, ref, rtol=1e-6, atol=0)
         else:
             assert torch.equal(got, ref), k
+
+
+def _tree_equal_or_none(a, b):
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return all(_tree_equal_or_none(a[k], b[k]) for k in a)
+    return len(a) == len(b) and all(_tree_equal_or_none(x, y)
+                                    for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags", [(True, False), (False, True),
+                                   (True, True)])
+@pytest.mark.parametrize("stage,preset,sockets,engine", CARD_CASES[::3])
+def test_recording_fused_matches_stepwise_on_card(cuda, stage, preset,
+                                                  sockets, engine, flags):
+    """The recording instances of the kernel against the stepwise loop
+    with the flags, on the card, in every output and recorder field."""
+    telemetry, cmd_trace = flags
+    cfg = get_stage(stage, preset=preset, n_sockets=sockets, weave=engine,
+                    windows=3, warmup=0, telemetry=telemetry,
+                    cmd_trace=cmd_trace)
+    paces = torch.tensor([4, 48], dtype=torch.int32, device=cuda)
+    frontend = workload.MessFrontend(paces, torch.full_like(paces, 16),
+                                     cfg.workload_config())
+    clock, wcfg = cfg.clock(), cfg.workload_config()
+    carry = platform._init_carry(cfg, frontend, 2, cuda)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        for w in range(cfg.windows):
+            queue = platform._bound_inject(cfg, clock, wcfg, frontend, carry,
+                                           w)[0]
+            args = (cfg, clock, platform._tick_kw(cfg, clock, cuda), queue,
+                    carry[1], w, carry[5])
+            fused = platform._weave_fused(*args)
+            step = platform._weave_stepwise(*args)
+            torch.cuda.synchronize()
+            assert len(fused) == 6
+            assert _tree_equal_or_none(fused, step), f"window {w}"
+            carry, _ = platform._window_step(cfg, clock, wcfg, frontend,
+                                             carry, w)
+    name = "+".join(n for n, on in (("telemetry", telemetry),
+                                    ("cmd_trace", cmd_trace)) if on)
+    assert weave_window.launches_by_instance[name] == 2 * cfg.windows
+    assert weave_window.launches_by_instance["plain"] == 0

@@ -105,7 +105,7 @@ def _call(cfg, *, batch=2, depth=None, device="cpu", dtype=None):
     wcfg, cpu = cfg.workload_config(), cfg.platform.cpu
     pace = torch.full((batch,), 12, dtype=torch.int32)
     fe = workload.MessFrontend(pace, pace, wcfg)
-    q, _, cores, l_ir, lat = platform._init_carry(cfg, fe, batch, "cpu")
+    q, _, cores, l_ir, lat, _ = platform._init_carry(cfg, fe, batch, "cpu")
     if dtype is not None:
         cores = cores._replace(seq=cores.seq.to(dtype))
     move = (lambda t: t.to(device))
