@@ -115,6 +115,38 @@ Phases, each printing one JSON line:
 11. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
    256 tokens, fp32 (the CUDA-core route), on the card and on the CPU
    (plain version), from the same weights, within 1e-4.
+12. **serving** — LLM-serving traffic (``bench.serving``, stage 10 with
+   telemetry, the event engine under a budget of a whole window's
+   ticks): (a) the SMOKE grid through ``serving.main`` on the card, every
+   cell held against the reference's tracked
+   ``reports/benchmarks/BENCH_serve.json`` (read, never written): the
+   integer fields exactly, the floats within 1e-6 relative, 6 telemetry
+   ``weave_window`` launches a preset; (b) the reference's serving golden
+   grid (4 cells of ``tests/test_serving.py``: stages 01/04/10, three
+   presets, one and two sockets, smoke configs), dense == covering-budget
+   event on the card in every view and window output, no ``weave_sat``;
+   (c) the FULL grid (4 models x 3 presets x 3 rates, 24 requests, 12
+   windows): wall per preset and per cell, 12 telemetry launches a
+   preset, ``decode_packed`` x 12 on ddr4_2666 and 0 elsewhere; (d) the
+   FULL ddr4_2666 batch (12 scenarios) in 2 windows on the card and on
+   the CPU, equal bit for bit in every view, count and ``tele_*`` plane;
+   then the ddr4_2666 replay once more under ``torch.profiler``.
+13. **figures** — every figure script of the port at FULL (14 paces x 5
+   mixes, 96 windows) on the card: Fig. 2 on all three presets, Figs.
+   3/4, 5, 6 and 7, CSVs into a temporary directory; each derived number
+   beside the paper's value, each figure's wall and launches
+   (``window_inject`` == ``weave_window``, no other kernel), each
+   sweep's wall on its ``sweep.`` line; then stage 10 on ddr5_4800 and
+   hbm2e, one and two sockets (6 windows, paces 1 and 24), and stage 07
+   on ddr4_2666 and hbm2e at the FULL 70-point grid (2 windows, the
+   points split between the two engines' batches as the figures split
+   them; ``window_inject``'s Skylake decode), card against CPU, every
+   view equal bit for bit.
+14. **weave_bench** — ``bench.weave_bench`` at FULL on the card: per
+   preset the dense and event sweep walls, the per-pace events and the
+   event-rate fit beside the tracked calibration report's fit (the one
+   ``mess.load_event_calibration`` registers), and the step
+   reduction equal to ``weave_budgets(preset)["picosecond"]``.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit as nvidia-smi reports them, and the result line.  Any
@@ -1580,6 +1612,404 @@ def lm_parity(dev):
                              f" (flash launches {launches})")
 
 
+# ---- serving, figures and the weave bench (phases 12-14) -----------------
+
+# integer fields of a serving cell, held exactly; floats within RTOL
+SERVE_EXACT = ("model", "preset", "arrival", "rate", "n_requests", "n_slots",
+               "steps", "accesses", "shard", "bytes_modeled")
+SERVE_REL = ("runtime_ms", "gbps", "req_p50_ms", "req_p95_ms", "req_p99_ms",
+             "if_p50_ns", "if_p95_ns", "if_p99_ns")
+# the reference's serving golden grid (tests/test_serving.py): (stage,
+# preset, smoke model, arrival, sockets); its scenario and window knobs
+SERVE_GOLDEN = [
+    ("10-delay-buffer", "ddr4_2666", "tinyllama-1.1b", "poisson", 1),
+    ("04-model-correct", "ddr5_4800", "xlstm-1.3b", "uniform", 1),
+    ("01-baseline", "hbm2e", "arctic-480b", "burst", 2),
+    ("10-delay-buffer", "ddr5_4800", "zamba2-2.7b", "poisson", 2)]
+SERVE_GOLDEN_SCENARIO = dict(rate=0.5, n_requests=10, n_slots=3)
+SERVE_GOLDEN_WINDOWS = dict(windows=6, warmup=2)
+SERVE_PROFILED_PRESET = "ddr4_2666"
+# the FULL serving batch (12 scenarios) on ddr4_2666, card vs CPU, in a
+# few windows: the telemetry instance and decode_packed at the FULL shapes
+SERVE_CPU_PRESET, SERVE_CPU_KNOBS = "ddr4_2666", dict(windows=2, warmup=1)
+# the figures' card-vs-CPU grid: stage 10 on the presets whose sweeps had
+# never run on the card, one and two sockets
+FIG_CPU_STAGE, FIG_CPU_PRESETS = "10-delay-buffer", ("ddr5_4800", "hbm2e")
+FIG_CPU_KNOBS, FIG_CPU_PACES, FIG_CPU_MIXES = (dict(windows=6, warmup=2),
+                                               (1, 24), (0,))
+# ... and the FULL 70-point grid in a few windows at the stage whose
+# window_inject runs the Skylake decode, on 6 and 16 channels
+FIG_FULL_CPU_STAGE, FIG_FULL_CPU_PRESETS = "07-prefetch", ("ddr4_2666",
+                                                           "hbm2e")
+FIG_FULL_CPU_KNOBS = dict(windows=2, warmup=1)
+SWEEP_VIEWS = ("sim_bw", "sim_lat", "if_bw", "if_lat", "app_bw", "app_lat",
+               "chase_lat")
+
+
+def check_serve_launches(cells, windows):
+    """Each preset's replay: one telemetry `weave_window` launch per window
+    (no dense re-run), `decode_packed` once a window on ddr4_2666 (the
+    trace route's Skylake decode) and never elsewhere, no `window_inject`."""
+    for c in cells:
+        n = c["launches"]
+        xor = c["preset"] == "ddr4_2666"
+        if (n["weave_window.telemetry"] != windows
+                or n["weave_window"] != windows
+                or n["decode_packed"] != (windows if xor else 0)
+                or n["window_inject"] or n["frfcfs_select"]):
+            raise AssertionError(f"serving {c['preset']}: launches {n}, "
+                                 f"expected {windows} telemetry weave_window"
+                                 f" and {windows if xor else 0} "
+                                 f"decode_packed")
+
+
+def serving_card_vs_cpu(dev):
+    """(d) of the serving phase: the FULL batch (12 scenarios) on one
+    preset in a few windows, the card against the CPU's plain route, bit
+    for bit in every view, count and ``tele_*`` plane.  Returns the card's
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.bench import serving
+    from repro_torch.traces import replay_suite, stack_traces, to
+
+    _, lowered = serving.lower_grid(serving.FULL_MODELS, serving.FULL_RATES,
+                                    n_requests=24)
+    batch = stack_traces([tr for tr, _, _ in lowered])
+    cfg = dataclasses.replace(
+        serving._stage_cfg(SERVE_CPU_PRESET,
+                           windows=SERVE_CPU_KNOBS["windows"]),
+        warmup=SERVE_CPU_KNOBS["warmup"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = replay_suite(cfg, to(batch, dev), device=dev)
+    card_s = time.perf_counter() - t0
+    launches = serving.kernel_launches()
+    t0 = time.perf_counter()
+    cpu = replay_suite(cfg, batch, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = compare_replay(card, cpu)
+    differ = sorted(set(card) ^ set(cpu)) + [
+        k for k in cpu if not np.array_equal(
+            card[k], cpu[k], equal_nan=cpu[k].dtype.kind == "f")]
+    tele = sorted(k for k in cpu if k.startswith("tele_"))
+    emit({"phase": "serving", "part": "full_card_vs_cpu",
+          "preset": SERVE_CPU_PRESET, **SERVE_CPU_KNOBS,
+          "rows": len(lowered), "keys": len(cpu), "tele_planes": tele,
+          "max_rel_err": rel, "differ": differ, "card_s": card_s,
+          "cpu_s": cpu_s, "launches": launches})
+    if differ or not tele:
+        raise AssertionError(f"serving FULL {SERVE_CPU_PRESET}: card != CPU "
+                             f"in {differ} (tele planes {tele})")
+    check_serve_launches([{"preset": SERVE_CPU_PRESET,
+                           "launches": launches}],
+                         SERVE_CPU_KNOBS["windows"])
+    return launches
+
+
+def serving_phase(dev):
+    """LLM-serving traffic on the card: (a) the SMOKE grid through the
+    port's `bench.serving.main` against the reference's tracked
+    ``reports/benchmarks/BENCH_serve.json``; (b) the reference's golden
+    grid, dense == covering-budget event on the card; (c) the FULL grid,
+    its walls and launches, and one preset's replay profiled.  Returns
+    the launches of (a), (b), (c) and (d)."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.bench import serving
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.core import get_stage, run_frontend
+    from repro_torch.traces import (ServeScenario, TraceFrontend,
+                                    lower_scenario, to)
+
+    want = json.loads((ROOT / "reports" / "benchmarks"
+                       / "BENCH_serve.json").read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        cells = serving.main(full=False, device=dev, out_dir=tmp)
+        wall = time.perf_counter() - t0
+        got = json.loads((pathlib.Path(tmp) / "BENCH_serve.json").read_text())
+    smoke_launches = serving.kernel_launches()
+    bad, worst_rel, worst_abs = [], 0.0, 0.0
+    for k in ("schema", "stage", "models", "presets", "rates"):
+        if got[k] != want[k]:
+            bad.append((k, got[k], want[k]))
+    if len(got["cells"]) != len(want["cells"]):
+        bad.append(("cells", len(got["cells"]), len(want["cells"])))
+    for g, w in zip(got["cells"], want["cells"]):
+        if set(w) - set(g):
+            bad.append(("keys", sorted(set(w) - set(g))))
+        for k in SERVE_EXACT:
+            if g[k] != w[k]:
+                bad.append((w["model"], w["preset"], w["rate"], k, g[k], w[k]))
+        for k in SERVE_REL:
+            rel = abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+            worst_rel = max(worst_rel, rel)
+            worst_abs = max(worst_abs, abs(g[k] - w[k]))
+            if not rel <= RTOL:
+                bad.append((w["model"], w["preset"], w["rate"], k, g[k], w[k]))
+    emit({"phase": "serving", "part": "smoke", "wall_s": wall,
+          "cells": [{k: c[k] for k in SERVE_EXACT + SERVE_REL
+                     + ("wall_s_cell", "replay_wall_s")} for c in cells],
+          "max_rel_diff_vs_reference_file": worst_rel,
+          "max_abs_diff_vs_reference_file": worst_abs, "rtol": RTOL,
+          "launches": smoke_launches})
+    if bad:
+        raise AssertionError(f"serving SMOKE differs from the reference's "
+                             f"BENCH_serve.json: {bad[:10]}")
+    check_serve_launches(cells, 6)
+
+    # (b) the golden grid: dense == event under a covering budget
+    kernels.reset_launch_counts()
+    rows = []
+    for stage, preset, model, arrival, sockets in SERVE_GOLDEN:
+        trace, _, info = lower_scenario(ServeScenario(
+            model=get_smoke(model), arrival=arrival, **SERVE_GOLDEN_SCENARIO))
+        batch = to(type(trace)(*(x[None] for x in trace)), dev)
+        out = {}
+        for weave in ("dense", "event"):
+            cfg = get_stage(stage, preset=preset, n_sockets=sockets,
+                            weave=weave, **SERVE_GOLDEN_WINDOWS)
+            if weave == "event":
+                cfg = dataclasses.replace(
+                    cfg, weave_events=cfg.clock().ticks_per_window_static)
+            out[weave] = run_frontend(
+                cfg, TraceFrontend(batch, cfg.workload_config()), batch=1,
+                device=dev)
+        (vd, od), (ve, oe) = out["dense"], out["event"]
+        differ = [f for f, a, b in zip(od._fields, od, oe)
+                  if not torch.equal(a, b)]
+        differ += [k for k in vd if k not in ("weave_events", "weave_sat")
+                   and not torch.equal(vd[k], ve[k])]
+        sat = int(ve["weave_sat"].sum())
+        rows.append({"stage": stage, "preset": preset, "model": model,
+                     "arrival": arrival, "sockets": sockets,
+                     "accesses": info["accesses"], "differ": differ,
+                     "weave_sat": sat,
+                     "n_rd": int(vd["n_rd"].sum()),
+                     "events": int(ve["weave_events"].sum())})
+        if differ or sat:
+            raise AssertionError(f"serving golden cell dense != event on "
+                                 f"the card: {rows[-1]}")
+    golden_launches = serving.kernel_launches()
+    emit({"phase": "serving", "part": "golden", **SERVE_GOLDEN_WINDOWS,
+          "scenario": SERVE_GOLDEN_SCENARIO, "cells": rows,
+          "launches": golden_launches})
+    if golden_launches["weave_window.plain"] != (
+            2 * len(SERVE_GOLDEN) * SERVE_GOLDEN_WINDOWS["windows"]):
+        raise AssertionError(f"serving golden launches {golden_launches}")
+
+    # (c) the FULL grid
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        full = serving.main(full=True, device=dev, out_dir=tmp)
+        full_wall = time.perf_counter() - t0
+    full_launches = serving.kernel_launches()
+    per_preset = {}
+    for c in full:
+        per_preset.setdefault(c["preset"], {
+            "replay_wall_s": c["replay_wall_s"], "launches": c["launches"],
+            "cells": []})["cells"].append(
+            {k: c[k] for k in ("model", "rate", "steps", "accesses",
+                               "runtime_ms", "gbps", "req_p50_ms",
+                               "req_p99_ms", "if_p50_ns", "if_p99_ns",
+                               "wall_s_cell")})
+        for k in SERVE_REL:
+            if not (np.isfinite(c[k]) and c[k] > 0):
+                raise AssertionError(f"serving FULL {c['model']} "
+                                     f"{c['preset']}: {k} = {c[k]}")
+    emit({"phase": "serving", "part": "full", "wall_s": full_wall,
+          "models": list(serving.FULL_MODELS),
+          "rates": list(serving.FULL_RATES), "n_requests": 24,
+          "windows": 12, "presets": per_preset, "launches": full_launches})
+    check_serve_launches(full, 12)
+
+    vs_cpu_launches = serving_card_vs_cpu(dev)
+
+    # one preset's replay (lowering included), timed, then profiled
+    grid = (serving.FULL_MODELS, (SERVE_PROFILED_PRESET,),
+            serving.FULL_RATES)
+    kw = dict(n_requests=24, windows=12, device=dev)
+    t0 = time.perf_counter()
+    serving.serve_grid(*grid, **kw)
+    unprofiled = time.perf_counter() - t0
+    prof = profile_run({"phase": "serving", "part": "profile",
+                        "preset": SERVE_PROFILED_PRESET,
+                        "unprofiled_wall_s": unprofiled},
+                       lambda: serving.serve_grid(*grid, **kw), unprofiled,
+                       {"weave": "weave_window", "decode": "decode_packed"})
+    return {"smoke": smoke_launches, "golden": golden_launches,
+            "full": full_launches, "full_wall_s": full_wall,
+            "profile": prof, "full_card_vs_cpu": vs_cpu_launches}
+
+
+def sweep_results(results):
+    """The `SweepResult`s of a figure script's first return value."""
+    if isinstance(results, dict):
+        return list(results.values())
+    return list(results) if isinstance(results, tuple) else [results]
+
+
+def sweep_card_vs_cpu(cfg, preset, paces, mixes, dev):
+    """One sweep on the card and on the CPU's plain route; the case's row.
+    Raises unless every view is equal bit for bit and the card's sweep ran
+    `window_inject` and `weave_window` once a window per engine batch."""
+    from repro_torch import kernels
+    from repro_torch.core import sweep
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = sweep(cfg, paces=paces, write_mixes=mixes, device=dev)
+    card_s = time.perf_counter() - t0
+    n = kernels.launch_counts()
+    t0 = time.perf_counter()
+    cpu = sweep(cfg, paces=paces, write_mixes=mixes, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = max(float((np.abs(getattr(card, f) - getattr(cpu, f))
+                     / np.maximum(np.abs(getattr(cpu, f)), 1e-30)).max())
+              for f in SWEEP_VIEWS)
+    exact = all(np.array_equal(getattr(card, f), getattr(cpu, f))
+                for f in SWEEP_VIEWS)
+    row = {"stage": cfg.name, "preset": preset, "sockets": cfg.n_sockets,
+           "points": len(paces) * len(mixes),
+           "channels": cfg.platform.dram.n_channels,
+           "max_rel_err": rel, "bit_equal": exact,
+           "card_s": card_s, "cpu_s": cpu_s,
+           "launches": {k: n[k] for k in ("window_inject", "weave_window",
+                                          "decode_packed")}}
+    if not exact:
+        raise AssertionError(f"figures card vs CPU: {row}")
+    if (n["weave_window"] != n["window_inject"]
+            or n["weave_window"] % cfg.windows or not n["weave_window"]
+            or n["decode_packed"]):
+        raise AssertionError(f"figures card vs CPU launches: {row}")
+    return row
+
+
+def figures_phase(dev):
+    """Every figure script of the port at FULL on the card (Fig. 2 on all
+    three presets, Figs. 3/4, 5, 6, 7), each derived number beside the
+    paper's value, each figure's wall and launches (each sweep's wall on
+    its ``sweep.`` line); then the card against the CPU, bit for bit, on
+    a tiny stage-10 grid on ddr5_4800 and hbm2e at one and two sockets,
+    and on stage 07's FULL grid in two windows on ddr4_2666 and hbm2e.
+    Returns the launches of the FULL figures."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.bench import (fig2_baseline, fig3_fig4_clocking,
+                                   fig5_model_correct, fig6_enhancements,
+                                   fig7_portability)
+    from repro_torch.core import get_stage, mess
+    from repro_torch.core.presets import PRESET_ORDER
+
+    shape = (len(mess.WRITE_MIXES), len(mess.DEFAULT_PACES))
+    runs = [("fig2", fig2_baseline.main, {"preset": p}) for p in PRESET_ORDER]
+    runs += [("fig3_fig4", fig3_fig4_clocking.main, {}),
+             ("fig5", fig5_model_correct.main, {}),
+             ("fig6", fig6_enhancements.main, {}),
+             ("fig7", fig7_portability.main, {})]
+    rows, total = [], dict.fromkeys(("window_inject", "weave_window",
+                                     "decode_packed", "frfcfs_select",
+                                     "weave_window_recording"), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t_all = time.perf_counter()
+        for name, fn, kw in runs:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            results, emitted = fn(full=True, device=dev, out_dir=tmp, **kw)
+            wall = time.perf_counter() - t0
+            n = kernels.launch_counts()
+            for k in total:
+                total[k] += n[k]
+            sweeps = sweep_results(results)
+            rows.append({"figure": name, **kw, "wall_s": wall,
+                         "derived": dict(emitted),
+                         "launches": {k: n[k] for k in total}})
+            for res in sweeps:
+                for f in SWEEP_VIEWS:
+                    arr = getattr(res, f)
+                    if (arr.shape != shape or not np.isfinite(arr).all()
+                            or (arr <= 0).any()):
+                        raise AssertionError(f"{name} {res.stage} {f}: "
+                                             f"{arr.shape} {arr}")
+            if (n["weave_window"] != n["window_inject"]
+                    or n["weave_window"] < 96 * len(sweeps)
+                    or n["decode_packed"] or n["frfcfs_select"]
+                    or n["weave_window_recording"]):
+                raise AssertionError(f"{name}: launches {n}")
+        all_wall = time.perf_counter() - t_all
+        csvs = sorted(p.name for p in pathlib.Path(tmp).glob("*.csv"))
+    emit({"phase": "figures", "part": "full", "wall_s": all_wall,
+          "figures": rows, "csvs": csvs, "launches": total})
+
+    cases = [sweep_card_vs_cpu(
+        get_stage(FIG_CPU_STAGE, preset=preset, n_sockets=sockets,
+                  **FIG_CPU_KNOBS), preset, FIG_CPU_PACES, FIG_CPU_MIXES,
+        dev)
+        for preset in FIG_CPU_PRESETS for sockets in (1, 2)]
+    emit({"phase": "figures", "part": "card_vs_cpu", "stage": FIG_CPU_STAGE,
+          **FIG_CPU_KNOBS, "paces": list(FIG_CPU_PACES),
+          "write_mixes": list(FIG_CPU_MIXES), "cases": cases})
+    cases = [sweep_card_vs_cpu(
+        get_stage(FIG_FULL_CPU_STAGE, preset=preset, **FIG_FULL_CPU_KNOBS),
+        preset, mess.DEFAULT_PACES, mess.WRITE_MIXES, dev)
+        for preset in FIG_FULL_CPU_PRESETS]
+    emit({"phase": "figures", "part": "full_card_vs_cpu",
+          "stage": FIG_FULL_CPU_STAGE, **FIG_FULL_CPU_KNOBS,
+          "paces": list(mess.DEFAULT_PACES),
+          "write_mixes": list(mess.WRITE_MIXES), "cases": cases})
+    return dict(total, wall_s=all_wall)
+
+
+def weave_bench_phase(dev):
+    """The port's weave bench at FULL on the card: each preset's step
+    reduction equal to `weave_budgets`' picosecond model, the dense and
+    event walls and the event-rate fit beside the calibration report's
+    fit.  Returns its launches."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.bench import weave_bench
+    from repro_torch.core.mess import CALIBRATION_REPORT
+    from repro_torch.core.presets import weave_budgets
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = weave_bench.main(full=True, device=dev, out_dir=tmp)
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    # the per-preset fits that `mess.load_event_calibration` registers
+    calibration = json.loads(CALIBRATION_REPORT.read_text())["presets"]
+    rows, bad = {}, []
+    for preset, row in report["presets"].items():
+        ticks, events = weave_budgets(preset)["picosecond"]
+        cal = calibration.get(preset, {}).get("event_rate_fit")
+        rows[preset] = dict(
+            {k: row[k] for k in ("dense_wall_s", "event_wall_s", "speedup",
+                                 "us_per_window", "ticks_per_window",
+                                 "event_budget", "step_reduction",
+                                 "event_rate_fit", "paces")},
+            weave_budgets_picosecond=[ticks, events],
+            calibration_loaded=cal)
+        if row["step_reduction"] != round(ticks / events, 2):
+            bad.append((preset, row["step_reduction"], ticks, events))
+    emit({"phase": "weave_bench", "mode": report["mode"],
+          "device": report["device"], "windows": report["windows"],
+          "paces": report["paces"], "write_mixes": report["write_mixes"],
+          "wall_s": wall, "presets": rows, "launches": launches,
+          "table": weave_bench.readme_table(report)})
+    if bad:
+        raise AssertionError(f"weave bench step reduction differs from "
+                             f"weave_budgets: {bad}")
+    if report["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"weave bench device {report['device']}")
+    return dict(launches, wall_s=wall)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1817,6 +2247,11 @@ def main():
     launches["flash_attention"] = sum(flash_routes.values())
     lm_parity(dev)
 
+    # ---- 12-14. LLM-serving traffic, the paper's figures, the weave bench
+    serve = serving_phase(dev)
+    figs = figures_phase(dev)
+    wbench = weave_bench_phase(dev)
+
     # ---- the kernel table, the card, the result ---------------------------
     # launches: weave_window / window_inject from the main path's sweep
     # (weave_window's ladder launches beside them), frfcfs_select from the
@@ -1909,7 +2344,11 @@ def main():
                 "us_per_step", "ms_event", "us_per_step_event",
                 "call_ms_event", "plain_ms_event", "bound_ms_event",
                 "shape_event")},
-                replay_launches=ladder_launches["weave_window"])
+                replay_launches=ladder_launches["weave_window"],
+                serving_golden_launches=serve["golden"][
+                    "weave_window.plain"],
+                figures_full_launches=figs["weave_window"],
+                weave_bench_launches=wbench["weave_window"])
         if name == "weave_window_recording":
             table[-1].update(
                 {k: t[k] for k in ("ms_event", "call_ms_event",
@@ -1922,12 +2361,20 @@ def main():
                 cmd_oracle_launches=oracle_launches[
                     "weave_window_recording"],
                 ladder_launches=ladder_launches["weave_window_recording"],
-                perspectives_smoke_wall_s=persp_wall)
+                perspectives_smoke_wall_s=persp_wall,
+                serving_smoke_launches=serve["smoke"][
+                    "weave_window_recording"],
+                serving_full_launches=serve["full"][
+                    "weave_window_recording"],
+                serving_full_wall_s=serve["full_wall_s"])
         if name == "window_inject":
             table[-1].update({k: t[k] for k in (
                 "ms_event", "call_ms_event", "plain_ms_event",
                 "bound_ms_event", "window_step_ms", "window_step_ms_event",
-                "shape_event")}, idle_share_of_sweep=idle_share)
+                "shape_event")}, idle_share_of_sweep=idle_share,
+                figures_full_launches=figs["window_inject"],
+                figures_full_wall_s=figs["wall_s"],
+                weave_bench_launches=wbench["window_inject"])
         if name == "frfcfs_select":
             table[-1].update(path="weave phase, stepwise route",
                              main_path_launches=0)
@@ -1939,7 +2386,10 @@ def main():
                 sweep_batch_shape=t["sweep_batch_shape"],
                 replay_profile_device_s=replay_prof.get("decode_device_s"),
                 replay_profile_launches=replay_prof.get("decode_launches"),
-                replay_card_vs_cpu_max_rel_err=replay_rel)
+                replay_card_vs_cpu_max_rel_err=replay_rel,
+                serving_full_launches=serve["full"]["decode_packed"],
+                serving_profile_device_s=serve["profile"].get(
+                    "decode_device_s"))
     table[-1]["routes"] = [
         {"route": r, "source": flash_src[r], "launches": flash_routes[r],
          "max_abs_err": {k: e for k, e in flash_err.items()

@@ -11,6 +11,7 @@ socket count is a `StageConfig` knob (``n_sockets``).
 """
 from __future__ import annotations
 
+from repro_torch.core.clocking import CLOCK_MODES, make_clock
 from repro_torch.core.timing import CpuParams, DramParams, PlatformParams
 
 DDR4_2666 = DramParams()
@@ -64,3 +65,21 @@ def stage_for(stage: str, preset: str = "ddr4_2666", **overrides):
     from repro_torch.core.stages import get_stage
 
     return get_stage(stage, preset=preset, **overrides)
+
+
+def weave_budgets(preset: str) -> dict:
+    """Per-clock-mode weave scan lengths of one device preset.
+
+    Returns ``{clock_mode: (ticks_per_window, events_per_window)}``: the
+    dense engine's steps per window against the event engine's static
+    budget (`clocking.event_budget`: burst length, refresh cadence and
+    tick period all enter), e.g. 635 ticks against 199 events for the
+    DDR4 picosecond model.
+    """
+    plat = platform_for(preset)
+    out = {}
+    for mode in CLOCK_MODES:
+        clock = make_clock(mode, plat)
+        out[mode] = (clock.ticks_per_window_static,
+                     clock.events_per_window_static)
+    return out

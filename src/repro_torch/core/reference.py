@@ -42,6 +42,10 @@ _FAMILIES: dict[str, tuple[float, dict[float, tuple[float, float]]]] = {
 }
 
 
+#: the paper's platform (DDR4) unloaded latency, ns
+UNLOADED_NS = _FAMILIES["ddr4_2666"][0]
+
+
 def _family(preset: str):
     try:
         return _FAMILIES[preset]

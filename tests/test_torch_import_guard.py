@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, and the port (a Mess
 point, a trace replay, the telemetry and command recorders through
-``obs`` and ``oracle``, a dense forward) runs with ``jax`` blocked."""
+``obs`` and ``oracle``, the LLM-serving lowering and its HLO cost model,
+the figure and serving benches, a dense forward) runs with ``jax``
+blocked."""
 import ast
 import pathlib
 import subprocess
@@ -42,6 +44,21 @@ assert int(out["n_rd"].sum()) > 0
 import repro_torch.bench.app_validation
 import repro_torch.bench.cmd_oracle
 import repro_torch.bench.perspectives
+import repro_torch.bench.fig2_baseline
+import repro_torch.bench.fig3_fig4_clocking
+import repro_torch.bench.fig5_model_correct
+import repro_torch.bench.fig6_enhancements
+import repro_torch.bench.fig7_portability
+import repro_torch.bench.serving
+import repro_torch.bench.util
+import repro_torch.bench.weave_bench
+import repro_torch.perfmodel.hlo
+from repro_torch.perfmodel.hlo_cost import analyze
+from repro_torch.configs.registry import get_config
+from repro_torch.traces import ServeScenario, decode_hlo, lower_scenario
+assert analyze(decode_hlo(get_config("zamba2-2.7b"), 2, 16))["bytes"] > 0
+tr, sched, info = lower_scenario(ServeScenario(get_config("arctic-480b")))
+assert int(tr.length) == info["accesses"] > 0
 import repro_torch.obs
 import repro_torch.oracle
 from repro_torch.traces import make_suite, replay_suite, stack_traces
