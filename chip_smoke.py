@@ -115,6 +115,43 @@ Phases, each printing one JSON line:
 11. **lm_parity** — the port's forward at tinyllama widths, 2 layers,
    256 tokens, fp32 (the CUDA-core route), on the card and on the CPU
    (plain version), from the same weights, within 1e-4.
+11b. **lm_families** — the five other families on the serving path, each
+   at its published full width in bf16 with weights from seed 0 and the
+   flash kernel on (grok-1-314b on the chunked route, which applies its
+   logit softcap; the vision model's cross gates opened to 0.5):
+   grok-1-314b at 2 of its 64 layers over 1 x 2048 tokens (one dispatch
+   group), xlstm-1.3b, zamba2-2.7b and llama-3.2-vision-11b over 2 x 2048
+   (the vision model with 2 x 1600 patches), whisper-large-v3 over 2 x
+   448 decoder tokens and 2 x 1500 frames.  Per family: (a) three timed
+   forwards (median tokens/s, flash launches by route asserted: one per
+   attention layer, the Hopper route at D 64/128, the CUDA-core route at
+   zamba2's D 80; peak memory) and one profiled (idle share); one more
+   forward with every flash call held against the plain version on its
+   inputs (within 2e-2); (b) the decode check, grok-1 by prefill of
+   2047 tokens + one decode step (at the capacity that drops no token;
+   the timed forward's drops counted), the others by decoding the last
+   16 tokens step by step from a fresh state (after ``fill_ctx``)
+   against a forward over them, in fp32 on the same weights within
+   6e-3(1 + |x|) (grok-1's chunked route: relative L2 within 2^-8) and
+   in bf16, whose decode must lie within twice the bf16 forward's
+   relative L2 distance from the fp32 forward, or within 2e-2 (the bf16
+   gap to the forward printed beside 1/16 + 2e-2|x|; the bf16 run's
+   flash calls checked as in (a)), argmax agreement printed; (c) the
+   Engine, 4 slots, 8 requests of 4-16 prompt tokens and 16 new each (a
+   per-slot ctx for the vision and audio families): ms per tick,
+   tokens/s, flash launches per tick.  Then each family at full width
+   and the fewest layers its layout allows (grok-1 1, xlstm 8, zamba2
+   6, vision 5, whisper 1 + 1), fp32, 1 x 256 tokens (the ctx at full
+   length), card against CPU within 1e-4, with the host RAM it took;
+   grok-1 at its configured capacity factor (tokens dropped): the
+   card's routing of the CPU's gates bit for bit, every top-k flip a
+   near-tie, kept slots, dispatch and combine compared, and the logits
+   of the tokens that kept the same experts within 5e-4 relative L2;
+   then ``flash_attention`` at the families' shapes (whisper's encoder,
+   decoder self- and cross-attention, the vision self- and
+   cross-attention, the cross-attention at Sq = 1 too, zamba2's D 80)
+   against its plain version, timed beside its bound and
+   ``scaled_dot_product_attention``.
 12. **serving** — LLM-serving traffic (``bench.serving``, stage 10 with
    telemetry, the event engine under a budget of a whole window's
    ticks): (a) the SMOKE grid through ``serving.main`` on the card, every
@@ -153,6 +190,7 @@ power limit as nvidia-smi reports them, and the result line.  Any
 failure raises: the script then exits non-zero and prints no result.
 Without a card, or without the repository beside it, it exits non-zero.
 """
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -194,6 +232,49 @@ LM_ATOL, LM_RTOL = 0.0625, 2e-2
 # another order than the CPU's BLAS (~1e-5 relative), over 2 layers and
 # the 32000-wide head; the kernel adds at most 2e-6.
 PARITY_TOL = 1e-4
+# lm_families: (arch, layers run, batch, decoder tokens) at full width,
+# bf16, weights from seed 0, the flash kernel on (grok-1: the chunked
+# route, which applies its logit softcap); grok-1 at 2 of its 64 layers
+# (one layer's experts are 19.3 GB in fp32) and one dispatch group
+FAMILY_RUNS = [("grok-1-314b", 2, 1, 2048), ("xlstm-1.3b", None, 2, 2048),
+               ("zamba2-2.7b", None, 2, 2048),
+               ("whisper-large-v3", None, 2, 448),   # the decoder context
+               ("llama-3.2-vision-11b", None, 2, 2048)]
+FAMILY_FORWARDS = 3             # timed forwards (median)
+FAMILY_DECODE = 16              # tokens decoded against a forward
+FAMILY_GATE = 0.5               # the vision model's cross gates (0 at init)
+# decode against the forward in fp32: the reference's invariant
+# (tests/test_models.py, decode == forward at 6e-3)
+FAMILY_FP32_TOL = 6e-3
+# the chunked route rounds probabilities to bf16 (as the reference's
+# does): against the exact attention over the cache that a decode step
+# runs, a probability moves by up to one bf16 step, 2^-8 of itself; its
+# fp32 decode check holds the logits' relative L2 error to that step
+# (2.57e-3 measured for grok-1 at 2 layers on an H100)
+CHUNKED_REL_L2 = 2.0 ** -8
+# decode against the forward in bf16: the decode's relative L2 distance
+# from the fp32 forward (same weights) within this multiple of the bf16
+# forward's own, or within LM_RTOL.  In the reference's bf16 model too
+# the decode and the forward part by a few bf16 steps, more with depth
+# (tests/test_torch_models.py, at zamba2's and xlstm's depths)
+BF16_DECODE_MULT = 2.0
+FAMILY_PARITY_S = 256           # card vs CPU, fp32, the fewest layers
+# grok-1 card vs CPU (fp32, the chunked route, the configured capacity
+# factor): the logits' relative L2 error over the tokens that kept the
+# same experts on both sides; 1.33e-4 measured at capacity factor 4 on
+# an H100, the limit a little under four times that
+MOE_PARITY_REL_L2 = 5e-4
+# flash_attention at the families' shapes: (what, (b, hq, hkv, sq, sk, d,
+# causal)); the decode shapes at the Engine's 4 slots
+FAMILY_FLASH = [
+    ("whisper encoder", (2, 20, 20, 1500, 1500, 64, False)),
+    ("whisper decoder self-attention", (2, 20, 20, 448, 448, 64, True)),
+    ("whisper cross", (2, 20, 20, 448, 1500, 64, False)),
+    ("whisper cross, decode tick", (4, 20, 20, 1, 1500, 64, False)),
+    ("vision self-attention", (2, 32, 8, 2048, 2048, 128, True)),
+    ("vision cross", (2, 32, 8, 2048, 1600, 128, False)),
+    ("vision cross, decode tick", (4, 32, 8, 1, 1600, 128, False)),
+    ("zamba2 shared block", (2, 32, 32, 2048, 2048, 80, True))]
 
 
 # weave phase: (stage, preset, sockets, engine), each WEAVE_WINDOWS
@@ -417,29 +498,42 @@ def check_flash(dev):
     return worst, timing
 
 
-def profile_forward(api, params, toks, forward_wall_s):
+def device_events(prof):
+    """The profile's device events, each with ``name`` and ``time_range``
+    (µs), read from the raw kineto events: parsing every event into a
+    FunctionEvent (``prof.events()``) takes tens of seconds for a forward
+    of ~10^5 launches (xlstm's)."""
+    from types import SimpleNamespace
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [SimpleNamespace(name=e.name(), time_range=SimpleNamespace(
+        start=e.start_ns() / 1e3, end=e.end_ns() / 1e3))
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == cuda]
+
+
+def profile_forward(api, params, batch, forward_wall_s, what):
     """One warm forward under torch.profiler: device time by kernel name
     and by kind, and the device's idle share, over the profiled forward
     and over ``forward_wall_s``, the same forward's wall-clock without
-    the profiler (whose own host cost varies between machines)."""
+    the profiler (whose own host cost varies between machines).  Emits a
+    ``profile`` line and returns it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        api.forward(params, {"tokens": toks})
+        api.forward(params, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {"phase": "profile", "what": f"one warm {LM_ARCH} forward, "
-           f"{LM_B} x {LM_S} tokens, bf16", "wall_ms_profiled":
+    dev_events = device_events(prof)
+    out = {"phase": "profile", "what": what, "wall_ms_profiled":
            wall_us / 1e3, "device_events": len(dev_events)}
     if not dev_events:
         out["note"] = "the profiler showed no device time on this machine"
         emit(out)
-        return
+        return out
     busy, window = device_busy(dev_events)
     by_name, by_kind = {}, {}
     kinds = (("attention", ("flash",)),
@@ -465,6 +559,7 @@ def profile_forward(api, params, toks, forward_wall_s):
                top_kernels=[{"name": n[:100], "ms": us / 1e3, "count": c}
                             for n, (us, c) in top])
     emit(out)
+    return out
 
 
 def check_routes(what, routes, n_layers):
@@ -1467,6 +1562,12 @@ def ladder(dev):
     return launches, prof
 
 
+def move(tree, where):
+    """A tree of tensors copied to ``where``."""
+    return {k: move(v, where) if isinstance(v, dict) else v.to(where)
+            for k, v in tree.items()}
+
+
 def lm_path(dev):
     """The dense serving path of tinyllama-1.1b at full width and depth."""
     from repro_torch import kernels
@@ -1512,7 +1613,9 @@ def lm_path(dev):
             raise AssertionError(f"forward logits: shape {full.shape}, "
                                  f"finite {bool(full.isfinite().all())}")
 
-        profile_forward(api, params, toks, wall)
+        profile_forward(api, params, {"tokens": toks}, wall,
+                        f"one warm {LM_ARCH} forward, {LM_B} x {LM_S} "
+                        f"tokens, bf16")
 
         # (b) prefill S-1 tokens, decode the last, against (a)
         kernels.reset_launch_counts()
@@ -1589,17 +1692,12 @@ def lm_parity(dev):
                               dtype=torch.float32, use_flash_kernel=True)
     api = get_model(cfg)
     on_cpu = api.init(0, device="cpu")
-
-    def to(tree, where):
-        return {k: to(v, where) if isinstance(v, dict) else v.to(where)
-                for k, v in tree.items()}
-
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (2, 256)))
     with torch.inference_mode():
         want = api.forward(on_cpu, {"tokens": toks})
         kernels.reset_launch_counts()
-        got = api.forward(to(on_cpu, dev), {"tokens": toks.to(dev)}).cpu()
+        got = api.forward(move(on_cpu, dev), {"tokens": toks.to(dev)}).cpu()
     launches = kernels.launch_counts()["flash_attention"]
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, atol=PARITY_TOL, rtol=PARITY_TOL))
@@ -1610,6 +1708,523 @@ def lm_parity(dev):
     if not ok or launches != 2:
         raise AssertionError(f"card forward differs from the CPU's by {err}"
                              f" (flash launches {launches})")
+
+
+# ---- the other model families (phase 11b) ----------------------------------
+
+def family_config(arch, n_layers=None, **kw):
+    """The arch's published config in bf16 with the flash kernel on,
+    except where a logit softcap needs the chunked route (grok-1);
+    ``n_layers`` cuts the depth (whisper: both stacks)."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(arch)
+    cut = {}
+    if n_layers is not None:
+        cut["n_layers"] = n_layers
+        if cfg.n_encoder_layers:
+            cut["n_encoder_layers"] = n_layers
+    return dataclasses.replace(
+        cfg, use_flash_kernel=cfg.attn_logit_softcap == 0, **cut, **kw)
+
+
+def family_flash_routes(cfg):
+    """Flash launches a forward takes, by route: one per attention layer
+    where the flash kernel is on; bf16 at D 64/128 on the Hopper route,
+    D 80 on the CUDA-core one."""
+    if not cfg.use_flash_kernel:
+        n = 0
+    elif cfg.family == "hybrid":
+        n = cfg.n_layers // cfg.attn_every
+    elif cfg.family == "audio":
+        n = cfg.n_encoder_layers + 2 * cfg.n_layers
+    elif cfg.family in ("vlm", "moe"):
+        n = cfg.n_layers
+    else:
+        n = 0
+    hopper = cfg.dtype == torch.bfloat16 and cfg.head_dim in (64, 128)
+    return {"sm90_bf16": n if hopper else 0,
+            "cuda_core": 0 if hopper else n}
+
+
+def family_params(api, cfg, dev):
+    params = api.init(0, device=dev)
+    if cfg.family == "vlm":
+        # open the tanh gates (0 at init: the identity) so that the
+        # cross blocks count in every check
+        params["cross"]["gate_attn"].fill_(FAMILY_GATE)
+        params["cross"]["gate_mlp"].fill_(FAMILY_GATE)
+    return params
+
+
+def family_batch(api, cfg, b, s, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (b, s))).to(dev)}
+    if api.needs_ctx:
+        batch["ctx"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_ctx_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    return batch
+
+
+def decode_vs_forward(cfg, params, batch, dev):
+    """moe: prefill S-1 tokens and decode the last, at the capacity that
+    drops no token (see `family_decode_check`); the others: decode the
+    last FAMILY_DECODE tokens step by step from a fresh state (after
+    `fill_ctx`), against a forward over the same tokens.  Returns the
+    decoded logits and the forward's at the same positions, (B, steps,
+    V) in fp32, and what was run."""
+    import functools
+
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import prefill
+
+    toks = batch["tokens"]
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        api = get_model(cfg)
+        full = api.forward(params, batch)
+        s = toks.shape[1]
+        _, cache = prefill(cfg, params, toks[:, :-1], s + 16,
+                           mlp_fn=functools.partial(moe.moe_mlp_y, cfg))
+        dec, _ = api.decode(params, cache, toks[:, -1])
+        decs, ref = [dec], full[:, -1:]
+        what = (f"prefill {s - 1} + decode 1, capacity factor "
+                f"{cfg.capacity_factor}")
+    else:
+        api = get_model(cfg)
+        last = toks[:, -FAMILY_DECODE:]
+        ref = api.forward(params, dict(batch, tokens=last))
+        cache = api.init_cache(toks.shape[0], 2 * FAMILY_DECODE, device=dev)
+        if api.needs_ctx:
+            cache = api.fill_ctx(params, cache, batch["ctx"])
+        decs = []
+        for t in range(FAMILY_DECODE):
+            dec, cache = api.decode(params, cache, last[:, t])
+            decs.append(dec)
+        what = f"decode {FAMILY_DECODE} vs a forward over them"
+    torch.cuda.synchronize()
+    return torch.stack(decs, 1).float(), ref.float(), what
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def decode_gap(dec, fwd):
+    """Decode against the forward: the largest difference, its ratio to
+    LM_ATOL + LM_RTOL|x|, whether it is within FAMILY_FP32_TOL (1 + |x|),
+    the worst step's relative L2 error and the argmax agreement."""
+    diff = (dec - fwd).abs()
+    ratio = float((diff / (LM_ATOL + LM_RTOL * fwd.abs())).max())
+    agree = dec.argmax(-1) == fwd.argmax(-1)
+    return {"max_abs_diff": float(diff.max()), "ratio_to_lm_bound": ratio,
+            "within_lm_bound": ratio <= 1,
+            "within_fp32_tol": bool((diff <= FAMILY_FP32_TOL
+                                     * (1 + fwd.abs())).all()),
+            "max_rel_l2": max(rel_l2(dec[:, t], fwd[:, t])
+                              for t in range(dec.shape[1])),
+            "argmax_equal": f"{int(agree.sum())}/{agree.numel()}"}
+
+
+@contextlib.contextmanager
+def checked_flash(checks):
+    """For the duration, the models' ``flash_attention`` launches the
+    kernel and then holds its output against ``mha_plain`` on the same
+    inputs (FLASH_TOL at their dtype); ``checks`` gathers per shape the
+    calls, the route, the largest error and whether every call held."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     mha_plain, route)
+    from repro_torch.models import common
+
+    def call(q, k, v, *, causal=False, scale=None):
+        o = flash_attention(q, k, v, causal=causal, scale=scale)
+        want = mha_plain(q, k, v, causal=causal, scale=scale).float()
+        got, tol = o.float(), FLASH_TOL[q.dtype]
+        (b, hq, sq, d), (hkv, sk) = q.shape, k.shape[1:3]
+        c = checks.setdefault(
+            f"B{b} Hq{hq} Hkv{hkv} Sq{sq} Sk{sk} D{d} "
+            f"{'causal' if causal else 'full'} {str(q.dtype)[6:]}",
+            {"calls": 0, "route": route(q, k, v), "max_abs_err": 0.0,
+             "tol": tol, "ok": True})
+        c["calls"] += 1
+        c["max_abs_err"] = max(c["max_abs_err"],
+                               float((got - want).abs().max()))
+        c["ok"] &= bool(torch.allclose(got, want, atol=tol, rtol=tol))
+        return o
+
+    common.flash_attention = call
+    try:
+        yield checks
+    finally:
+        common.flash_attention = flash_attention
+
+
+def family_decode_check(cfg, api, params, batch, flash_checks):
+    """Decode against the forward, in fp32 and in bf16 on the same
+    weights.  fp32: within FAMILY_FP32_TOL (1 + |x|), the reference's
+    decode == forward invariant (on the chunked route, whose forward
+    rounds probabilities to bf16, a relative L2 error within
+    CHUNKED_REL_L2).  bf16: the two part by a few bf16 steps, more with
+    depth, as the reference's do (the gap is printed beside LM_ATOL +
+    LM_RTOL|x|); the bf16 decode's relative L2 distance from the fp32
+    forward must be within BF16_DECODE_MULT times the bf16 forward's
+    own distance from it, or within LM_RTOL, so that a fault of the
+    bf16 decode still fails.  The bf16 run's flash calls go through
+    `checked_flash`.  A decode step routes one MoE token a group
+    (C = k): it never drops one, while the forward's group of S tokens
+    drops those past an expert's capacity, and at random weights the
+    routing crowds a few experts; so the moe check runs at the capacity
+    that drops none (C = G), and the timed forward's drops are
+    counted."""
+    dev = batch["tokens"].device
+    out = {"atol": LM_ATOL, "rtol": LM_RTOL, "fp32_tol": FAMILY_FP32_TOL}
+    if cfg.family == "moe":
+        out["forward_dropped_slots_by_layer"] = moe_drops(api, params,
+                                                          batch)
+    dec32, fwd32, out["what"] = decode_vs_forward(
+        dataclasses.replace(cfg, dtype=torch.float32), params, batch, dev)
+    with (checked_flash(flash_checks) if cfg.use_flash_kernel
+          else contextlib.nullcontext()):
+        dec16, fwd16, _ = decode_vs_forward(
+            dataclasses.replace(cfg, dtype=torch.bfloat16), params, batch,
+            dev)
+    out["float32"], out["bfloat16"] = (decode_gap(dec32, fwd32),
+                                       decode_gap(dec16, fwd16))
+    e_fwd, e_dec = rel_l2(fwd16, fwd32), rel_l2(dec16, fwd32)
+    limit = max(BF16_DECODE_MULT * e_fwd, LM_RTOL)
+    out["bf16_from_fp32_forward"] = {
+        "forward_rel_l2": e_fwd, "decode_rel_l2": e_dec,
+        "decode_over_forward": e_dec / e_fwd, "limit": limit,
+        "ok": e_dec <= limit}
+    fp32 = out["float32"]
+    out["ok"] = out["bf16_from_fp32_forward"]["ok"] and (
+        fp32["within_fp32_tol"] if cfg.use_flash_kernel
+        else fp32["max_rel_l2"] <= CHUNKED_REL_L2)
+    return out
+
+
+def moe_drops(api, params, batch):
+    """Token slots one forward's routing drops past capacity, by layer."""
+    _, routes = captured_routes(lambda: api.forward(params, batch))
+    return [g.shape[:-1].numel() * api.cfg.top_k
+            - int(d.sum(dtype=torch.float32)) for g, d, _ in routes]
+
+
+def family_engine(cfg, api, params, dev):
+    """The greedy Engine: 8 requests of 4-16 prompt tokens, 16 new each,
+    on 4 slots (a per-slot ctx for the ctx families)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.serve.engine import Engine, Request
+
+    rng = np.random.default_rng(1)
+    ctx = None
+    if api.needs_ctx:
+        ctx = torch.from_numpy(rng.standard_normal(
+            (4, cfg.n_ctx_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    eng = Engine(api, params, n_slots=4, max_seq=256, ctx=ctx, device=dev)
+    for i in range(8):
+        prompt = rng.integers(1, cfg.vocab, int(rng.integers(4, 17)))
+        eng.submit(Request(rid=i, prompt=[int(t) for t in prompt],
+                           max_new=16))
+    kernels.reset_launch_counts()
+    done, ticks = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.pool.pending():
+        done += eng.tick()
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r.out) for r in done)
+    routes = dict(flash_attention.launches_by_route)
+    out = {"slots": 4, "max_seq": 256, "requests": 8,
+           "completed": len(done), "ticks": ticks, "tokens": n_tok,
+           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ms_per_tick": wall / ticks * 1e3, "flash_routes": routes,
+           "flash_per_tick": {r: n / ticks for r, n in routes.items()}}
+    ok = len(done) == 8 and all(len(r.out) == 16 for r in done)
+    return out, ok
+
+
+def family_run(dev, arch, n_layers, b, s):
+    """One family at full width (depth ``n_layers`` or the published
+    one), bf16: (a) timed forwards, (b) the decode check, (c) the
+    Engine.  Returns the line and the forward's flash routes."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.registry import count_params, get_model
+
+    cfg = family_config(arch, n_layers)
+    api = get_model(cfg)
+    params = family_params(api, cfg, dev)
+    batch = family_batch(api, cfg, b, s, dev)
+    expect = family_flash_routes(cfg)
+    out = {"phase": "lm_families", "arch": arch, "family": cfg.family,
+           "dtype": "bfloat16", "n_layers": cfg.n_layers,
+           "published_layers": family_config(arch).n_layers,
+           "params": count_params(params), "batch": b, "seq": s,
+           "ctx_tokens": cfg.n_ctx_tokens if api.needs_ctx else 0,
+           "attention": "flash" if cfg.use_flash_kernel else
+           "chunked (logit softcap)"}
+    with torch.inference_mode():
+        api.forward(params, batch)                 # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(FAMILY_FORWARDS):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            full = api.forward(params, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            routes = dict(flash_attention.launches_by_route)
+            if routes != expect:
+                raise AssertionError(f"{arch} forward launched flash "
+                                     f"{routes}, expected {expect}")
+        wall = float(np.median(walls))
+        out["forward"] = {"wall_s": wall, "walls_s": walls,
+                          "tokens_per_s": b * s / wall,
+                          "flash_routes": routes,
+                          "peak_mem_gb": torch.cuda.max_memory_allocated()
+                          / 1e9}
+        if full.shape != (b, s, cfg.vocab) or not bool(
+                full.isfinite().all()):
+            raise AssertionError(f"{arch} logits: shape {full.shape}, "
+                                 f"finite {bool(full.isfinite().all())}")
+        del full
+        prof = profile_forward(api, params, batch, wall,
+                               f"one warm {arch} forward ({cfg.n_layers} "
+                               f"layers), {b} x {s} tokens, bf16")
+        out["forward"]["idle_share_of_unprofiled_wall"] = prof.get(
+            "idle_share_of_unprofiled_wall")
+        # every flash call of one more forward and of the bf16 decode
+        # check against the plain version on its inputs
+        flash_checks = {}
+        if cfg.use_flash_kernel:
+            with checked_flash(flash_checks):
+                api.forward(params, batch)
+        out["decode"] = family_decode_check(cfg, api, params, batch,
+                                            flash_checks)
+        out["flash_in_model"] = flash_checks
+    out["engine"], engine_ok = family_engine(cfg, api, params, dev)
+    emit(out)
+    bad = {k: c for k, c in flash_checks.items() if not c["ok"]}
+    if bad or sum(c["calls"] for c in flash_checks.values()) < sum(
+            expect.values()):
+        raise AssertionError(f"{arch}: flash_attention in the model "
+                             f"differs from its plain version: "
+                             f"{bad or flash_checks}")
+    if not out["decode"]["ok"]:
+        raise AssertionError(f"{arch}: decode differs from the forward: "
+                             f"{out['decode']}")
+    if not engine_ok:
+        raise AssertionError(f"{arch}: the engine completed "
+                             f"{out['engine']['completed']} of 8 requests")
+    return routes, out["engine"]["flash_routes"]
+
+
+def captured_routes(fn):
+    """fn() with `moe.route` wrapped: its result and each routing's
+    gates, dispatch and combine, on the CPU."""
+    from repro_torch.models import moe
+
+    route, seen = moe.route, []
+
+    def capturing(cfg, gates, c):
+        dispatch, combine = route(cfg, gates, c)
+        seen.append(tuple(x.cpu() for x in (gates, dispatch, combine)))
+        return dispatch, combine
+
+    moe.route = capturing
+    try:
+        return fn(), seen
+    finally:
+        moe.route = route
+
+
+def moe_routing_vs_cpu(cfg, on_cpu, on_card, dev):
+    """One MoE layer's routing, card against CPU, at the configured
+    capacity (tokens past it dropped): the card's routing of the CPU's
+    gates equal bit for bit; the tokens whose ordered top-k differs
+    (a flip), each of them a near-tie (two of its gates closer than
+    twice the largest difference between the two sides' gates for that
+    token); kept slots per expert and dispatch (equal where no token
+    flipped); combine's largest difference beside the gates'.  Also the
+    tokens (B, S) that kept the same experts on both sides."""
+    from repro_torch.models import moe
+
+    (gc, dc, cc), (gd, dd, cd) = on_cpu, on_card
+    k = cfg.top_k
+    d2, c2 = moe.route(cfg, gc.to(dev), dc.shape[-1])
+    order_c = gc.sort(dim=-1, descending=True, stable=True).indices[..., :k]
+    order_d = gd.sort(dim=-1, descending=True, stable=True).indices[..., :k]
+    flipped = (order_c != order_d).any(-1)
+    top = gc.sort(-1, descending=True).values[..., :k + 1]
+    margin = (top[..., :-1] - top[..., 1:]).min(-1).values
+    near_tie = margin <= 2 * (gd - gc).abs().max(-1).values
+    kept_c, kept_d = dc.float().sum(-1) > 0, dd.float().sum(-1) > 0
+    same = (kept_c == kept_d).all(-1)
+    slots_c, slots_d = dc.float().sum((2, 4)), dd.float().sum((2, 4))
+    out = {"capacity": dc.shape[-1],
+           "card_routing_of_cpu_gates_exact": torch.equal(d2.cpu(), dc)
+           and torch.equal(c2.cpu(), cc),
+           "max_gate_diff": float((gd - gc).abs().max()),
+           "topk_flips": int(flipped.sum()),
+           "flips_near_ties": int((flipped & near_tie).sum()),
+           "tokens_kept_differently": int((~same).sum()),
+           "dropped_slots": {"cpu": int(gc.shape[:-1].numel() * k
+                                        - slots_c.sum()),
+                             "card": int(gd.shape[:-1].numel() * k
+                                         - slots_d.sum())},
+           "kept_slots_per_expert_equal": torch.equal(slots_c, slots_d),
+           "dispatch_equal": torch.equal(dc, dd),
+           "combine_max_abs_diff": float((cd - cc).abs().max())}
+    # with no flip the two sides keep the same slots; combine then
+    # differs only as the gates do (their arithmetic is the exact check
+    # above)
+    out["ok"] = (out["card_routing_of_cpu_gates_exact"]
+                 and out["flips_near_ties"] == out["topk_flips"]
+                 and (out["topk_flips"] > 0 or (
+                     out["dispatch_equal"]
+                     and out["kept_slots_per_expert_equal"])))
+    return out, same.reshape(same.shape[0], -1)
+
+
+def family_parity(dev, arch):
+    """The family at full width and the fewest layers its layout allows,
+    fp32, on the card and on the CPU (plain version) from the same
+    weights: logits within PARITY_TOL; the host RAM the CPU side held.
+    grok-1 (the chunked route, its configured capacity factor, one MoE
+    layer): the routing by `moe_routing_vs_cpu`, and the logits'
+    relative L2 error over the tokens that kept the same experts on both
+    sides within MOE_PARITY_REL_L2."""
+    import resource
+
+    from repro_torch.models.registry import count_params, get_model
+
+    pub = family_config(arch)
+    depth = {"moe": 1, "ssm": pub.slstm_every, "hybrid": pub.attn_every,
+             "vlm": pub.cross_attn_every, "audio": 1}[pub.family]
+    cfg = family_config(arch, depth, dtype=torch.float32)
+    api = get_model(cfg)
+    b = 1
+    with torch.inference_mode():
+        on_card = family_params(api, cfg, dev)
+        on_cpu = move(on_card, "cpu")
+        batch = family_batch(api, cfg, b, FAMILY_PARITY_S, "cpu", seed=2)
+        t0 = time.perf_counter()
+        want, cpu_routes = captured_routes(lambda: api.forward(on_cpu,
+                                                               batch))
+        cpu_s = time.perf_counter() - t0
+        got, card_routes = captured_routes(
+            lambda: api.forward(on_card, move(batch, dev)).cpu())
+    err = float((got - want).abs().max())
+    rel = rel_l2(got, want)
+    out = {"phase": "lm_families_parity", "arch": arch, "n_layers":
+           cfg.n_layers, "seq": FAMILY_PARITY_S, "batch": b,
+           "ctx_tokens": cfg.n_ctx_tokens if api.needs_ctx else 0,
+           "dtype": "float32", "params": count_params(on_cpu),
+           "host_param_gb": count_params(on_cpu) * 4 / 1e9,   # fp32
+           "host_max_rss_gb": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss / 1e6,
+           "cpu_forward_s": cpu_s, "max_abs_err": err, "rel_l2": rel,
+           "max_abs_logit": float(want.abs().max())}
+    if cfg.family == "moe":
+        out["capacity_factor"] = cfg.capacity_factor
+        out["routing"], same = moe_routing_vs_cpu(cfg, cpu_routes[0],
+                                                  card_routes[0], dev)
+        kept_rel = rel_l2(got[same], want[same])
+        out.update(rel_l2_same_experts=kept_rel,
+                   tol={"rel_l2_same_experts": MOE_PARITY_REL_L2},
+                   ok=out["routing"]["ok"] and len(cpu_routes) == 1
+                   and kept_rel <= MOE_PARITY_REL_L2)
+    else:
+        out.update(tol=PARITY_TOL, ok=bool(torch.allclose(
+            got, want, atol=PARITY_TOL, rtol=PARITY_TOL)))
+    emit(out)
+    if not out["ok"]:
+        raise AssertionError(f"{arch}: card forward differs from the CPU's: "
+                             f"{out}")
+
+
+def family_flash(dev):
+    """flash_attention at the families' shapes, bf16, through the
+    wrapper: against the plain version (FLASH_TOL), on the route the rule
+    gives; device time, eager call, plain version, the bound (the larger
+    of the visible pairs' FLOP at the bf16 peak and q/k/v/o's bytes at
+    the HBM rate) and ``scaled_dot_product_attention`` on the same
+    inputs."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     mha_plain, route)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows, failed = [], []
+    for what, shape in FAMILY_FLASH:
+        b, hq, hkv, sq, sk, d, causal = shape
+        q, k, v = flash_inputs(gen, shape, torch.bfloat16, dev, True)
+        qc, kc, vc = (x.contiguous() for x in (q, k, v))
+        before = dict(flash_attention.launches_by_route)
+        got = flash_attention(q, k, v, causal=causal).float()
+        took = [r for r, n in flash_attention.launches_by_route.items()
+                if n != before[r]]
+        want = mha_plain(q, k, v, causal=causal).float()
+        err = float((got - want).abs().max())
+        tol = FLASH_TOL[torch.bfloat16]
+        ok = bool(torch.allclose(got, want, atol=tol, rtol=tol)) and \
+            took == [route(q, k, v)]
+        pairs = (sum(min(sk, max(0, sk - sq + i + 1)) for i in range(sq))
+                 if causal else sq * sk)
+        flops = 4 * b * hq * pairs * d
+        io_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
+        by_ops = flops / BF16_FLOP_PER_S * 1e3
+        by_bytes = io_bytes / MEM_BYTES_PER_S * 1e3
+        rows.append(dict(
+            what=what, shape=list(shape), route=took, max_abs_err=err,
+            tol=tol, ok=ok,
+            ms=device_ms(lambda: flash_attention(q, k, v, causal=causal),
+                         20),
+            call_ms=time_ms(lambda: flash_attention(q, k, v, causal=causal),
+                            20),
+            plain_ms=time_ms(lambda: mha_plain(q, k, v, causal=causal), 3),
+            library_ms=device_ms(lambda: sdpa(qc, kc, vc, is_causal=causal,
+                                              enable_gqa=True), 20),
+            flops=flops, bytes=io_bytes, bound_ms=max(by_ops, by_bytes),
+            bound_by="operations" if by_ops >= by_bytes else "bytes"))
+        if not ok:
+            failed.append(rows[-1])
+    emit({"phase": "lm_families_flash", "kernel": "flash_attention",
+          "shapes": rows})
+    if failed:
+        raise AssertionError(f"flash_attention at the families' shapes: "
+                             f"{failed}")
+    return rows
+
+
+def lm_families(dev):
+    """The five other families on the serving path (phase 11b): each at
+    full width in bf16, then card vs CPU in fp32, then flash_attention
+    at their shapes.  Returns the flash launches by route of the
+    families' forwards and Engine runs, and the flash rows."""
+    totals = {"forward": dict.fromkeys(("sm90_bf16", "cuda_core"), 0),
+              "engine": dict.fromkeys(("sm90_bf16", "cuda_core"), 0)}
+    for arch, n_layers, b, s in FAMILY_RUNS:
+        fwd, eng = family_run(dev, arch, n_layers, b, s)
+        for r in fwd:
+            totals["forward"][r] += fwd[r]
+            totals["engine"][r] += eng[r]
+        torch.cuda.empty_cache()
+    for arch, _, _, _ in FAMILY_RUNS:
+        family_parity(dev, arch)
+        torch.cuda.empty_cache()
+    if not all(totals["forward"].values()):
+        raise AssertionError(f"the families' forwards did not launch both "
+                             f"flash routes: {totals['forward']}")
+    return totals, family_flash(dev)
 
 
 # ---- serving, figures and the weave bench (phases 12-14) -----------------
@@ -2247,6 +2862,9 @@ def main():
     launches["flash_attention"] = sum(flash_routes.values())
     lm_parity(dev)
 
+    # ---- 11b. the five other families on the serving path ----------------
+    family_launches, family_flash_rows = lm_families(dev)
+
     # ---- 12-14. LLM-serving traffic, the paper's figures, the weave bench
     serve = serving_phase(dev)
     figs = figures_phase(dev)
@@ -2390,6 +3008,8 @@ def main():
                 serving_full_launches=serve["full"]["decode_packed"],
                 serving_profile_device_s=serve["profile"].get(
                     "decode_device_s"))
+    table[-1]["lm_families_launches"] = family_launches
+    table[-1]["family_shapes"] = family_flash_rows
     table[-1]["routes"] = [
         {"route": r, "source": flash_src[r], "launches": flash_routes[r],
          "max_abs_err": {k: e for k, e in flash_err.items()

@@ -2,11 +2,13 @@
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 \
       --smoke --device cpu
 
-Serves the architecture's full config (``--smoke``: its small one) with
-weights drawn from seed 0, on the card unless ``--device cpu``.
+Serves any of the ten architectures' full config (``--smoke``: its small
+one) with weights drawn from seed 0, on the card unless ``--device cpu``.
+The vision and audio families get a per-slot ctx drawn from
+``np.random.default_rng(0)``, as the reference's launcher draws it.
 """
 from __future__ import annotations
 
@@ -38,8 +40,13 @@ def main(argv=None) -> list[Request]:
     dev = resolve_device(args.device)
     api = get_model(cfg)
     params = api.init(0, device=dev)
+    ctx = None
+    if api.needs_ctx:
+        ctx = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (args.slots, cfg.n_ctx_tokens, cfg.d_model)).astype(
+                np.float32)).to(dev)
     eng = Engine(api, params, n_slots=args.slots, max_seq=args.max_seq,
-                 device=dev)
+                 ctx=ctx, device=dev)
     rng = np.random.default_rng(1)
     for i in range(args.requests):
         eng.submit(Request(rid=i, prompt=list(rng.integers(1, cfg.vocab, 4)),

@@ -1,6 +1,7 @@
 """Shared model machinery: config, norms, RoPE, GQA attention, FFN.
 
-The dense parts of the reference's ``models/common.py``, in PyTorch.
+The reference's ``models/common.py`` in PyTorch: what every family
+shares (the SwiGLU and GELU FFNs, attention, embeddings).
 
 Conventions
 -----------
@@ -13,6 +14,10 @@ Conventions
   online-softmax path (`_chunked_attention`) and the hand-written CUDA
   flash-attention kernel (`repro_torch.kernels.flash_attention`, whose
   plain version runs for CPU tensors).  ``cfg.use_flash_kernel`` selects.
+  The flash route takes no logit softcap, so a config that sets both
+  raises (the reference's flash route drops the softcap silently).
+* A `ShapesOnly` stand-in for the generator builds a parameter tree of
+  meta tensors: shapes without storage, how a full config is counted.
 * Projections are plain products: the port runs on one card, so the
   reference's weight-stationary mesh schedule (``serving_matmul``) and
   its ``shard`` annotations have no counterpart here.
@@ -167,10 +172,17 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
 def attention(cfg: ModelConfig, q, k, v, *, causal: bool, chunk: int = 1024):
     """GQA attention dispatch (chunked path or the flash kernel).
 
-    q (B,S,Hq,D); k,v (B,T,Hkv,D).  Returns (B,S,Hq,D).  The flash route,
-    like the reference's, does not apply ``cfg.attn_logit_softcap``.
+    q (B,S,Hq,D); k,v (B,T,Hkv,D).  Returns (B,S,Hq,D).  The flash
+    kernel takes no logit softcap: with ``cfg.attn_logit_softcap`` set
+    the flash route raises rather than drop it.
     """
     if cfg.use_flash_kernel:
+        if cfg.attn_logit_softcap > 0.0:
+            raise ValueError(
+                f"{cfg.name}: the flash kernel does not apply the attention "
+                f"logit softcap ({cfg.attn_logit_softcap}); set "
+                f"use_flash_kernel=False to take the chunked route, which "
+                f"does")
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal)
         return o.transpose(1, 2)
@@ -182,8 +194,16 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool, chunk: int = 1024):
 # attention + FFN layers (param dicts)
 
 
+class ShapesOnly:
+    """Stands in for a `torch.Generator`: the init functions then build
+    meta tensors (shapes and dtypes, no storage or values)."""
+
+    device = torch.device("meta")
+
+
 def _normal(gen, shape, scale):
-    return torch.randn(shape, generator=gen, dtype=torch.float32,
+    draw = None if isinstance(gen, ShapesOnly) else gen
+    return torch.randn(shape, generator=draw, dtype=torch.float32,
                        device=gen.device) * scale
 
 
@@ -235,6 +255,12 @@ def attn_out(cfg: ModelConfig, p, o):
     return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def cross_kv(cfg: ModelConfig, p, ctx):
+    """K/V of a cross-attention over context states ctx (B,T,d): the
+    attention's ``wk``/``wv`` projections, no bias and no rotation."""
+    return _proj(ctx, p["wk"].to(cfg.dtype)), _proj(ctx, p["wv"].to(cfg.dtype))
+
+
 def self_attention(cfg: ModelConfig, p, x, positions, *, causal=True):
     q, k, v = attn_qkv(cfg, p, x, positions)
     o = attention(cfg, q, k, v, causal=causal)
@@ -242,21 +268,35 @@ def self_attention(cfg: ModelConfig, p, x, positions, *, causal=True):
 
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, scale: float,
-             lead: tuple = ()):
-    """SwiGLU weights drawn from ``gen`` (the dense family's FFN)."""
-    d, f = cfg.d_model, cfg.d_ff
+             lead: tuple = (), kind: str = "swiglu",
+             d_ff: int | None = None):
+    """FFN weights drawn from ``gen``: SwiGLU, or ``kind="gelu"`` (with
+    biases, whisper's); ``d_ff`` overrides ``cfg.d_ff``."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if kind == "swiglu":
+        return dict(
+            w_gate=_normal(gen, (*lead, d, f), scale),
+            w_up=_normal(gen, (*lead, d, f), scale),
+            w_down=_normal(gen, (*lead, f, d), scale),
+        )
     return dict(
-        w_gate=_normal(gen, (*lead, d, f), scale),
         w_up=_normal(gen, (*lead, d, f), scale),
+        b_up=_zeros(gen, (*lead, f)),
         w_down=_normal(gen, (*lead, f, d), scale),
+        b_down=_zeros(gen, (*lead, d)),
     )
 
 
-def mlp(cfg: ModelConfig, p, x):
-    """SwiGLU FFN: (silu(x Wg) * x Wu) Wd."""
+def mlp(cfg: ModelConfig, p, x, kind: str = "swiglu"):
+    """SwiGLU FFN, (silu(x Wg) * x Wu) Wd; or ``kind="gelu"``,
+    gelu(x Wu + bu) Wd + bd with the tanh approximation, which is
+    ``jax.nn.gelu``'s default."""
     dt = cfg.dtype
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    if kind == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        return h @ p["w_down"].to(dt)
+    h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
 
 def init_embedding(cfg: ModelConfig, gen: torch.Generator):

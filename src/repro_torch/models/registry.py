@@ -1,27 +1,34 @@
-"""Family dispatch: one model API per family (the dense family so far).
+"""Family dispatch: one model API over all six families.
 
     api = get_model(cfg)
     params = api.init(seed, device=None)          # the card unless asked
-    logits = api.forward(params, batch)           # batch = {"tokens": ...}
+    logits = api.forward(params, batch)           # batch dict, see below
     cache  = api.init_cache(batch_size, max_seq, device=None)
+    cache  = api.fill_ctx(params, cache, ctx)     # vlm and audio only
     logits, cache = api.decode(params, cache, tokens)
 
+Batch dict keys: ``tokens`` always; ``ctx`` for vlm (patch embeddings)
+and audio (frame embeddings), (B, n_ctx_tokens, d_model).
+``api.batch_axes()`` gives each cache leaf's batch axis (the engine
+resets a slot along it), ``None`` for the cross K/V a slot keeps.
+``api.init(seed, device="meta")`` gives the parameter tree's shapes
+without allocating it (`count_params` of a full config).
+
 `params_from_numpy` carries a reference parameter tree (nested dict of
-arrays, layers stacked on a leading ``L`` axis) across leaf by leaf.
+arrays, layers stacked on a leading axis) across leaf by leaf.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core.platform import resolve_device
+from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
-
-#: families whose modules are still to port (ROADMAP Queue 1 item 11)
-NOT_PORTED = ("moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,56 +38,98 @@ class ModelApi:
     forward: Callable[..., Any]            # (params, batch) -> logits
     init_cache: Callable[..., Any]         # (batch, max_seq, device=None)
     decode: Callable[..., Any]             # (params, cache, tokens)
+    batch_axes: Callable[[], Any]          # () -> batch axis per leaf
+    fill_ctx: Callable[..., Any] | None = None   # (params, cache, ctx)
+    needs_ctx: bool = False
 
 
-def _generator(seed, device) -> torch.Generator:
+def _generator(seed, device):
     """A generator seeded with ``seed`` on ``device`` (the card unless
-    asked); a `torch.Generator` passed as ``seed`` draws on its own
-    device, which ``device``, if given, must name."""
+    asked; ``"meta"``: shapes only); a `torch.Generator` passed as
+    ``seed`` draws on its own device, which ``device``, if given, must
+    name."""
     if isinstance(seed, torch.Generator):
         if device is not None and torch.device(device).type != \
                 seed.device.type:
             raise ValueError(f"generator is on {seed.device}, not {device}")
         return seed
-    return torch.Generator(device=resolve_device(device)).manual_seed(
-        int(seed))
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return cm.ShapesOnly()
+    return torch.Generator(device=dev).manual_seed(int(seed))
+
+
+def _module(cfg: ModelConfig):
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        from repro_torch.models import transformer as m
+    elif fam == "ssm" and cfg.d_ff == 0 and cfg.slstm_every:
+        from repro_torch.models import xlstm as m
+    elif fam in ("ssm", "hybrid"):
+        from repro_torch.models import mamba2 as m
+    elif fam == "vlm":
+        from repro_torch.models import vlm as m
+    elif fam == "audio":
+        from repro_torch.models import whisper as m
+    else:
+        raise ValueError(f"unknown family {fam!r}")
+    return m
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    fam = cfg.family
-    if fam == "dense":
-        from repro_torch.models import transformer as m
-        return ModelApi(
-            cfg=cfg,
-            init=lambda seed=0, device=None: m.init_params(
-                cfg, _generator(seed, device)),
-            forward=lambda p, b: m.forward(cfg, p, b["tokens"]),
-            init_cache=lambda bs, ms, device=None: m.init_cache(
-                cfg, bs, ms, device=resolve_device(device)),
-            decode=lambda p, c, t: m.decode_step(cfg, p, c, t))
-    if fam in NOT_PORTED:
-        raise NotImplementedError(
-            f"family {fam!r} ({cfg.name}) is not ported to PyTorch yet: "
-            f"see ROADMAP Queue 1 item 11")
-    raise ValueError(f"unknown family {fam!r}")
+    m = _module(cfg)
+    init, hooks = m.init_params, {}
+    if cfg.family == "moe":
+        from repro_torch.models import moe
+        init = functools.partial(
+            m.init_params, mlp_init=functools.partial(moe.init_moe, cfg))
+        hooks = dict(mlp_fn=functools.partial(moe.moe_mlp_y, cfg))
+    needs_ctx = cfg.family in ("vlm", "audio")
+    if needs_ctx:
+        def forward(p, b):
+            return m.forward(cfg, p, b["tokens"], b["ctx"])
+    else:
+        def forward(p, b):
+            return m.forward(cfg, p, b["tokens"], **hooks)
+    return ModelApi(
+        cfg=cfg,
+        init=lambda seed=0, device=None: init(cfg, _generator(seed, device)),
+        forward=forward,
+        init_cache=lambda bs, ms, device=None: m.init_cache(
+            cfg, bs, ms, device=resolve_device(device)),
+        decode=lambda p, c, t: m.decode_step(cfg, p, c, t, **hooks),
+        batch_axes=lambda: m.batch_axes(cfg),
+        fill_ctx=(lambda p, c, ctx: m.fill_cross_cache(cfg, p, c, ctx))
+        if needs_ctx else None,
+        needs_ctx=needs_ctx)
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None):
     """The reference's parameter tree as the port's params on ``device``.
 
     ``tree`` is a nested dict of arrays (numpy, or anything
-    ``np.asarray`` reads), as the reference's ``init_params`` returns
-    it; every leaf keeps its shape, dtype and values.
+    ``np.asarray`` reads), as the reference's ``init_params`` returns it
+    for ``cfg``'s family; every leaf keeps its shape, dtype and values.
+    Raises ValueError where the tree's keys or shapes are not the ones
+    the family's init gives.
     """
-    get_model(cfg)                       # the family must be ported
+    want = get_model(cfg).init(0, device="meta")
     dev = resolve_device(device)
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+    def conv(x, w, path):
+        if isinstance(w, dict):
+            if not isinstance(x, dict) or set(x) != set(w):
+                got = sorted(x) if isinstance(x, dict) else type(x).__name__
+                raise ValueError(f"{cfg.name}: {path or 'params'} holds "
+                                 f"{got}, expected {sorted(w)}")
+            return {k: conv(v, w[k], f"{path}/{k}") for k, v in x.items()}
+        a = np.array(x, copy=True)
+        if a.shape != tuple(w.shape):
+            raise ValueError(f"{cfg.name}: {path} has shape {a.shape}, "
+                             f"expected {tuple(w.shape)}")
+        return torch.from_numpy(a).to(dev)
 
-    return conv(tree)
+    return conv(tree, want, "")
 
 
 def _leaves(tree):

@@ -1,11 +1,16 @@
-"""Decoder-only GQA transformer (tinyllama / minitron / qwen2 / deepseek).
+"""Decoder-only GQA transformer (tinyllama / minitron / qwen2 / deepseek
+families) and the block machinery the MoE, VLM, audio and hybrid
+families reuse.
 
 Layers are stacked along a leading L axis, as in the reference, and a
 Python loop over that axis takes the place of ``lax.scan``.  The KV
 cache keeps the reference's layout ``k, v: (L, B, T, Hkv, D)`` plus
-``length: (B,)`` int32.
+``length: (B,)`` int32.  ``mlp_init`` / ``mlp_fn`` swap the FFN (the
+MoE family's experts), as the reference's hooks do.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -23,33 +28,42 @@ def _layer(layers: dict, i: int) -> dict:
 # params
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator):
+def init_block(cfg: ModelConfig, gen: torch.Generator, lead: tuple = (),
+               mlp_init=None):
+    """One decoder block's weights, with ``lead`` stacking axes in front.
+    ``mlp_init(gen, scale, lead)`` draws the FFN (default: SwiGLU)."""
+    scale = 0.02 / (2 * cfg.n_layers) ** 0.5
+    mlp_init = mlp_init or functools.partial(cm.init_mlp, cfg)
+    ones = torch.ones(lead + (cfg.d_model,), dtype=torch.float32,
+                      device=gen.device)
+    return dict(norm1=ones, attn=cm.init_attn(cfg, gen, scale, lead),
+                norm2=ones.clone(), mlp=mlp_init(gen, scale, lead))
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, mlp_init=None):
     """Random weights with the reference's shapes and scales, drawn from
     ``gen`` on its device (not the reference's bits: parity tests carry
     the reference's weights across with `registry.params_from_numpy`)."""
-    scale = 0.02 / (2 * cfg.n_layers) ** 0.5
-    lead = (cfg.n_layers,)
-    ones = torch.ones(lead + (cfg.d_model,), dtype=torch.float32,
-                      device=gen.device)
-    return dict(
-        embed=cm.init_embedding(cfg, gen),
-        layers=dict(norm1=ones, attn=cm.init_attn(cfg, gen, scale, lead),
-                    norm2=ones.clone(), mlp=cm.init_mlp(cfg, gen, scale, lead)),
-    )
+    return dict(embed=cm.init_embedding(cfg, gen),
+                layers=init_block(cfg, gen, (cfg.n_layers,), mlp_init))
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill)
 
 
-def block_fwd(cfg: ModelConfig, p, x, positions):
+def _mlp_fn(cfg: ModelConfig, mlp_fn):
+    return mlp_fn or functools.partial(cm.mlp, cfg)
+
+
+def block_fwd(cfg: ModelConfig, p, x, positions, mlp_fn=None):
     h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
     x = x + cm.self_attention(cfg, p["attn"], h, positions)
     h = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + cm.mlp(cfg, p["mlp"], h)
+    return x + _mlp_fn(cfg, mlp_fn)(p["mlp"], h)
 
 
-def forward(cfg: ModelConfig, params, tokens):
+def forward(cfg: ModelConfig, params, tokens, mlp_fn=None):
     """tokens (B, S) -> logits (B, S, V).
 
     The layer weights are cast to the compute dtype before the layer
@@ -59,7 +73,7 @@ def forward(cfg: ModelConfig, params, tokens):
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     layers = cm.cast_params(cfg, params["layers"])
     for i in range(cfg.n_layers):
-        x = block_fwd(cfg, _layer(layers, i), x, positions)
+        x = block_fwd(cfg, _layer(layers, i), x, positions, mlp_fn)
     return cm.logits(cfg, params["embed"], x)
 
 
@@ -75,6 +89,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 v=torch.zeros(shape, dtype=dt, device=device),
                 length=torch.zeros((batch,), dtype=torch.int32,
                                    device=device))
+
+
+def batch_axes(cfg: ModelConfig):
+    """Each cache leaf's batch axis, along which `serve.engine` resets a
+    slot (``None``: a leaf the slot keeps, see `vlm.batch_axes`)."""
+    return dict(k=1, v=1, length=0)
 
 
 def attention_over_cache(cfg: ModelConfig, q, ck, cv, lengths):
@@ -110,20 +130,27 @@ def write_at(cache, new, lengths):
         new[:, 0].to(cache.dtype))
 
 
-def decode_block(cfg: ModelConfig, p, kv, x, lengths):
-    """One block, one new token.  x (B,1,d); kv dict of (B,T,Hkv,D)
-    views, updated in place."""
+def decode_attn(cfg: ModelConfig, p, kv, x, lengths):
+    """A block's self-attention for one new token, residual added.
+    x (B,1,d); kv dict of (B,T,Hkv,D) views: the token's K/V are
+    written in place at ``lengths``."""
     h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
     q, k_new, v_new = cm.attn_qkv(cfg, p["attn"], h, lengths[:, None])
     write_at(kv["k"], k_new, lengths)
     write_at(kv["v"], v_new, lengths)
     o = attention_over_cache(cfg, q, kv["k"], kv["v"], lengths + 1)
-    x = x + cm.attn_out(cfg, p["attn"], o)
+    return x + cm.attn_out(cfg, p["attn"], o)
+
+
+def decode_block(cfg: ModelConfig, p, kv, x, lengths, mlp_fn=None):
+    """One block, one new token.  x (B,1,d); kv dict of (B,T,Hkv,D)
+    views, updated in place."""
+    x = decode_attn(cfg, p, kv, x, lengths)
     h = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return kv, x + cm.mlp(cfg, p["mlp"], h)
+    return kv, x + _mlp_fn(cfg, mlp_fn)(p["mlp"], h)
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens):
+def decode_step(cfg: ModelConfig, params, cache, tokens, mlp_fn=None):
     """One decode step.  tokens (B,) -> (logits (B,V), cache').
 
     The cache's K/V tensors are updated in place and returned in the new
@@ -134,12 +161,13 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
     for i in range(cfg.n_layers):
         kv = dict(k=cache["k"][i], v=cache["v"][i])
         _, x = decode_block(cfg, _layer(params["layers"], i), kv, x,
-                            lengths)
+                            lengths, mlp_fn)
     out = cm.logits(cfg, params["embed"], x)[:, 0]
     return out, dict(k=cache["k"], v=cache["v"], length=lengths + 1)
 
 
-def prefill(cfg: ModelConfig, params, tokens, max_seq: int | None = None):
+def prefill(cfg: ModelConfig, params, tokens, max_seq: int | None = None,
+            mlp_fn=None):
     """Prefill: forward + populate a KV cache.  tokens (B, S)."""
     b, s = tokens.shape
     t = max_seq or s
@@ -153,7 +181,7 @@ def prefill(cfg: ModelConfig, params, tokens, max_seq: int | None = None):
         o = cm.attention(cfg, q, k, v, causal=True)
         x = x + cm.attn_out(cfg, lp["attn"], o)
         h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-        x = x + cm.mlp(cfg, lp["mlp"], h)
+        x = x + _mlp_fn(cfg, mlp_fn)(lp["mlp"], h)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     cache["length"].fill_(s)

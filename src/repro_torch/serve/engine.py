@@ -3,8 +3,11 @@
 A fixed pool of ``n_slots`` decode slots runs one decode step per tick
 over the *whole* pool: finished or empty slots decode a pad token and
 are masked out; new requests are admitted into free slots between ticks
-by zeroing that slot's cache rows.  A prompt is force-fed one token per
-tick through the same decode step.
+by resetting that slot's cache rows to their fresh values.  A prompt is
+force-fed one token per tick through the same decode step.  The vision
+and audio families take a per-slot ``ctx`` (patch or frame embeddings),
+turned into the cross K/V once, at construction, and kept across
+admissions.
 
 Slot admission itself (a FIFO queue over a fixed slot pool) is factored
 into `SlotPool`.
@@ -70,15 +73,34 @@ class SlotPool:
         return bool(self.queue) or any(r is not None for r in self.slots)
 
 
+def _slot_fills(fresh, axes):
+    """Per leaf that a slot reset touches (its batch axis not ``None``):
+    ``(batch axis, the constant `init_cache` fills it with)``, from a
+    small fresh cache ``fresh``."""
+    out = {}
+    for k, ax in axes.items():
+        if isinstance(ax, dict):
+            out[k] = _slot_fills(fresh[k], ax)
+        elif ax is not None:
+            value = fresh[k].flatten()[0]
+            if not bool((fresh[k] == value).all()):
+                raise ValueError(f"cache leaf {k!r} is not one constant "
+                                 f"at init")
+            out[k] = (ax, value.item())
+    return out
+
+
 class Engine:
     """Greedy continuous batching over ``api.decode`` on one device.
 
     ``params`` must already lie on ``device`` (the card unless
-    ``device="cpu"``); the KV cache is made there and updated in place.
+    ``device="cpu"``); the cache is made there and updated in place.
+    ``ctx`` (n_slots, n_ctx_tokens, d_model), required where
+    ``api.needs_ctx``, gives each slot its context.
     """
 
     def __init__(self, api: ModelApi, params, *, n_slots: int = 4,
-                 max_seq: int = 256, device=None):
+                 max_seq: int = 256, ctx=None, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
@@ -91,6 +113,17 @@ class Engine:
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.cache = api.init_cache(n_slots, max_seq, device=self.device)
+        if api.needs_ctx:
+            if ctx is None:
+                raise ValueError(f"{api.cfg.name} needs a ctx of "
+                                 f"({n_slots}, {api.cfg.n_ctx_tokens}, "
+                                 f"{api.cfg.d_model})")
+            self.cache = api.fill_ctx(params, self.cache, ctx)
+        elif ctx is not None:
+            raise ValueError(f"{api.cfg.name} ({api.cfg.family}) takes no "
+                             f"ctx")
+        self._fills = _slot_fills(api.init_cache(1, 1, device="cpu"),
+                                  api.batch_axes())
         self.pool = SlotPool(n_slots)
         self.last_tok = np.zeros((n_slots,), np.int32)
         self._remaining_prompt: list[list] = [[] for _ in range(n_slots)]
@@ -117,12 +150,18 @@ class Engine:
         self.pool.submit(req)
 
     def _reset_slot(self, s: int):
-        """Zero slot s's cache rows (length <- 0), in place, along the
-        batch axis of the cache layout: ``k, v`` are (L, B, T, Hkv, D)."""
-        self.cache["k"][:, s] = 0
-        self.cache["v"][:, s] = 0
-        self.cache["length"][s] = 0
+        """Reset slot s in place to the cache `init_cache` makes: every
+        leaf along its batch axis (KV rows, recurrent states and their
+        stabilisers, ``length``), except the cross K/V made from the
+        slot's context, which stays the slot's."""
+        def reset(tree, fills):
+            for k, f in fills.items():
+                if isinstance(f, dict):
+                    reset(tree[k], f)
+                else:
+                    tree[k].select(f[0], s).fill_(f[1])
 
+        reset(self.cache, self._fills)
     def _admit(self):
         for s, req in self.pool.admit():
             self._reset_slot(s)

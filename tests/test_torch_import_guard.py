@@ -2,8 +2,8 @@
 ``chip_smoke.py`` imports JAX or the JAX package, and the port (a Mess
 point, a trace replay, the telemetry and command recorders through
 ``obs`` and ``oracle``, the LLM-serving lowering and its HLO cost model,
-the figure and serving benches, a dense forward) runs with ``jax``
-blocked."""
+the figure and serving benches, one forward of every model family) runs
+with ``jax`` blocked."""
 import ast
 import pathlib
 import subprocess
@@ -81,6 +81,21 @@ api = get_model(cfg)
 logits = api.forward(api.init(0, device="cpu"),
                      {"tokens": torch.zeros((1, 5), dtype=torch.long)})
 assert logits.shape == (1, 5, cfg.vocab) and bool(logits.isfinite().all())
+import repro_torch.models.mamba2
+import repro_torch.models.moe
+import repro_torch.models.vlm
+import repro_torch.models.whisper
+import repro_torch.models.xlstm
+for arch in ("grok-1-314b", "xlstm-1.3b", "zamba2-2.7b",
+             "llama-3.2-vision-11b", "whisper-large-v3"):
+    cfg = get_smoke(arch)
+    api = get_model(cfg)
+    batch = {"tokens": torch.zeros((1, 5), dtype=torch.long)}
+    if api.needs_ctx:
+        batch["ctx"] = torch.ones((1, cfg.n_ctx_tokens, cfg.d_model))
+    logits = api.forward(api.init(0, device="cpu"), batch)
+    assert logits.shape == (1, 5, cfg.vocab), arch
+    assert bool(logits.isfinite().all()), arch
 leaked = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not leaked, leaked
 print("ok")

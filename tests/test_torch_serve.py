@@ -229,3 +229,146 @@ def test_launch_serve_on_cpu(capsys):
     assert sorted(r.rid for r in done) == [0, 1, 2]
     assert all(len(r.out) == 8 for r in done)
     assert "3 requests, 24 tokens" in capsys.readouterr().out
+
+
+# -- every family -------------------------------------------------------------
+
+FAMILIES = ["dense", "moe", "xlstm", "mamba", "hybrid", "vlm", "audio"]
+
+
+def family_engine(fam, n_slots=2, max_seq=32):
+    """An engine over the reference's small ``FAMS[fam]`` config (fp32,
+    the drawn weights of `_torch_families.ref_tree`, the vision model's
+    gates opened to tanh(2)) with a per-slot ctx for the ctx families."""
+    from _torch_families import configs, ref_tree
+
+    rcfg, cfg = configs(fam, use_flash_kernel=True)
+    api = get_model(cfg)
+    params = params_from_numpy(cfg, ref_tree(rcfg), device="cpu")
+    if fam == "vlm":
+        params["cross"]["gate_attn"].fill_(2.0)
+        params["cross"]["gate_mlp"].fill_(2.0)
+    return Engine(api, params, n_slots=n_slots, max_seq=max_seq,
+                  ctx=slot_ctx(api, n_slots), device="cpu")
+
+
+def slot_ctx(api, n_slots):
+    """The ctx families' per-slot context (None for the others)."""
+    if not api.needs_ctx:
+        return None
+    cfg = api.cfg
+    return torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (n_slots, cfg.n_ctx_tokens, cfg.d_model)).astype(np.float32))
+
+
+def greedy(eng, slot, prompt, n):
+    """``prompt`` then ``n`` greedy tokens decoded straight through
+    ``api.decode`` in row ``slot`` of a cache fresh from `init_cache`
+    (and `fill_ctx` with the engine's ctx), the other rows fed token 0:
+    no admission, no reset."""
+    api = eng.api
+    cache = api.init_cache(eng.n_slots, eng.max_seq, device="cpu")
+    if api.needs_ctx:
+        cache = api.fill_ctx(eng.params, cache, slot_ctx(api, eng.n_slots))
+    toks = torch.zeros(eng.n_slots, dtype=torch.int32)
+    out = []
+    for t in prompt + [None] * n:
+        if t is None:
+            out.append(int(logits[slot].argmax()))
+            t = out[-1]
+        toks[slot] = t
+        logits, cache = api.decode(eng.params, cache, toks)
+    return out[:n]
+
+
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_recycled_slot_gives_the_tokens_of_a_fresh_engine(fam):
+    """Request 2 lands in slot 1 after request 1 has used it; a fresh
+    engine serving requests 0 and 2 puts it in a slot never used.  The
+    tokens are equal, and equal to a greedy decode straight from a fresh
+    cache: the reset restored every recurrent and KV leaf and kept the
+    slot's cross K/V."""
+    reqs = [([7, 3, 9, 4], 8), ([11, 5], 2), ([2, 8, 6], 5)]
+    used = family_engine(fam)
+    for i, (prompt, n) in enumerate(reqs):
+        used.submit(Request(rid=i, prompt=prompt, max_new=n))
+    done = {r.rid: r for r in used.run()}
+    fresh = family_engine(fam)
+    for i in (0, 2):
+        fresh.submit(Request(rid=i, prompt=reqs[i][0], max_new=reqs[i][1]))
+    again = {r.rid: r for r in fresh.run()}
+    assert sorted(done) == [0, 1, 2] and sorted(again) == [0, 2]
+    assert done[2].out == again[2].out == greedy(used, 1, *reqs[2])
+    assert done[0].out == again[0].out == greedy(used, 0, *reqs[0])
+
+
+@pytest.mark.parametrize("fam", FAMILIES)
+def test_reset_restores_the_fresh_cache(fam):
+    """After some ticks, resetting slot 0 makes its every leaf what
+    `init_cache` gives (mLSTM and sLSTM stabilisers at -1e30, not 0),
+    leaves slot 1 as it was, and keeps both slots' cross K/V."""
+    eng = family_engine(fam)
+    eng.submit(Request(rid=0, prompt=[4, 5, 6], max_new=3))
+    eng.submit(Request(rid=1, prompt=[9, 8], max_new=6))
+    for _ in range(4):
+        eng.tick()
+    fresh = eng.api.init_cache(2, 32, device="cpu")
+    axes = eng.api.batch_axes()
+
+    def leaves(tree, ax, path=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, ax[k], f"{path}/{k}")
+            else:
+                yield f"{path}/{k}", v, ax[k]
+
+    before = {p: v.clone() for p, v, _ in leaves(eng.cache, axes)}
+    eng._reset_slot(0)
+    new = {p: (v, a) for p, v, a in leaves(eng.cache, axes)}
+    ctx_leaves = 0
+    for p, want, _ in leaves(fresh, axes):
+        got, ax = new[p]
+        if ax is None:
+            ctx_leaves += 1
+            assert torch.equal(got, before[p]) and got.abs().sum() > 0, p
+            continue
+        b = ax
+        assert torch.equal(got.select(b, 0), want.select(b, 0)), p
+        assert torch.equal(got.select(b, 1), before[p].select(b, 1)), p
+    assert ctx_leaves == (2 if eng.api.needs_ctx else 0)
+    if fam == "xlstm":
+        assert (eng.cache["mlstm"]["m"][:, 0] == -1e30).all()
+
+
+@pytest.mark.parametrize("fam", ["vlm", "audio"])
+def test_cross_cache_survives_admission(fam):
+    eng = family_engine(fam, n_slots=1)
+    xk, xv = eng.cache["xk"].clone(), eng.cache["xv"].clone()
+    assert xk.abs().sum() > 0
+    for i in range(2):
+        eng.submit(Request(rid=i, prompt=[3 + i, 4], max_new=2))
+    assert len(eng.run()) == 2
+    assert torch.equal(eng.cache["xk"], xk) and torch.equal(
+        eng.cache["xv"], xv)
+
+
+def test_engine_checks_the_ctx():
+    from _torch_families import configs
+
+    for fam, ctx in (("vlm", None), ("dense", torch.zeros(2, 6, 32))):
+        _, cfg = configs(fam)
+        api = get_model(cfg)
+        with pytest.raises(ValueError, match="ctx"):
+            Engine(api, api.init(0, device="cpu"), n_slots=2, ctx=ctx,
+                   device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "grok-1-314b", "xlstm-1.3b",
+                                  "zamba2-2.7b", "llama-3.2-vision-11b",
+                                  "whisper-large-v3"])
+def test_launch_serves_every_family(arch, capsys):
+    done = launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--requests", "2", "--slots", "2"])
+    assert sorted(r.rid for r in done) == [0, 1]
+    assert all(len(r.out) == 8 for r in done)
+    assert "2 requests, 16 tokens" in capsys.readouterr().out
