@@ -15,15 +15,18 @@ Phases, each printing one JSON line:
    version on the card: ``frfcfs_select`` and ``decode_packed`` bit for
    bit over the main path's shapes, then ``frfcfs_select`` timed at the
    Mess sweep's dense batch and ``decode_packed`` at the trace route's
-   window batch (and at the sweep's); ``flash_attention`` at the shapes of ``tests/test_kernels.py``
+   former window batch (and at the sweep's); ``flash_attention`` at the
+   shapes of ``tests/test_kernels.py``
    plus a decode (Sq = 1) and a ragged query tile at D = 128 and 64, in
    fp32 (within 2e-6) and bf16 (within 2e-2), each check on the route
-   that ``route`` gives it (bf16 at D 64 or 128: the Hopper kernel; the
-   rest: the CUDA-core kernel), at a causal shape with Sq > Sk (rows that
-   see no key must be exactly 0) and at the LM path's shape, where both
+   that ``route`` gives it (bf16 at D 64, 80 or 128: the Hopper kernel;
+   the rest: the CUDA-core kernel), at a causal shape with Sq > Sk (rows
+   that see no key must be exactly 0), at the LM path's shape, where both
    routes are timed beside ``scaled_dot_product_attention`` as a
    yardstick (the Hopper route in bf16, the CUDA-core route in fp32 and
-   on the same bf16 inputs).
+   on the same bf16 inputs), and at zamba2's shared block (B 2, H 32, S
+   2048, D 80, causal), the Hopper route's D 80 instance timed the same
+   way.
 3. **inject** — the two routes of the bound phase and interface hand-off
    on the card, window by window on the same state (4 windows, four
    points, the queues partly full after the first): ``window_inject``
@@ -34,7 +37,14 @@ Phases, each printing one JSON line:
    05 and 07 (Skylake XOR, without and with prefetch) on ddr4_2666 (one
    and two sockets, interleaved and partitioned), stages 07 and 01 on
    ddr5_4800 (xor_fold and simple) and 07 on hbm2e (xor_fold; one and
-   two sockets).
+   two sockets).  Then the trace instance, ``window_inject_trace``,
+   against the eager ``bound`` -> ``inject_queue`` -> ``update`` on the
+   same card state and against the eager route on the CPU from that
+   state, window by window (4 windows), bit for bit in the queue, every
+   ``TraceState`` field, ``injected`` and ``l_ir_cycles``: the six apps
+   (a ``Trace`` batch) and the three mixes (a ``TraceMix`` batch) on
+   ddr4_2666, ddr5_4800 and hbm2e, one and two sockets, all three
+   decodes.
 4. **weave** — the two weave routes on the card, window by window on
    the same injected state (3 windows, paces 4 and 48): ``weave_window``
    (one launch per window) against the stepwise loop (``dram.tick`` /
@@ -64,34 +74,37 @@ Phases, each printing one JSON line:
    under ``torch.profiler`` (a ``profile`` line: the two kernels' device
    time, the device's idle share), ``weave_window`` and
    ``window_inject`` timed at the sweep's two batches beside their plain
-   routes on the same state (``weave_timing``, ``inject_timing``), and a
-   ``main_path_weave`` line: the sweep's wall, the weave phase's device
-   time, µs per step.
+   routes on the same state (``weave_timing``, ``inject_timing``),
+   ``window_inject_trace`` at the replay ladder's batch
+   (``trace_inject_timing``), and a ``main_path_weave`` line: the
+   sweep's wall, the weave phase's device time, µs per step.
 6. **parity** — one stage-07 ``run_point`` on the card (the fused
    route) and on the CPU (the stepwise route) through the same port:
    equal integers, float views within 1e-6.
-7. **replay** — the application perspective on the trace route (the
-   eager bound phase and injection on card tensors, whose Skylake decode
-   is one ``decode_packed`` launch, and one ``weave_window`` launch per
-   window batch): the six apps (``n=2048``, 4 windows) at stages 01, 07
+7. **replay** — the application perspective on the trace route (one
+   ``window_inject_trace`` and one ``weave_window`` launch per window
+   batch): the six apps (``n=2048``, 4 windows) at stages 01, 07
    and 10 and the three mixes of ``app_validation.MIXES`` on two sockets
    at stage 10, card against CPU (counts, cursors and runtimes equal,
    float views within 1e-6); then the validation ladder at its full
    setting (``app_validation.run_preset("ddr4_2666", full=True)``: 6
    apps x 8192 accesses, 96 windows, five stages) with each stage's
-   wall, host ms per window batch, runtimes, MAPE, dense re-runs and
-   launches (``weave_window`` >= 96 and ``window_inject`` 0 at every
-   stage, ``decode_packed`` >= 96 at 07 and 10 and 0 at 01, 03, 04),
-   the multiprogrammed ladder (``run_mixes``, FAST), and stage 10 once
+   wall, host ms per window batch, runtimes, MAPE (within 5e-5 of the
+   JAX package's CPU values), dense re-runs and launches
+   (``weave_window`` >= 96 and as many ``window_inject_trace`` at every
+   stage, ``window_inject`` and ``decode_packed`` 0), the
+   multiprogrammed ladder (``run_mixes``, FAST), and stage 10 once
    more under ``torch.profiler`` (device time by kernel, idle share).
    The ladder runs with telemetry, as the reference's does (the
    telemetry instance of ``weave_window``, the ``if_p50/95/99`` per app).
-   The ladder's launches give ``decode_packed``'s row.
+   The ladder's launches give ``window_inject_trace``'s and
+   ``decode_packed``'s rows.
 8. **perspectives** — the port's ``bench.perspectives`` ladder (stages
    01-10, one STREAM + GUPS mix, telemetry on) at ``SMOKE`` on the card,
    every ladder value held within 1e-9 of the reference's
    ``reports/benchmarks/perspectives.json`` (read, never written) and its
-   summaries equal; 240 telemetry launches, and no other weave instance;
+   summaries equal; 240 telemetry launches, and no other weave instance,
+   240 ``window_inject_trace`` launches and no ``decode_packed``;
    stages 01 and 10 at 4 windows on the card against the CPU (planes and
    summaries equal); then ``FULL`` (96 windows, n = 2^17), the paper's
    setting: wall, host ms per window batch, the ladder.  The SMOKE
@@ -124,8 +137,8 @@ Phases, each printing one JSON line:
    (the vision model with 2 x 1600 patches), whisper-large-v3 over 2 x
    448 decoder tokens and 2 x 1500 frames.  Per family: (a) three timed
    forwards (median tokens/s, flash launches by route asserted: one per
-   attention layer, the Hopper route at D 64/128, the CUDA-core route at
-   zamba2's D 80; peak memory) and one profiled (idle share); one more
+   attention layer, all on the Hopper route, zamba2's D 80 included;
+   peak memory) and one profiled (idle share); one more
    forward with every flash call held against the plain version on its
    inputs (within 2e-2); (b) the decode check, grok-1 by prefill of
    2047 tokens + one decode step (at the capacity that drops no token;
@@ -149,9 +162,9 @@ Phases, each printing one JSON line:
    of the tokens that kept the same experts within 5e-4 relative L2;
    then ``flash_attention`` at the families' shapes (whisper's encoder,
    decoder self- and cross-attention, the vision self- and
-   cross-attention, the cross-attention at Sq = 1 too, zamba2's D 80)
-   against its plain version, timed beside its bound and
-   ``scaled_dot_product_attention``.
+   cross-attention, the cross-attention at Sq = 1 too, zamba2's D 80 on
+   the Hopper route) against its plain version, timed beside its bound
+   and ``scaled_dot_product_attention``.
 12. **serving** — LLM-serving traffic (``bench.serving``, stage 10 with
    telemetry, the event engine under a budget of a whole window's
    ticks): (a) the SMOKE grid through ``serving.main`` on the card, every
@@ -163,8 +176,8 @@ Phases, each printing one JSON line:
    presets, one and two sockets, smoke configs), dense == covering-budget
    event on the card in every view and window output, no ``weave_sat``;
    (c) the FULL grid (4 models x 3 presets x 3 rates, 24 requests, 12
-   windows): wall per preset and per cell, 12 telemetry launches a
-   preset, ``decode_packed`` x 12 on ddr4_2666 and 0 elsewhere; (d) the
+   windows): wall per preset and per cell, 12 telemetry and 12
+   ``window_inject_trace`` launches a preset, no ``decode_packed``; (d) the
    FULL ddr4_2666 batch (12 scenarios) in 2 windows on the card and on
    the CPU, equal bit for bit in every view, count and ``tele_*`` plane;
    then the ddr4_2666 replay once more under ``torch.profiler``.
@@ -218,6 +231,9 @@ FLASH_SHAPES = [(2, 4, 4, 128, 128, 64, False), (2, 4, 2, 128, 128, 64, True),
                 (1, 2, 2, 1, 300, 80, True), (1, 4, 2, 257, 512, 32, True),
                 (1, 2, 2, 1, 300, 128, True), (1, 4, 2, 257, 512, 64, True)]
 FLASH_EMPTY_ROWS = (1, 4, 2, 96, 40, 64, True)    # 56 rows see no key
+# zamba2-2.7b's shared attention block (Hq = Hkv = 32, D = 80) at its
+# 2 x 2048-token forward: the Hopper route's D 80 instance
+FLASH_D80 = (2, 32, 32, 2048, 2048, 80, True)
 FLASH_TOL = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
 LM_ARCH, LM_B, LM_S = "tinyllama-1.1b", 2, 2048
 LM_FORWARDS = 5                # timed forwards; launches are per forward
@@ -307,6 +323,18 @@ INJECT_CASES = [("01-baseline", "ddr4_2666", 1, "interleaved"),   # simple
                 ("07-prefetch", "hbm2e", 2, "partitioned")]
 INJECT_WINDOWS = 4
 INJECT_POINTS = ((1, 0), (12, 16), (48, 32), (64, 48))    # (pace, wr_num)
+# the trace instance: (stage, preset, sockets, channel ownership,
+# container), each INJECT_WINDOWS windows of the six apps (a Trace
+# batch) or of app_validation's three mixes (a TraceMix batch) through
+# the instance, the eager route on the card and the eager route on the
+# CPU, from the same state
+TRACE_INJECT_CASES = [
+    ("07-prefetch", "ddr4_2666", 1, "interleaved", "trace"),   # skylake
+    ("10-delay-buffer", "ddr4_2666", 2, "partitioned", "mix"),
+    ("01-baseline", "ddr5_4800", 1, "interleaved", "trace"),   # simple
+    ("07-prefetch", "ddr5_4800", 2, "interleaved", "mix"),     # xor_fold
+    ("10-delay-buffer", "hbm2e", 1, "interleaved", "mix"),
+    ("07-prefetch", "hbm2e", 2, "partitioned", "trace")]
 
 # replay phase: the six apps through the card's trace route and the CPU's
 # eager route, then the validation ladder at its full setting
@@ -318,9 +346,13 @@ REPLAY_EXACT = ("progress", "runtime_windows", "done", "n_rd", "n_wr",
                 "injected", "weave_events", "weave_sat", "progress_final",
                 "core_runtime_windows", "core_done", "app_runtime_windows",
                 "app_done")
-# stages of the ladder whose decode is Skylake XOR on ddr4_2666
-LADDER_XOR_STAGES = ("07-prefetch", "10-delay-buffer")
 LADDER_PROFILED_STAGE = "10-delay-buffer"
+# the FULL ladder's MAPE (%) per stage, the JAX package's CPU run of
+# ``benchmarks/app_validation.py --full`` (PERF.md), to its 4 decimals
+LADDER_MAPE_REF = {"01-baseline": 36.1302, "03-ps-clock": 32.1636,
+                   "04-model-correct": 12.7073, "07-prefetch": 18.0374,
+                   "10-delay-buffer": 24.9727}
+LADDER_MAPE_ATOL = 5e-5
 
 
 def emit(obj):
@@ -429,19 +461,21 @@ def check_flash(dev):
     """flash_attention against its plain version on the card, through
     the wrapper, each check on the route the rule gives it; then, at the
     LM path's shape, each route's device time, eager call, plain
-    version, bound and the library's fused attention."""
+    version, bound and the library's fused attention, and the same for
+    the Hopper route's D 80 instance at zamba2's shape (with the
+    CUDA-core kernel on the same inputs, its route before)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      mha_plain, route)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [(s, dt) for s in FLASH_SHAPES + [FLASH_EMPTY_ROWS]
              for dt in (torch.float32, torch.bfloat16)]
-    cases.append((FLASH_SLICE, torch.bfloat16))
+    cases += [(FLASH_SLICE, torch.bfloat16), (FLASH_D80, torch.bfloat16)]
     checked, failed = [], []
     worst = {}                              # per route and dtype
     for shape, dt in cases:
         q, k, v = flash_inputs(gen, shape, dt, dev,
-                               model_layout=shape == FLASH_SLICE)
+                               model_layout=shape in (FLASH_SLICE, FLASH_D80))
         before = dict(flash_attention.launches_by_route)
         got = flash_attention(q, k, v, causal=shape[-1]).float()
         took = [r for r, n in flash_attention.launches_by_route.items()
@@ -458,19 +492,27 @@ def check_flash(dev):
         checked.append({"shape": list(shape), "dtype": str(dt)[6:],
                         "route": took, "max_abs_err": err, "tol": tol,
                         "ok": ok, "empty_rows": empty})
-        for r in took:
-            key = f"{r}/{str(dt)[6:]}"
+        for r in took:     # the Hopper route's D 80 instance apart
+            key = (f"{r}{'_d80' if shape[5] == 80 and r == 'sm90_bf16' else ''}"
+                   f"/{str(dt)[6:]}")
             worst[key] = max(worst.get(key, 0.0), err)
         if not ok:
             failed.append(checked[-1])
 
-    b, hq, _, s, _, d, _ = FLASH_SLICE
-    flops = 4 * b * hq * s * s * d / 2      # QK^T and PV, causal half
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timing = {}
-    for name, dt, peak in (("sm90_bf16", torch.bfloat16, BF16_FLOP_PER_S),
-                           ("cuda_core", torch.float32, FP32_FLOP_PER_S)):
-        q, k, v = flash_inputs(gen, FLASH_SLICE, dt, dev, True)
+    for name, shape, dt, peak in (
+            ("sm90_bf16", FLASH_SLICE, torch.bfloat16, BF16_FLOP_PER_S),
+            ("cuda_core", FLASH_SLICE, torch.float32, FP32_FLOP_PER_S),
+            ("sm90_bf16_d80", FLASH_D80, torch.bfloat16, BF16_FLOP_PER_S)):
+        b, hq, hkv, s, _, d, _ = shape
+        if name == "sm90_bf16_d80":     # the visible pairs, exactly
+            flops = 4 * b * hq * (s * (s + 1) // 2) * d
+            formula = "4*B*Hq*S(S+1)/2*D FLOP"
+        else:                           # QK^T and PV, causal half
+            flops = 4 * b * hq * s * s * d / 2
+            formula = "4*B*Hq*S^2*D/2 FLOP"
+        q, k, v = flash_inputs(gen, shape, dt, dev, True)
         qc, kc, vc = (x.contiguous() for x in (q, k, v))
         io_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, q))
         timing[name] = dict(
@@ -480,12 +522,12 @@ def check_flash(dev):
             plain_ms=time_ms(lambda: mha_plain(q, k, v, causal=True), 3),
             library_ms=device_ms(lambda: sdpa(qc, kc, vc, is_causal=True,
                                               enable_gqa=True), 20),
-            flops=flops, bound_formula=f"4*B*Hq*S^2*D/2 FLOP / {peak:.3g} "
-                                       f"FLOP/s",
+            flops=flops, bound_formula=f"{formula} / {peak:.3g} FLOP/s",
             bound_ms=flops / peak * 1e3,
             bytes_bound_ms=io_bytes / MEM_BYTES_PER_S * 1e3,
-            shape=f"B=2 Hq=32 Hkv=4 S=2048 D=64 {str(dt)[6:]} causal")
-        if name == "sm90_bf16":
+            shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} {str(dt)[6:]} "
+                  f"causal")
+        if name != "cuda_core":
             # the CUDA-core kernel on the same bf16 inputs (their route
             # before the Hopper kernel), for the speed-up within this run
             timing[name]["cuda_core_same_inputs_ms"] = device_ms(
@@ -655,6 +697,105 @@ def inject_phase(dev):
         raise AssertionError(f"inject phase launches {counts}: expected "
                              f"{n_windows} window_inject, decode_packed > 0")
     return worst, counts["decode_packed"]
+
+
+def trace_batch(kind, sockets):
+    """The replay phase's inputs as a trace container on the CPU: the six
+    apps (``n=REPLAY_N``) as a `Trace` batch, or app_validation's three
+    mixes over ``sockets`` sockets as a `TraceMix` batch."""
+    from repro_torch.bench.app_validation import MIXES
+    from repro_torch.traces import (assign_traces, make_suite, split_cores,
+                                    stack_mixes, stack_traces)
+
+    if kind == "trace":
+        return stack_traces(make_suite(n=REPLAY_N)[1])
+    return stack_mixes([assign_traces(make_suite(n=REPLAY_N, names=k)[1],
+                                      split_cores(len(k), 24 * sockets))
+                        for _, k in MIXES])
+
+
+def trace_inject_phase(dev):
+    """The trace instance of `window_inject` against the eager route, on
+    the same card state window by window, and against the eager route on
+    the CPU from the same state moved there: bit for bit in the queue,
+    every `TraceState` field, ``injected`` and ``l_ir_cycles``.  The
+    window loop goes on through `_window_step` (the card's routes).
+    Returns the largest difference and the eager route's
+    `decode_packed` launches."""
+    from repro_torch import kernels
+    from repro_torch.core import get_stage, platform
+    from repro_torch.traces import TraceFrontend, to
+
+    kernels.reset_launch_counts()
+    rows, failed, worst = [], [], 0.0
+    fused_s = eager_s = 0.0
+    with torch.inference_mode():
+        for case in TRACE_INJECT_CASES:
+            stage, preset, sockets, owner, kind = case
+            cfg = get_stage(stage, preset=preset, n_sockets=sockets,
+                            socket_channels=owner, windows=INJECT_WINDOWS,
+                            warmup=0)
+            clock, wcfg = cfg.clock(), cfg.workload_config()
+            data = trace_batch(kind, sockets)
+            on_card = TraceFrontend(to(data, dev), wcfg)
+            on_cpu = TraceFrontend(data, wcfg)
+            carry = platform._init_carry(cfg, on_card, on_card.batch, dev)
+            same_all, cpu_same, injected, taken = True, True, 0, 0
+            for w in range(cfg.windows):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fused = platform._bound_inject_fused_trace(
+                    cfg, clock, wcfg, on_card, carry, w)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eager = platform._bound_inject_eager(cfg, clock, wcfg,
+                                                     on_card, carry, w)
+                torch.cuda.synchronize()
+                fused_s += t1 - t0
+                eager_s += time.perf_counter() - t1
+                cpu = platform._bound_inject_eager(
+                    cfg, clock, wcfg, on_cpu,
+                    tuple(move_state(x, "cpu") for x in carry[:5]), w)
+                diff, same = max_diff(fused, eager)
+                diff_c, same_c = max_diff(fused, cpu)
+                worst = max(worst, diff, diff_c)
+                same_all &= same
+                cpu_same &= same_c
+                injected += int(fused[2].sum())
+                taken += int((fused[1].pos - carry[2].pos).sum())
+                carry, _ = platform._window_step(cfg, clock, wcfg, on_card,
+                                                 carry, w)
+            rows.append({"case": list(case), "windows": cfg.windows,
+                         "points": on_card.batch,
+                         "q": carry[0].valid.shape[-1],
+                         "injected": injected, "accesses_taken": taken,
+                         "bit_identical": same_all,
+                         "bit_identical_to_cpu": cpu_same})
+            if not (same_all and cpu_same and injected and taken):
+                failed.append(case)
+        counts = kernels.launch_counts()
+    emit({"phase": "inject", "part": "trace", "cases": rows,
+          "windows": INJECT_WINDOWS, "max_abs_diff": worst,
+          "launches": counts, "fused_s": fused_s, "eager_s": eager_s})
+    n_windows = 2 * len(TRACE_INJECT_CASES) * INJECT_WINDOWS
+    if failed:
+        raise AssertionError(f"window_inject_trace and the eager route "
+                             f"differ (card or CPU), or nothing was "
+                             f"injected: {failed}")
+    if (counts["window_inject_trace"] != n_windows
+            or counts["window_inject"] or counts["decode_packed"] <= 0):
+        raise AssertionError(f"trace inject launches {counts}: expected "
+                             f"{n_windows} window_inject_trace, no "
+                             f"window_inject, decode_packed > 0 (the "
+                             f"eager route's Skylake decode)")
+    return worst, counts["decode_packed"]
+
+
+def move_state(x, where):
+    """A carry item (a tensor or a NamedTuple of tensors) on ``where``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(where)
+    return type(x)(*(t.to(where) for t in x))
 
 
 def weave_case(case, dev, windows=WEAVE_WINDOWS):
@@ -1054,9 +1195,12 @@ def perspectives_phase(dev):
                              f"reference's file: {bad[:10]}, summaries "
                              f"equal {summaries_equal}")
     if (launches["by_instance"]["telemetry"] != n_batches
-            or launches["window_inject"] or launches["frfcfs_select"]):
+            or launches["window_inject_trace"] != n_batches
+            or launches["window_inject"] or launches["frfcfs_select"]
+            or launches["decode_packed"]):
         raise AssertionError(f"perspectives launches {launches}: expected "
-                             f"{n_batches} telemetry weave_window")
+                             f"{n_batches} telemetry weave_window and "
+                             f"window_inject_trace, no decode_packed")
 
     # card vs CPU at two stages, 4 windows
     cpu_rows = []
@@ -1098,10 +1242,16 @@ def perspectives_phase(dev):
           "exceptions": full["exceptions"],
           "launches": dict(kernels.launch_counts(), by_instance=dict(
               weave_window.launches_by_instance))})
+    full_launches = kernels.launch_counts()
     for r in full["ladder"]:
         if not all(np.isfinite(r[k]) for k in ("rho_sim_app",
                                                 "sim_lat_ns_mean")):
             raise AssertionError(f"perspectives FULL: {r}")
+    if (full_launches["window_inject_trace"] != n_full
+            or full_launches["decode_packed"]):
+        raise AssertionError(f"perspectives FULL launches {full_launches}: "
+                             f"expected {n_full} window_inject_trace, no "
+                             f"decode_packed")
     return launches, wall
 
 
@@ -1233,6 +1383,76 @@ def inject_timing(cfg, dev, w=8):
     if bad:
         raise AssertionError(f"window_inject and the eager route differ at "
                              f"the main path's batch: {bad}")
+    return out
+
+
+def trace_inject_timing(dev, w=8):
+    """`window_inject_trace` at the replay ladder's batch (the six apps
+    at ``app_validation.FULL``, stage 10 with telemetry, window ``w``):
+    the kernel's device time (its C entry point on prepared arguments,
+    in a CUDA graph), one call of the card's route
+    (`_bound_inject_fused_trace`), the eager route on the same state
+    (its plain version), one whole `_window_step`, their agreement, and
+    the bytes bound: the queue planes and the state read and written
+    once, and of the trace arrays the entries this window's cursors
+    read (a `Trace` row is shared by the cores: each entry once)."""
+    from repro_torch.bench import app_validation as av
+    from repro_torch.core import addrmap, get_stage, platform
+    from repro_torch.kernels.window_inject import ops as iops
+    from repro_torch.traces import (TraceFrontend, make_suite, stack_traces,
+                                    to)
+
+    cfg = get_stage(LADDER_PROFILED_STAGE, windows=av.FULL["windows"],
+                    warmup=av.FULL["warmup"], telemetry=True)
+    clock, wcfg = cfg.clock(), cfg.workload_config()
+    frontend = TraceFrontend(to(stack_traces(make_suite(n=av.FULL["n"])[1]),
+                                dev), wcfg)
+    with torch.inference_mode():
+        carry = platform._init_carry(cfg, frontend, frontend.batch, dev)
+        for i in range(w):
+            carry, _ = platform._window_step(cfg, clock, wcfg, frontend,
+                                             carry, i)
+        args = (cfg, clock, wcfg, frontend, carry, w)
+        want = platform._bound_inject_eager(*args)
+        got = platform._bound_inject_fused_trace(*args)
+        diff, same = max_diff(got, want)
+        queue, _, fstate, l_ir, lat_est = carry[:5]
+        cpu = cfg.platform.cpu
+        c_args, res = iops.prepare_trace(
+            queue, fstate, frontend.trace, l_ir, lat_est, w=w, wcfg=wcfg,
+            clock=clock,
+            mapping=addrmap.decode_route(wcfg.mapping, wcfg.dram),
+            window_cycles=cpu.window_cycles,
+            window_ps=cpu.window_cycles * cpu.cpu_ps_per_clk)
+        ms = device_ms(lambda: iops.launch_trace(
+            c_args, torch.cuda.current_stream().cuda_stream), 20)
+        B, C, Q = queue.valid.shape
+        L = frontend.trace.n_slots
+        pos = torch.clamp(fstate.pos, max=L - 64).long().cpu()
+        read = sum(len(set((pos[b, :, None] + torch.arange(64)).flatten()
+                           .tolist())) for b in range(B))
+        reads = sum(x.numel() * x.element_size() for x in (
+            *fstate, l_ir, lat_est, frontend.trace.length,
+            frontend.trace.footprint_lines))
+        writes = sum(res[k].numel() * 4 for k in ("core", "point"))
+        io_bytes = 2 * 7 * B * C * Q * 4 + reads + writes + 3 * read * 4
+        out = dict(
+            ms=ms, call_ms=time_ms(
+                lambda: platform._bound_inject_fused_trace(*args), 50),
+            plain_ms=time_ms(lambda: platform._bound_inject_eager(*args),
+                             20),
+            window_step_ms=time_ms(lambda: platform._window_step(
+                cfg, clock, wcfg, frontend, carry, w), 20),
+            bytes=io_bytes, bound_ms=io_bytes / MEM_BYTES_PER_S * 1e3,
+            points=B, trace_entries_read=read, max_abs_diff=diff,
+            bit_identical=same,
+            shape=f"B={B} apps x {wcfg.n_cores} cores x 64 accesses "
+                  f"(L={L}), {C} channels x {Q} slots")
+    emit({"phase": "inject_timing", "instance": "trace", "stage": cfg.name,
+          "window": w, "timing": out})
+    if not same:
+        raise AssertionError("window_inject_trace and the eager route "
+                             "differ at the ladder's batch")
     return out
 
 
@@ -1396,8 +1616,9 @@ def compare_replay(card, cpu):
 
 
 def replay_parity(dev):
-    """The trace route on the card against the CPU's eager route: the six
-    apps at three stages, then the three mixes on two sockets."""
+    """The trace route on the card (`window_inject_trace`, `weave_window`)
+    against the CPU's eager and stepwise routes: the six apps at three
+    stages, then the three mixes on two sockets."""
     from repro_torch import kernels
     from repro_torch.bench.app_validation import MIXES
     from repro_torch.core import get_stage
@@ -1435,14 +1656,13 @@ def replay_parity(dev):
                      "dense_reruns": int((card["weave_sat"] > 0).sum()),
                      "launches": launches, "card_s": card_s, "cpu_s": cpu_s,
                      "injected": card["injected"].tolist()})
-        xor = cfg.mapping == "skylake_xor"
         if (launches["weave_window"] != batches
-                or launches["window_inject"] != 0
-                or launches["decode_packed"] != (batches if xor else 0)):
+                or launches["window_inject_trace"] != batches
+                or launches["window_inject"] or launches["decode_packed"]):
             raise AssertionError(f"replay {stage}: launches {launches}, "
-                                 f"expected {batches} weave_window, "
-                                 f"{batches if xor else 0} decode_packed, "
-                                 f"0 window_inject")
+                                 f"expected {batches} weave_window and "
+                                 f"window_inject_trace, 0 decode_packed "
+                                 f"and window_inject")
     emit({"phase": "replay", "part": "card_vs_cpu", "apps": list(names),
           "n": REPLAY_N, **knobs, "cases": rows, "max_rel_err": worst,
           "rtol": RTOL})
@@ -1454,13 +1674,13 @@ def replay_parity(dev):
 
 def profile_replay(cfg, batch, unprofiled_wall_s):
     """One stage of the ladder once more under torch.profiler (the weave
-    kernel and the trace route's decode)."""
+    kernel and the trace instance of the interface kernel)."""
     from repro_torch.traces import replay_suite
 
     return profile_run(
         {"phase": "replay", "part": "profile", "stage": cfg.name},
         lambda: replay_suite(cfg, batch), unprofiled_wall_s,
-        {"weave": "weave_window", "decode": "decode_packed"})
+        {"weave": "weave_window", "inject": "window_inject_kernel"})
 
 
 def ladder(dev):
@@ -1499,11 +1719,14 @@ def ladder(dev):
                                            i).tolist()
                 for i, app in enumerate(out["apps"])},
             "launches": n})
-        xor = stage in LADDER_XOR_STAGES
         if (n["weave_window"] < av.FULL["windows"] or n["window_inject"]
-                or (n["decode_packed"] < av.FULL["windows"] if xor
-                    else n["decode_packed"])):
+                or n["window_inject_trace"] != n["weave_window"]
+                or n["decode_packed"]):
             bad.append((stage, n))
+        if not abs(out["mape_pct"] - LADDER_MAPE_REF[stage]) \
+                <= LADDER_MAPE_ATOL:
+            bad.append((stage, "mape_pct", out["mape_pct"],
+                        LADDER_MAPE_REF[stage]))
         for k in ("runtime_ms", "sim_bw_gbs", "if_lat_ns"):
             if not np.isfinite(out[k]).all() or (out[k] <= 0).any():
                 bad.append((stage, k, out[k].tolist()))
@@ -1516,12 +1739,14 @@ def ladder(dev):
             bad.append((stage, "weave_window instances", n))
     emit({"phase": "replay", "part": "ladder", "preset": "ddr4_2666",
           "knobs": av.FULL, "apps": list(results[av.STAGES[0]]["apps"]),
-          "wall_s": wall, "stages": stages, "launches": launches})
+          "wall_s": wall, "stages": stages, "launches": launches,
+          "mape_reference_pct": LADDER_MAPE_REF})
     if bad:
         raise AssertionError(f"ladder: launches or results out of rule: "
-                             f"{bad} (expected weave_window >= 96, "
-                             f"window_inject 0, decode_packed >= 96 at "
-                             f"{LADDER_XOR_STAGES} and 0 elsewhere)")
+                             f"{bad} (expected weave_window >= 96 and as "
+                             f"many window_inject_trace, window_inject "
+                             f"and decode_packed 0, the MAPE within "
+                             f"{LADDER_MAPE_ATOL} of the reference's)")
 
     t0 = time.perf_counter()
     mixes = av.run_mixes("ddr4_2666", full=False)
@@ -1730,8 +1955,10 @@ def family_config(arch, n_layers=None, **kw):
 
 def family_flash_routes(cfg):
     """Flash launches a forward takes, by route: one per attention layer
-    where the flash kernel is on; bf16 at D 64/128 on the Hopper route,
-    D 80 on the CUDA-core one."""
+    where the flash kernel is on; bf16 at D 64, 80 (zamba2) and 128 on
+    the Hopper route, fp32 on the CUDA-core one."""
+    from repro_torch.kernels.flash_attention.ops import SM90_HEAD_DIMS
+
     if not cfg.use_flash_kernel:
         n = 0
     elif cfg.family == "hybrid":
@@ -1742,7 +1969,7 @@ def family_flash_routes(cfg):
         n = cfg.n_layers
     else:
         n = 0
-    hopper = cfg.dtype == torch.bfloat16 and cfg.head_dim in (64, 128)
+    hopper = cfg.dtype == torch.bfloat16 and cfg.head_dim in SM90_HEAD_DIMS
     return {"sm90_bf16": n if hopper else 0,
             "cuda_core": 0 if hopper else n}
 
@@ -2209,11 +2436,14 @@ def lm_families(dev):
     """The five other families on the serving path (phase 11b): each at
     full width in bf16, then card vs CPU in fp32, then flash_attention
     at their shapes.  Returns the flash launches by route of the
-    families' forwards and Engine runs, and the flash rows."""
+    families' forwards and Engine runs (and of each family's forward),
+    and the flash rows."""
     totals = {"forward": dict.fromkeys(("sm90_bf16", "cuda_core"), 0),
-              "engine": dict.fromkeys(("sm90_bf16", "cuda_core"), 0)}
+              "engine": dict.fromkeys(("sm90_bf16", "cuda_core"), 0),
+              "forward_by_arch": {}}
     for arch, n_layers, b, s in FAMILY_RUNS:
         fwd, eng = family_run(dev, arch, n_layers, b, s)
+        totals["forward_by_arch"][arch] = dict(fwd)
         for r in fwd:
             totals["forward"][r] += fwd[r]
             totals["engine"][r] += eng[r]
@@ -2221,9 +2451,12 @@ def lm_families(dev):
     for arch, _, _, _ in FAMILY_RUNS:
         family_parity(dev, arch)
         torch.cuda.empty_cache()
-    if not all(totals["forward"].values()):
-        raise AssertionError(f"the families' forwards did not launch both "
-                             f"flash routes: {totals['forward']}")
+    # bf16 at every head dim of the families (zamba2's 80 too) is on the
+    # Hopper route; the CUDA-core route runs their fp32 parity forwards
+    if not totals["forward"]["sm90_bf16"] or totals["forward"]["cuda_core"]:
+        raise AssertionError(f"the families' bf16 forwards launched flash "
+                             f"{totals['forward']}: expected the Hopper "
+                             f"route only")
     return totals, family_flash(dev)
 
 
@@ -2245,7 +2478,8 @@ SERVE_GOLDEN_SCENARIO = dict(rate=0.5, n_requests=10, n_slots=3)
 SERVE_GOLDEN_WINDOWS = dict(windows=6, warmup=2)
 SERVE_PROFILED_PRESET = "ddr4_2666"
 # the FULL serving batch (12 scenarios) on ddr4_2666, card vs CPU, in a
-# few windows: the telemetry instance and decode_packed at the FULL shapes
+# few windows: the telemetry instance and window_inject_trace (its Skylake
+# decode) at the FULL shapes
 SERVE_CPU_PRESET, SERVE_CPU_KNOBS = "ddr4_2666", dict(windows=2, warmup=1)
 # the figures' card-vs-CPU grid: stage 10 on the presets whose sweeps had
 # never run on the card, one and two sockets
@@ -2262,19 +2496,19 @@ SWEEP_VIEWS = ("sim_bw", "sim_lat", "if_bw", "if_lat", "app_bw", "app_lat",
 
 
 def check_serve_launches(cells, windows):
-    """Each preset's replay: one telemetry `weave_window` launch per window
-    (no dense re-run), `decode_packed` once a window on ddr4_2666 (the
-    trace route's Skylake decode) and never elsewhere, no `window_inject`."""
+    """Each preset's replay: one telemetry `weave_window` launch and one
+    `window_inject_trace` launch per window (no dense re-run), no
+    `decode_packed`, no `window_inject`."""
     for c in cells:
         n = c["launches"]
-        xor = c["preset"] == "ddr4_2666"
         if (n["weave_window.telemetry"] != windows
                 or n["weave_window"] != windows
-                or n["decode_packed"] != (windows if xor else 0)
-                or n["window_inject"] or n["frfcfs_select"]):
+                or n["window_inject_trace"] != windows
+                or n["decode_packed"] or n["window_inject"]
+                or n["frfcfs_select"]):
             raise AssertionError(f"serving {c['preset']}: launches {n}, "
                                  f"expected {windows} telemetry weave_window"
-                                 f" and {windows if xor else 0} "
+                                 f" and window_inject_trace, no "
                                  f"decode_packed")
 
 
@@ -2454,7 +2688,8 @@ def serving_phase(dev):
                         "preset": SERVE_PROFILED_PRESET,
                         "unprofiled_wall_s": unprofiled},
                        lambda: serving.serve_grid(*grid, **kw), unprofiled,
-                       {"weave": "weave_window", "decode": "decode_packed"})
+                       {"weave": "weave_window",
+                        "inject": "window_inject_kernel"})
     return {"smoke": smoke_launches, "golden": golden_launches,
             "full": full_launches, "full_wall_s": full_wall,
             "profile": prof, "full_card_vs_cpu": vs_cpu_launches}
@@ -2666,7 +2901,7 @@ def main():
           "flash_sm90_ptxas": report(sm90),
           "weave_window_ptxas": report(weave_log),
           "window_inject_ptxas": report(inject_log),
-          "flash_sm90_smem_bytes": {d: smem(d) for d in (64, 128)}})
+          "flash_sm90_smem_bytes": {d: smem(d) for d in (64, 80, 128)}})
 
     # ---- 2. kernels vs their plain versions ----------------------------
     cfg = get_stage("07-prefetch", windows=48, warmup=16)
@@ -2749,6 +2984,8 @@ def main():
 
     # ---- 3. the interface routes against each other ----------------------
     max_err["window_inject"], decode_launches = inject_phase(dev)
+    max_err["window_inject_trace"], trace_decode_launches = \
+        trace_inject_phase(dev)
 
     # ---- 4. the weave routes against each other --------------------------
     max_err["weave_window"], select_launches = weave_phase(dev)
@@ -2806,6 +3043,7 @@ def main():
     prof = profile_sweep(cfg, wall)
     timing["weave_window"] = weave_timing(cfg, dev)
     timing["window_inject"] = inject_timing(cfg, dev)
+    timing["window_inject_trace"] = trace_inject_timing(dev)
     weave_dev_s = prof.get("weave_device_s")
     idle_share = prof.get("idle_share_of_unprofiled_wall")
     emit({"phase": "main_path_weave", "wall_s": wall,
@@ -2872,14 +3110,18 @@ def main():
 
     # ---- the kernel table, the card, the result ---------------------------
     # launches: weave_window / window_inject from the main path's sweep
-    # (weave_window's ladder launches beside them), frfcfs_select from the
-    # weave phase's stepwise route (0 on the main path), decode_packed from
-    # the replay ladder's trace route (its path since the Mess sweep takes
-    # window_inject), flash_attention from the LM path's forward; its row
-    # carries the route the forward takes (sm90_bf16), and both routes
-    # under "routes"
+    # (weave_window's ladder launches beside them), window_inject_trace
+    # and decode_packed from the replay ladder (the trace route's path; 0
+    # decode_packed there since the trace instance), frfcfs_select from
+    # the weave phase's stepwise route (0 on the main path),
+    # flash_attention from the LM path's forward (its row carries the
+    # route the forward takes, sm90_bf16, and both routes under
+    # "routes"), its D 80 instance from zamba2's bf16 forward
     launches["frfcfs_select"] = select_launches
     launches["decode_packed"] = ladder_launches["decode_packed"]
+    launches["window_inject_trace"] = ladder_launches["window_inject_trace"]
+    launches["flash_attention_d80"] = family_launches["forward_by_arch"][
+        "zamba2-2.7b"]["sm90_bf16"]
     # the recording instances' path: the perspectives SMOKE ladder
     launches["weave_window_recording"] = persp_launches[
         "weave_window_recording"]
@@ -2911,6 +3153,10 @@ def main():
                            f"{rec_t['perspectives']['steps']} event steps "
                            f"({rec_t['perspectives']['stage']}, window "
                            f"{rec_t['perspectives']['window']})")
+    flash_d80 = timing["flash_attention"].pop("sm90_bf16_d80")
+    timing["flash_attention_d80"] = flash_d80
+    max_err["flash_attention_d80"] = max_err["flash_attention"].pop(
+        "sm90_bf16_d80/bfloat16")
     inject_t = timing["window_inject"]
     timing["window_inject"] = dict(
         inject_t["dense"], ms_event=inject_t["event"]["ms"],
@@ -2933,11 +3179,20 @@ def main():
                    "src/repro/kernels/addr_decode/kernel.py:57 + "
                    "workload.generate / inject_queue / MessFrontend.update "
                    "src/repro/core/workload.py:210-395"),
+               "window_inject_trace": (
+                   "src/repro_torch/csrc/window_inject.cu",
+                   "src/repro/kernels/addr_decode/kernel.py:57 + "
+                   "TraceFrontend.bound / update "
+                   "src/repro/traces/frontend.py:124-228 + chase_probe / "
+                   "inject_queue src/repro/core/workload.py:184-352"),
                "frfcfs_select": ("src/repro_torch/csrc/bank_timing.cu",
                                  "src/repro/kernels/bank_timing/kernel.py:97"),
                "decode_packed": ("src/repro_torch/csrc/addr_decode.cu",
                                  "src/repro/kernels/addr_decode/kernel.py:57"),
                "flash_attention": (
+                   flash_src["sm90_bf16"],
+                   "src/repro/kernels/flash_attention/kernel.py:89"),
+               "flash_attention_d80": (
                    flash_src["sm90_bf16"],
                    "src/repro/kernels/flash_attention/kernel.py:89")}
     flash_timing, flash_err = timing["flash_attention"], max_err[
@@ -2996,30 +3251,53 @@ def main():
         if name == "frfcfs_select":
             table[-1].update(path="weave phase, stepwise route",
                              main_path_launches=0)
+        if name == "window_inject_trace":
+            table[-1].update(
+                {k: t[k] for k in ("window_step_ms", "trace_entries_read")},
+                path="replay ladder (trace route)",
+                replay_profile_device_s=replay_prof.get("inject_device_s"),
+                replay_profile_launches=replay_prof.get("inject_launches"),
+                replay_card_vs_cpu_max_rel_err=replay_rel,
+                inject_phase_launches=2 * len(TRACE_INJECT_CASES)
+                * INJECT_WINDOWS,
+                perspectives_smoke_launches=persp_launches[
+                    "window_inject_trace"],
+                serving_smoke_launches=serve["smoke"]["window_inject_trace"],
+                serving_full_launches=serve["full"]["window_inject_trace"],
+                serving_profile_device_s=serve["profile"].get(
+                    "inject_device_s"))
         if name == "decode_packed":
             table[-1].update(
-                path="replay, trace route", sweep_launches=0,
+                path="none (the eager route, the plain version of "
+                     "window_inject, on card tensors)", sweep_launches=0,
                 inject_phase_launches=decode_launches,
+                trace_inject_phase_launches=trace_decode_launches,
                 ms_at_sweep_batch=t["ms_at_sweep_batch"],
                 sweep_batch_shape=t["sweep_batch_shape"],
-                replay_profile_device_s=replay_prof.get("decode_device_s"),
-                replay_profile_launches=replay_prof.get("decode_launches"),
-                replay_card_vs_cpu_max_rel_err=replay_rel,
-                serving_full_launches=serve["full"]["decode_packed"],
-                serving_profile_device_s=serve["profile"].get(
-                    "decode_device_s"))
-    table[-1]["lm_families_launches"] = family_launches
-    table[-1]["family_shapes"] = family_flash_rows
-    table[-1]["routes"] = [
-        {"route": r, "source": flash_src[r], "launches": flash_routes[r],
-         "max_abs_err": {k: e for k, e in flash_err.items()
-                         if k.startswith(r)}, "ms": t["ms"],
-         "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
-         "bound_ms": t["bound_ms"], "bound_by": "operations",
-         "library_ms": t["library_ms"], "shape": t["shape"],
-         **({"cuda_core_same_inputs_ms": t["cuda_core_same_inputs_ms"]}
-            if "cuda_core_same_inputs_ms" in t else {})}
-        for r, t in flash_timing.items()]
+                perspectives_smoke_launches=persp_launches["decode_packed"],
+                serving_full_launches=serve["full"]["decode_packed"])
+        if name == "flash_attention":
+            table[-1]["lm_families_launches"] = family_launches
+            table[-1]["family_shapes"] = family_flash_rows
+            table[-1]["routes"] = [
+                {"route": r, "source": flash_src[r],
+                 "launches": flash_routes[r],
+                 "max_abs_err": {k: e for k, e in flash_err.items()
+                                 if k.startswith(r)}, "ms": t["ms"],
+                 "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+                 "bound_ms": t["bound_ms"], "bound_by": "operations",
+                 "library_ms": t["library_ms"], "shape": t["shape"],
+                 **({"cuda_core_same_inputs_ms":
+                     t["cuda_core_same_inputs_ms"]}
+                    if "cuda_core_same_inputs_ms" in t else {})}
+                for r, t in flash_timing.items()]
+        if name == "flash_attention_d80":
+            table[-1].update(
+                path="zamba2-2.7b bf16 forward (its shared block)",
+                flash_route="sm90_bf16",
+                cuda_core_same_inputs_ms=t["cuda_core_same_inputs_ms"],
+                zamba2_forward_routes=family_launches["forward_by_arch"][
+                    "zamba2-2.7b"])
     emit({"kernels": table})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -9,8 +9,9 @@ perspective reports, and rank-correlate them
 view is constant (rho ~ 0); the stage-04 PI correction feeds the weave
 latency back into the bound phase and the correlation jumps toward 1.
 
-On the card every window runs the trace route's bound phase and one
-launch of the recording instance of `weave_window` (telemetry).
+On the card every window runs one launch of `window_inject_trace` (bound
+phase and injection) and one of the recording instance of
+`weave_window` (telemetry).
 
 Artifacts (``reports/torch/``, the port's output directory):
 

@@ -9,8 +9,8 @@ launch of each kernel per window.  The replay runs stage 10 with
 telemetry on the event engine under a budget that covers a whole
 window's ticks (serving traffic is MSHR-hot: the covering-budget
 contract keeps it bit-identical to the dense engine).  On the card each
-window is the trace route's bound phase and one launch of the
-telemetry instance of `weave_window`.
+window is one launch of `window_inject_trace` (bound phase and
+injection) and one of the telemetry instance of `weave_window`.
 
 Reported per cell (the application + interface perspectives):
 

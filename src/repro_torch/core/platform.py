@@ -19,11 +19,11 @@ replaces the reference's ``vmap``).  Steps 1-2 and the weave phase each
 have two routes.  Bound phase and interface (`_inject_route`, by where
 the state lies and the frontend's type): on the card the Mess frontend
 takes one `window_inject` launch (`_bound_inject_fused`) and the trace
-frontend the eager route on card tensors (the trace route, whose
-Skylake decode is one `decode_packed` launch); any other frontend on
-the card raises.  On the CPU every frontend takes the eager
-``bound`` -> ``inject_queue`` -> ``update`` (`_bound_inject_eager`,
-also the kernel's plain version).  Weave (`_weave_route`): on the card
+frontend one launch of its trace instance, `window_inject_trace`
+(`_bound_inject_fused_trace`); any other frontend on the card raises.
+On the CPU every frontend takes the eager ``bound`` ->
+``inject_queue`` -> ``update`` (`_bound_inject_eager`, also the
+kernel's plain version).  Weave (`_weave_route`): on the card
 one `weave_window` launch runs the whole window (`_weave_fused`); on
 the CPU the stepwise loops `_weave_dense` / `_weave_event` run one
 `dram.tick` per step (also that kernel's plain version).
@@ -51,7 +51,8 @@ from repro_torch.core.noc import NocModel, make_noc
 from repro_torch.core.timing import DEFAULT_PLATFORM, PlatformParams
 from repro_torch.core.workload import WorkloadConfig
 from repro_torch.kernels.weave_window import weave_window
-from repro_torch.kernels.window_inject import window_inject
+from repro_torch.kernels.window_inject import (window_inject,
+                                              window_inject_trace)
 
 PI_KEEP = 0.95       # paper: 95% previous estimate
 PI_BLEND = 0.05      # paper: 5% new cycle-accurate average
@@ -317,8 +318,7 @@ def _bound_inject_eager(cfg, clock, wcfg, frontend, carry, w: int):
     """The eager route of the window's bound phase and interface hand-off
     (MSHR closed-loop budget, the frontend's ``bound``, ``inject_queue``,
     ``update``): ``(queue', fstate', injected, l_ir_cycles)``.  The CPU's
-    route, the trace frontend's route on the card, and the
-    `window_inject` kernel's plain version."""
+    route, and the plain version of both `window_inject` instances."""
     queue, _, fstate, l_ir, lat_est = carry[:5]
     cpu = cfg.platform.cpu
     l_ir_cycles = torch.clamp(torch.round(l_ir).to(_I32), min=1)
@@ -349,24 +349,46 @@ def _bound_inject_fused(cfg, clock, wcfg, frontend, carry, w: int):
         window_ps=cpu.window_cycles * cpu.cpu_ps_per_clk)
 
 
+def _trace_frontend_type():
+    # imported here: the traces package imports this module
+    from repro_torch.traces.frontend import TraceFrontend
+    return TraceFrontend
+
+
+def _bound_inject_fused_trace(cfg, clock, wcfg, frontend, carry, w: int):
+    """The trace frontend's route on the card: the same in one launch of
+    `window_inject`'s trace instance, equal bit for bit to
+    `_bound_inject_eager`."""
+    if type(frontend) is not _trace_frontend_type():
+        raise NotImplementedError(
+            f"{type(frontend).__name__} on the card: only the trace "
+            f"frontend has the window_inject_trace kernel")
+    queue, _, fstate, l_ir, lat_est = carry[:5]
+    cpu = cfg.platform.cpu
+    return window_inject_trace(
+        queue, fstate, frontend.trace, l_ir, lat_est, w=w, wcfg=wcfg,
+        clock=clock, mapping=addrmap.decode_route(wcfg.mapping, wcfg.dram),
+        window_cycles=cpu.window_cycles,
+        window_ps=cpu.window_cycles * cpu.cpu_ps_per_clk)
+
+
 def _inject_route(queue, frontend):
     """The route of the bound phase and interface hand-off, by rule: CPU
-    state takes the eager route; card state takes the fused kernel with
-    the Mess frontend and the eager route on card tensors (the trace
-    route) with the trace frontend.  Any other frontend on the card
-    raises: the choice is by type, never a fallback."""
+    state takes the eager route; card state takes the fused kernel's
+    instance of the frontend's type (`window_inject` for the Mess
+    frontend, `window_inject_trace` for the trace frontend).  Any other
+    frontend on the card raises: the choice is by type, never a
+    fallback."""
     if queue.valid.device.type != "cuda":
         return _bound_inject_eager
     if type(frontend) is workload.MessFrontend:
         return _bound_inject_fused
-    # imported here: the traces package imports this module
-    from repro_torch.traces.frontend import TraceFrontend
-    if type(frontend) is TraceFrontend:
-        return _bound_inject_eager
+    if type(frontend) is _trace_frontend_type():
+        return _bound_inject_fused_trace
     raise NotImplementedError(
         f"{type(frontend).__name__} on the card: the card's bound phase "
         f"has a route for MessFrontend (window_inject) and TraceFrontend "
-        f"(the trace route) only")
+        f"(window_inject_trace) only")
 
 
 def _bound_inject(cfg, clock, wcfg, frontend, carry, w: int):

@@ -1,7 +1,7 @@
 // Block-wise online-softmax GQA attention (FlashAttention forward) on
 // Hopper's tensor cores: bf16 tiles fed by TMA into `wgmma`.
 //
-// Replaces, for bf16 inputs with head dim 64 or 128, the Pallas TPU
+// Replaces, for bf16 inputs with head dim 64, 80 or 128, the Pallas TPU
 // kernel `flash_attention_bhsd` / `_flash_kernel`
 // (src/repro/kernels/flash_attention/kernel.py:89, body :36-83); every
 // other input takes the CUDA-core kernel of flash_attention.cu, and the
@@ -27,7 +27,10 @@
 //     tiles of BK keys into a ring of kStages shared-memory stages, all
 //     by TMA from 4-d tensor maps (D, S, H, B) built on the host from the
 //     tensors' strides, in the 128-byte swizzle that the wgmma
-//     descriptors read; rows past Sq or Sk arrive zero-filled.  A stage
+//     descriptors read; rows past Sq or Sk arrive zero-filled, and so do
+//     the columns past D of the last 64-column block (D = 80: columns
+//     80-127 of the second block; the box's bytes still count in full on
+//     the barrier).  A stage
 //     is reported full on an mbarrier (transaction bytes) and released
 //     by the 256 consumer threads on a second one;
 //   * S = Q.K^T is `wgmma m64nBKk16` with both operands in shared
@@ -37,6 +40,9 @@
 //     layout of S is already the A-fragment layout of the next product,
 //     and O += P.V is `wgmma m64n64k16` per 64 output columns, V read
 //     from shared memory through a transposing (MN-major) descriptor;
+//     at D = 80, S takes D/16 = 5 k16 steps (the zero columns are never
+//     multiplied) and the second column block's 16 real columns take one
+//     `wgmma m64n16k16`, so O holds 40 fp32 registers a thread, not 64;
 //   * the denominator divides once at the end; bf16 stores round to
 //     nearest even;
 //   * KV tiles wholly above the causal diagonal are never loaded; a
@@ -63,9 +69,13 @@ constexpr int kConsumers = 256;               // two warpgroups
 constexpr int kThreads = kConsumers + 32;     // + one producer warp
 constexpr int kStages = 3;                    // K/V ring depth
 // keys per KV tile: at D=128 the O and S fragments would need 64 + 64
-// fp32 registers a thread at 128 keys, so it takes 64
+// fp32 registers a thread at 128 keys, so it takes 64; at D=80 they need
+// 40 + 64 (and P 32), close to D=64's 32 + 64, so it takes 128 as D=64
 template <int D>
-constexpr int kBK = D == 64 ? 128 : 64;
+constexpr int kBK = D <= 80 ? 128 : 64;
+// head-dim columns in shared memory: whole 64-column (128-byte) blocks
+template <int D>
+constexpr int kDPad = (D + 63) / 64 * 64;
 constexpr int kRowBytes = 128;                // one swizzle row: 64 bf16
 constexpr float kNegInf = -__builtin_huge_valf();
 constexpr float kLog2e = 1.4426950408889634f;
@@ -79,12 +89,13 @@ struct Params {
 };
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle
-// repeats every 8 rows): Q as D/64 column blocks of kBQ x 64; per stage
-// K and V as D/64 column blocks of BK x 64; then the barriers.
+// repeats every 8 rows): Q as ceil(D/64) column blocks of kBQ x 64; per
+// stage K and V as ceil(D/64) column blocks of BK x 64; then the barriers.
+// D = 80 is laid out as D = 128.
 template <int D, int BK>
 struct Layout {
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kTileBytes = BK * D * 2;
+  static constexpr int kQBytes = kBQ * kDPad<D> * 2;
+  static constexpr int kTileBytes = BK * kDPad<D> * 2;
   static constexpr int kK = kQBytes;
   static constexpr int kV = kK + kStages * kTileBytes;
   static constexpr int kBar = kV + kStages * kTileBytes;
@@ -174,6 +185,13 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+// the same over the first N registers of a fragment (the live columns of
+// a 64-column block whose last columns lie past D)
+template <int N, int M>
+__device__ __forceinline__ void fence_first(float (&r)[M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
 
 // D = A.B^T (+ D when scale_d), A (64 x 16) and B (N x 16) both K-major
 // in shared memory; D is the m64nNk16 fp32 fragment, N/2 per thread.
@@ -260,6 +278,23 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "r"(1));
 }
 
+// The same for the first 16 columns of the block only (m64n16k16): the
+// 8 registers d[0..7] of the fragment, laid out as the n64 one's first
+// two n8 blocks.
+__device__ __forceinline__ void wgmma_rs16(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
   return *reinterpret_cast<uint32_t*>(&v);
@@ -272,7 +307,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const __grid_constant__ CUtensorMap tv,
                       const Params p) {
   using L = Layout<D, BK>;
-  constexpr int kCB = D / 64;   // 64-column blocks of the head dim
+  constexpr int kCB = kDPad<D> / 64;   // 64-column blocks of the head dim
+  // columns of block c that lie below D (64, or D % 64 for the last)
+  constexpr int kLastN = D - 64 * (kCB - 1);
+  static_assert(kLastN == 64 || kLastN == 16, "D 64, 80 or 128");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t sQ = base, sK = base + L::kK, sV = base + L::kV;
@@ -362,21 +400,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     wgmma_commit();
   };
-  // O += P.V: key rows 16 kk .. 16 kk + 15 of the stage's V tile
+  // O += P.V: key rows 16 kk .. 16 kk + 15 of the stage's V tile; the
+  // last block's columns below D only
   auto issue_pv = [&](int s) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-      for (int c = 0; c < kCB; ++c)
-        wgmma_rs(o[c], pa[kk],
-                 desc(sV + s * L::kTileBytes + c * BK * kRowBytes +
-                          kk * 16 * kRowBytes,
-                      BK * kRowBytes));
+      for (int c = 0; c < kCB; ++c) {
+        const uint64_t db = desc(sV + s * L::kTileBytes +
+                                     c * BK * kRowBytes + kk * 16 * kRowBytes,
+                                 BK * kRowBytes);
+        if (c < kCB - 1 || kLastN == 64)
+          wgmma_rs(o[c], pa[kk], db);
+        else   // D 80: columns 64-79
+          wgmma_rs16(o[c], pa[kk], db);
+      }
     wgmma_commit();
   };
+  auto fence_o = [&] {
+#pragma unroll
+    for (int c = 0; c < kCB - 1; ++c) fence_regs(o[c]);
+    fence_first<kLastN / 2>(o[kCB - 1]);
+  };
+  // the n8 blocks of O below D: 8 in a full block, kLastN / 8 in the last
   auto rescale_o = [&] {
 #pragma unroll
-    for (int c = 0; c < kCB; ++c)
+    for (int c = 0; c < kCB - 1; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -384,6 +433,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           o[c][4 * j + 2 * i] *= alpha[i];
           o[c][4 * j + 2 * i + 1] *= alpha[i];
         }
+#pragma unroll
+    for (int j = 0; j < kLastN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        o[kCB - 1][4 * j + 2 * i] *= alpha[i];
+        o[kCB - 1][4 * j + 2 * i + 1] *= alpha[i];
+      }
   };
   // online softmax on the fragment: sc[4j + 2i + e] is row r0 + 8i,
   // key k0 + 8j + 2 quad + e; leaves P (fp32) in sc and the rescale of
@@ -453,8 +509,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = t % kStages, sp = (t - 1) % kStages;
     mbar_wait(full + 8 * s, (t / kStages) & 1);
     rescale_o();
-#pragma unroll
-    for (int c = 0; c < kCB; ++c) fence_regs(o[c]);
+    fence_o();
     wgmma_fence();
     issue_qk(s);
     issue_pv(sp);
@@ -462,21 +517,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(sc);
     softmax(t * BK);
     wgmma_wait<0>();            // P(t-1).V(t-1) is in; pa is free
-#pragma unroll
-    for (int c = 0; c < kCB; ++c) fence_regs(o[c]);
+    fence_o();
     mbar_arrive(empty + 8 * sp);  // this thread is done with tile t-1
     pack_p();
   }
   if (nwg > 0) {
     const int sp = (nwg - 1) % kStages;
     rescale_o();
-#pragma unroll
-    for (int c = 0; c < kCB; ++c) fence_regs(o[c]);
+    fence_o();
     wgmma_fence();
     issue_pv(sp);
     wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < kCB; ++c) fence_regs(o[c]);
+    fence_o();
     mbar_arrive(empty + 8 * sp);
   }
   // tiles past this warpgroup's rows: wait for them (their phase must
@@ -498,13 +550,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     __nv_bfloat16* orow = p.o + b * p.o_sb + h * p.o_sh +
                           static_cast<int64_t>(row) * p.o_ss;
 #pragma unroll
-    for (int c = 0; c < kCB; ++c)
+    for (int c = 0; c < kCB - 1; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * j +
                                            2 * quad) =
             __floats2bfloat162_rn(o[c][4 * j + 2 * i] / den,
                                   o[c][4 * j + 2 * i + 1] / den);
+    // the last block: its columns below D only
+#pragma unroll
+    for (int j = 0; j < kLastN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 64 * (kCB - 1) + 8 * j +
+                                         2 * quad) =
+          __floats2bfloat162_rn(o[kCB - 1][4 * j + 2 * i] / den,
+                                o[kCB - 1][4 * j + 2 * i + 1] / den);
   }
 }
 
@@ -576,7 +635,8 @@ int launch(const void* q, const void* k, const void* v, const int64_t* st,
 }  // namespace
 
 // bf16 q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D), o (B,Hq,Sq,D), each given by its
-// (batch, head, seq) strides in elements with D contiguous; D 64 or 128;
+// (batch, head, seq) strides in elements with D contiguous; D 64, 80 or
+// 128;
 // base addresses and strides multiples of 16 bytes (TMA's rule; the
 // wrapper checks).  Launches on `stream` and returns cudaGetLastError(),
 // cudaErrorInvalidValue for a shape it does not take, or
@@ -599,6 +659,7 @@ extern "C" int flash_attention_sm90_launch(
   const auto s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64: return launch<64, kBK<64>>(q, k, v, st, b, hq, hkv, sq, sk, p, s);
+    case 80: return launch<80, kBK<80>>(q, k, v, st, b, hq, hkv, sq, sk, p, s);
     case 128:
       return launch<128, kBK<128>>(q, k, v, st, b, hq, hkv, sq, sk, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -608,6 +669,7 @@ extern "C" int flash_attention_sm90_launch(
 // Dynamic shared memory of one block at head dim d (0 if not taken).
 extern "C" int flash_attention_sm90_smem_bytes(int d) {
   return d == 64    ? Layout<64, kBK<64>>::kBytes
+         : d == 80  ? Layout<80, kBK<80>>::kBytes
          : d == 128 ? Layout<128, kBK<128>>::kBytes
                     : 0;
 }

@@ -10,12 +10,16 @@
 * `window_inject.window_inject` — one whole window's bound phase and
   interface hand-off (generate, decode under every mapping, admission,
   queue scatter, frontend update) in one launch: the card's route for
-  the Mess frontend (``csrc/window_inject.cu``).
+  the Mess frontend (``csrc/window_inject.cu``); its trace instance,
+  `window_inject.window_inject_trace`, the card's route for the trace
+  frontend (a `Trace` or a `TraceMix`).
 * `addr_decode.decode_packed` — Skylake XOR address decode on the DDR4
   geometry, ``addrmap.decode``'s card route (``csrc/addr_decode.cu``;
-  its body, ``csrc/addr_decode.cuh``, is shared with `window_inject`).
+  its body, ``csrc/addr_decode.cuh``, is shared with `window_inject`);
+  on no main path (the eager bound phase, the kernels' plain version,
+  reaches it on card tensors).
 * `flash_attention.flash_attention` — block-wise online-softmax GQA
-  attention of the LM prefill forward: bf16 at head dim 64 or 128 on
+  attention of the LM prefill forward: bf16 at head dim 64, 80 or 128 on
   the tensor cores (``csrc/flash_attention_sm90.cu``), everything else
   on the CUDA cores (``csrc/flash_attention.cu``).
 
@@ -27,9 +31,11 @@ from repro_torch.kernels.addr_decode import decode_packed
 from repro_torch.kernels.bank_timing import frfcfs_select
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.weave_window import weave_window
-from repro_torch.kernels.window_inject import window_inject
+from repro_torch.kernels.window_inject import (window_inject,
+                                              window_inject_trace)
 
 WRAPPERS = {"weave_window": weave_window, "window_inject": window_inject,
+            "window_inject_trace": window_inject_trace,
             "frfcfs_select": frfcfs_select, "decode_packed": decode_packed,
             "flash_attention": flash_attention}
 

@@ -4,18 +4,21 @@ Two hand-written kernels compute the same function; `route` picks one
 by a fixed rule, never by trying:
 
 * ``"sm90_bf16"`` (``csrc/flash_attention_sm90.cu``): bf16 inputs with
-  head dim 64 or 128 (tinyllama's and whisper's; deepseek's, minitron's,
-  qwen2's, grok-1's and arctic's), on Hopper's tensor cores (TMA +
-  ``wgmma``).  It rounds the probabilities to bf16 before the P.V
-  product.  TMA needs 16-byte aligned base addresses and strides; such
-  an input that breaks that raises.
+  head dim 64, 80 or 128 (tinyllama's and whisper's; zamba2's shared
+  block; deepseek's, minitron's, qwen2's, grok-1's and arctic's), on
+  Hopper's tensor cores (TMA + ``wgmma``).  It rounds the probabilities
+  to bf16 before the P.V product.  TMA needs 16-byte aligned base
+  addresses and strides; such an input that breaks that raises.
 * ``"cuda_core"`` (``csrc/flash_attention.cu``): everything else, fp32
-  at any head dim and bf16 at 16, 32, 48, 80, 96, 112; fp32 FMAs on the
+  at any head dim and bf16 at 16, 32, 48, 96, 112; fp32 FMAs on the
   CUDA cores, the exact route.
 
 A CPU tensor takes the plain version; a CUDA tensor launches its route's
-kernel or raises.  ``flash_attention.launches`` counts kernel launches,
-``flash_attention.launches_by_route`` the same per route.
+kernel or raises.  Neither kernel has a backward, as the reference's
+Pallas kernel has none: a call that autograd would differentiate raises
+on both devices (``use_flash_kernel=False``, the chunked route, is the
+one to train through).  ``flash_attention.launches`` counts kernel
+launches, ``flash_attention.launches_by_route`` the same per route.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from repro_torch.kernels.flash_attention.ref import default_scale, mha_plain
 #: the kernels take head dims that are multiples of 16 up to this
 MAX_HEAD_DIM = 128
 #: bf16 inputs with these head dims take the Hopper kernel
-SM90_HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 80, 128)
 ROUTES = ("sm90_bf16", "cuda_core")
 
 # q, k, v, o pointers; 3 strides (b, h, s) for each of q, k, v, o;
@@ -86,6 +89,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     read in place).  Returns (B, Hq, Sq, D) in q.dtype; on the card it
     is a view of a (B, Sq, Hq, D) buffer, the layout the model reads.
     """
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (nor has the reference's "
+            "kernel): call it under torch.no_grad() or "
+            "torch.inference_mode(), or train through the chunked route "
+            "(use_flash_kernel=False)")
     if q.device.type == "cpu":
         return mha_plain(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":

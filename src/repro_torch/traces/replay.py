@@ -12,8 +12,8 @@ through `replay_mix`, a stack of mixes through `replay_mixes` — the mix
 axis is the batch axis, like the app axis of a solo suite.  Per-app
 runtimes in a mix come back per core and are reduced by ``app_id``.
 
-On the card the bound phase takes the trace route (the eager route on
-card tensors) and the weave one `weave_window` launch per window
+On the card the bound phase and injection take one `window_inject_trace`
+launch per window and the weave one `weave_window` launch
 (`platform._inject_route`, `platform._weave_route`).
 
 Outputs per application (numpy):

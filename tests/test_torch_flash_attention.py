@@ -93,6 +93,28 @@ def test_wrapper_takes_the_plain_version_on_cpu():
                                atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("grad_of", ["q", "k", "v"])
+def test_wrapper_refuses_autograd(grad_of):
+    """Neither kernel has a backward, nor has the reference's (``jax.grad``
+    through its Pallas kernel raises): a call autograd would
+    differentiate raises on every device, before any route is taken;
+    under ``no_grad`` and ``inference_mode`` the same inputs run."""
+    q, k, v = map(torch.from_numpy, _inputs(SHAPES[1], 4))
+    args = dict(q=q, k=k, v=v)
+    args[grad_of] = args[grad_of].clone().requires_grad_(True)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward.*use_flash_kernel"):
+        flash_attention(args["q"], args["k"], args["v"], causal=True)
+    want = mha_plain(q, k, v, causal=True)
+    with torch.no_grad():
+        got = flash_attention(args["q"], args["k"], args["v"], causal=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    with torch.inference_mode():
+        got = flash_attention(args["q"], args["k"], args["v"], causal=True)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert flash_attention.launches == before
+
+
 def test_plain_reads_strided_views():
     """The model hands (B,H,S,D) views of (B,S,H,D) tensors."""
     rng = np.random.default_rng(11)

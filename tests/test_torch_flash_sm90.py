@@ -26,11 +26,18 @@ TOL = 2e-2
 # the slice's shape (tinyllama prefill: Hq/Hkv = 8, D = 64) narrowed to
 # one batch row, one KV group and 512 tokens
 SLICE_NARROW = (1, 8, 1, 512, 512, 64, True)
-SM90_SHAPES = [s for s in SHAPES if s[5] in (64, 128)] + [SLICE_NARROW]
-# decode (Sq = 1) and a ragged query tile, at the other head dim each
-NEW_SHAPES = [(1, 2, 2, 1, 300, 128, True), (1, 4, 2, 257, 512, 64, True)]
+# zamba2's shared block (D 80, Hq = Hkv, causal) narrowed to 2 heads and
+# 384 tokens, three KV tiles
+ZAMBA2_NARROW = (1, 2, 2, 384, 384, 80, True)
+SM90_SHAPES = [s for s in SHAPES if s[5] in (64, 80, 128)] + [
+    SLICE_NARROW, ZAMBA2_NARROW]
+# decode (Sq = 1) and a ragged query tile, at the other head dim each;
+# a ragged tile at D 80 with a KV group
+NEW_SHAPES = [(1, 2, 2, 1, 300, 128, True), (1, 4, 2, 257, 512, 64, True),
+              (1, 4, 2, 257, 512, 80, True)]
 EMPTY_ROWS = (1, 4, 2, 96, 40, 64, True)       # 56 rows see no key
-KV_TILE = {64: 128, 128: 64}                   # the kernel's BK per D
+KV_TILE = {64: 128, 80: 128, 128: 64}          # the kernel's BK per D
+D_PAD = {64: 64, 80: 128, 128: 128}            # columns in shared memory
 
 
 def sm90_emulation(q, k, v, *, causal):
@@ -40,19 +47,25 @@ def sm90_emulation(q, k, v, *, causal):
     (both fp32), the running max and denominator in fp32 with the
     reference's guards, ``exp2``, the denominator summed from the
     unrounded probabilities and the P.V product from their bf16
-    rounding; one division at the end, output rounded to bf16.
+    rounding; one division at the end, output rounded to bf16.  The
+    head dim is zero-padded to whole 64-column blocks, as the tensor
+    maps fill them (D 80: columns 80-127), and the columns past D are
+    dropped from the output, as the kernel's store does.
     """
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    k = k.repeat_interleave(hq // hkv, 1).float()
-    v = v.repeat_interleave(hq // hkv, 1).float()
-    q = q.float()
+    pad = (0, D_PAD[d] - d)
+    k = torch.nn.functional.pad(k.repeat_interleave(hq // hkv, 1).float(),
+                                pad)
+    v = torch.nn.functional.pad(v.repeat_interleave(hq // hkv, 1).float(),
+                                pad)
+    q = torch.nn.functional.pad(q.float(), pad)
     sl2 = (torch.tensor(default_scale(d), dtype=torch.float32)
            * torch.tensor(1.4426950408889634, dtype=torch.float32))
     qpos = torch.arange(sq)[:, None] + (sk - sq)
     m = torch.full((b, hq, sq, 1), float("-inf"))
     den = torch.zeros((b, hq, sq, 1))
-    acc = torch.zeros((b, hq, sq, d))
+    acc = torch.zeros((b, hq, sq, D_PAD[d]))
     for k0 in range(0, sk, KV_TILE[d]):
         k1 = min(k0 + KV_TILE[d], sk)
         s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, k0:k1]) * sl2
@@ -67,7 +80,8 @@ def sm90_emulation(q, k, v, *, causal):
         acc = alpha * acc + torch.einsum(
             "bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), v[:, :, k0:k1])
         m = mn
-    return (acc / torch.where(den == 0, 1.0, den)).to(torch.bfloat16)
+    out = acc / torch.where(den == 0, 1.0, den)
+    return out[..., :d].to(torch.bfloat16)
 
 
 def _bf16(x, device="cpu"):
@@ -85,13 +99,14 @@ def cuda():
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "sm90_bf16"), (torch.bfloat16, 128, "sm90_bf16"),
-    *[(torch.bfloat16, d, "cuda_core") for d in (16, 32, 48, 80, 96, 112)],
+    (torch.bfloat16, 80, "sm90_bf16"),
+    *[(torch.bfloat16, d, "cuda_core") for d in (16, 32, 48, 96, 112)],
     *[(torch.float32, d, "cuda_core") for d in (16, 64, 128)]])
 @pytest.mark.parametrize("layout", ["bhsd", "bshd_view"])
 def test_route_rule(dtype, d, want, layout):
-    """bf16 at D 64 or 128 takes the Hopper kernel, contiguous or as
-    the model's (B,H,S,D) views of (B,S,H,D) tensors; the rest stays on
-    the CUDA-core kernel."""
+    """bf16 at D 64, 80 or 128 takes the Hopper kernel, contiguous or
+    as the model's (B,H,S,D) views of (B,S,H,D) tensors; the rest stays
+    on the CUDA-core kernel."""
     def make(h, s):
         if layout == "bhsd":
             return torch.zeros((2, h, s, d), dtype=dtype)
@@ -176,7 +191,7 @@ def test_sm90_matches_plain_on_card(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("s", [130, 2047])
 def test_sm90_reads_model_views_on_card(cuda, d, s):
     """(B,H,S,D) views of (B,S,H,D) tensors, as the model hands them."""

@@ -331,7 +331,7 @@ def test_route_rule_by_device_and_frontend_type():
     mess_fe = workload.MessFrontend(pace, pace, wcfg)
     on_cpu = dram.init_queue(cfg.platform.dram, cfg.policy)
     assert platform._inject_route(_on_card(), trace_fe) \
-        is platform._bound_inject_eager
+        is platform._bound_inject_fused_trace
     assert platform._inject_route(_on_card(), mess_fe) \
         is platform._bound_inject_fused
     for fe in (trace_fe, mess_fe):
@@ -375,7 +375,8 @@ def test_replay_on_card_matches_cpu(cuda):
     on_cpu = replay_suite(cfg, batch, device="cpu")
     reruns = int((on_card["weave_sat"] > 0).any())
     assert counts["weave_window"] == cfg.windows * (1 + reruns)
-    assert counts["decode_packed"] == cfg.windows * (1 + reruns)
+    assert counts["window_inject_trace"] == cfg.windows * (1 + reruns)
+    assert counts["decode_packed"] == 0
     assert counts["window_inject"] == 0
     for k, v in on_cpu.items():
         if np.issubdtype(v.dtype, np.floating):
