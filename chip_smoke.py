@@ -165,6 +165,30 @@ Phases, each printing one JSON line:
    cross-attention, the cross-attention at Sq = 1 too, zamba2's D 80 on
    the Hopper route) against its plain version, timed beside its bound
    and ``scaled_dot_product_attention``.
+11c. **train** — the training path on the card: (a) tinyllama-1.1b at
+   full width and depth (22 layers, d 2048, ~1.10 B parameters), fp32
+   master params and bf16 compute, the chunked attention with every block
+   recomputed, through ``Trainer`` on batches of the synthetic stream (B 4
+   x S 2048): one warm step and five timed (median s/step, tokens/s, the
+   losses and pre-clip norms, peak memory, the model-FLOP share 6N +
+   12·L·S·d a token over 989 TFLOP/s), one more step under
+   ``torch.profiler`` (a ``profile`` line: device time by kind — bf16 and
+   fp32 products, the optimizer by correlation id, copies, reductions,
+   elementwise — and the idle share), AdamW alone beside its bytes bound,
+   then one timed step of a fresh Trainer with the int8 round trip; every
+   loss and norm finite, the params moved, and 0 launches of every
+   hand-written kernel (no kernel has a backward); (b) one ``accum=2``
+   fp32 step on the card and on the CPU from the same weights at
+   tinyllama widths (2 layers, 2 x 256 tokens) and at each family's small
+   config: the loss within 1e-5 relative, the norm within 1e-4, each
+   gradient element within 1e-4 relative + 1e-6 + 2e-3 of its leaf's
+   largest magnitude, the new params within 1e-5 where the gradient's
+   sign is certain and within 2 lr elsewhere (the tests' rule); (c) at
+   the smoke width a Trainer fits 20 steps with a checkpoint every 5 (2
+   kept), a fresh Trainer resumes with every leaf bit-equal, and
+   ``prune`` keeps what it is told (no full-width checkpoint: 17.6 GB to
+   disk); one ``train`` line.  The kernel table gives each kernel's
+   launches in (a) as ``train_step_launches``.
 12. **serving** — LLM-serving traffic (``bench.serving``, stage 10 with
    telemetry, the event engine under a budget of a whole window's
    ticks): (a) the SMOKE grid through ``serving.main`` on the card, every
@@ -291,6 +315,30 @@ FAMILY_FLASH = [
     ("vision cross", (2, 32, 8, 2048, 1600, 128, False)),
     ("vision cross, decode tick", (4, 32, 8, 1, 1600, 128, False)),
     ("zamba2 shared block", (2, 32, 32, 2048, 2048, 80, True))]
+# train (phase 11c): tinyllama-1.1b at full width and depth, fp32 master
+# params, bf16 compute, the chunked attention with every block
+# recomputed, B x S tokens a step from the synthetic stream
+TRAIN_ARCH, TRAIN_B, TRAIN_S = "tinyllama-1.1b", 4, 2048
+TRAIN_TIMED = 5                 # timed steps after one warm step (median)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+# card vs CPU in fp32, one step at accum 2: tinyllama widths at 2 layers
+# over 2 x 256 tokens, then one small config per family (get_smoke)
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_B, TRAIN_PARITY_S = 2, 2, 256
+TRAIN_FAMILY_ARCHS = ("tinyllama-1.1b", "grok-1-314b", "xlstm-1.3b",
+                      "zamba2-2.7b", "llama-3.2-vision-11b",
+                      "whisper-large-v3")
+TRAIN_FAMILY_B, TRAIN_FAMILY_S = 4, 16
+TRAIN_LR = 1e-3
+TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL = 1e-5, 1e-4
+# the tests' rule (tests/test_torch_train_families.py): each gradient
+# element within 1e-4 relative + 1e-6 absolute + 2e-3 of its leaf's
+# largest magnitude (the chunked route rounds probabilities to bf16, and
+# an ulp of exp can round one the other way); new params within 1e-5
+# where the gradient's sign is certain, elsewhere within 2 lr
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL, TRAIN_FLIP_SCALE = 1e-4, 1e-6, 2e-3
+TRAIN_PARAM_ATOL, TRAIN_GRAD_SMALL = 1e-5, 1e-5
+# checkpoints on the card: the smoke width, 20 steps, one every 5, 2 kept
+TRAIN_CKPT_STEPS, TRAIN_CKPT_EVERY, TRAIN_CKPT_KEEP = 20, 5, 2
 
 
 # weave phase: (stage, preset, sockets, engine), each WEAVE_WINDOWS
@@ -2460,6 +2508,397 @@ def lm_families(dev):
     return totals, family_flash(dev)
 
 
+# ---- training (phase 11c) ----------------------------------------------------
+
+def quiet(_):
+    pass
+
+
+def train_batches(cfg, n, b, s, seed=0):
+    """The first ``n`` batches of the synthetic stream, made (numpy)
+    before any step is timed."""
+    from repro_torch.data.synthetic import DataConfig, batch_at
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=seed)
+    return [batch_at(data, i) for i in range(n)]
+
+
+def train_one(trainer, batch, walls, res):
+    """One step through ``Trainer.fit``: its wall (synced), loss and
+    pre-clip gradient norm appended."""
+    trainer.tcfg.total_steps = trainer.step_idx + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = trainer.fit(iter([batch]))
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t0)
+    res["losses"] += out["losses"]
+    res["grad_norms"] += out["grad_norms"]
+
+
+def profile_train_step(trainer, batch, step_wall_s):
+    """One more step under torch.profiler: device time by kind (bf16
+    products, fp32 products: the chunked attention's einsums, TF32 off;
+    the optimizer: every kernel launched inside ``apply_updates``, by
+    correlation id; copies and casts, reductions, the elementwise rest)
+    and the device's idle share against the unprofiled step's wall.
+    Emits a ``profile`` line and returns it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.train import optimizer as opt
+
+    apply_updates = opt.apply_updates
+
+    def marked(*a, **kw):
+        with record_function("adamw"):
+            return apply_updates(*a, **kw)
+
+    opt.apply_updates = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train_one(trainer, batch, [], {"losses": [], "grad_norms": []})
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        opt.apply_updates = apply_updates
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = list(prof.profiler.kineto_results.events())
+    spans = [(e.start_ns(), e.end_ns()) for e in raw
+             if e.device_type() != cuda and e.name() == "adamw"]
+    opt_ids = {e.correlation_id() for e in raw
+               if e.device_type() != cuda and e.correlation_id()
+               and any(a <= e.start_ns() <= z for a, z in spans)}
+    # the device-side span of the "adamw" range itself is no kernel
+    dev_events = [e for e in device_events(prof) if e.name != "adamw"]
+    out = {"phase": "profile", "what": f"one warm {TRAIN_ARCH} train step, "
+           f"{TRAIN_B} x {TRAIN_S} tokens, fp32 params, bf16 compute",
+           "wall_ms_profiled": wall_us / 1e3,
+           "device_events": len(dev_events)}
+    if not dev_events:
+        out["note"] = "the profiler showed no device time on this machine"
+        emit(out)
+        return out
+    ids = [e.correlation_id() for e in raw
+           if e.device_type() == cuda and e.name() != "adamw"]
+    busy, window = device_busy(dev_events)
+    by_kind, by_name = {}, {}
+    matmul = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+    fp32 = ("f32f32_f32f32", "sgemm", "_sss_", "simt", "fp32_fp32")
+    for e, cid in zip(dev_events, ids):
+        us = e.time_range.end - e.time_range.start
+        low = e.name.lower()
+        if cid in opt_ids:
+            kind = "optimizer (AdamW)"
+        elif any(w in low for w in matmul):
+            kind = ("fp32 matmul (attention einsums)"
+                    if any(w in low for w in fp32) else "bf16 matmul")
+        elif any(w in low for w in ("copy", "memcpy", "memset")):
+            kind = "copy/cast"
+        elif "reduce" in low:
+            kind = "reduction"
+        elif "elementwise" in low:
+            kind = "elementwise"
+        else:
+            kind = "other"
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+        n, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (n + us, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    out.update(device_window_ms=window / 1e3, device_busy_ms=busy / 1e3,
+               idle_share_of_wall=1 - busy / wall_us,
+               idle_share_of_unprofiled_wall=1 - busy / (step_wall_s * 1e6),
+               by_kind_ms=by_kind,
+               optimizer_launches=sum(c in opt_ids for c in ids),
+               top_kernels=[{"name": n[:100], "ms": us / 1e3, "count": c}
+                            for n, (us, c) in top])
+    emit(out)
+    return out
+
+
+def train_full_width(dev):
+    """Part (a): tinyllama-1.1b at full width and depth through the
+    Trainer on the card: one warm step, TRAIN_TIMED timed, one profiled,
+    AdamW alone, then one timed step with the int8 round trip.  Not one
+    launch of a hand-written kernel (training takes the chunked
+    attention; no kernel has a backward)."""
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import count_params, get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    if cfg.use_flash_kernel or cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"{cfg.name}: training runs bf16 on the "
+                             f"chunked route, not {cfg.dtype} with flash "
+                             f"{cfg.use_flash_kernel}")
+    api = get_model(cfg)
+    batches = train_batches(cfg, TRAIN_TIMED + 4, TRAIN_B, TRAIN_S)
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    trainer = Trainer(api, opt.AdamWConfig(**TRAIN_OPT),
+                      TrainerConfig(total_steps=0, ckpt_every=0,
+                                    log_every=10 ** 9),
+                      seed=0, device=dev, log_fn=quiet)
+    n_params = count_params(trainer.params)
+
+    def probes(p):
+        return {"embed.tok": p["embed"]["tok"][:4],
+                "embed.head": p["embed"]["head"][:, :4],
+                "layers.attn.wq[0]": p["layers"]["attn"]["wq"][0, :4],
+                "layers.mlp.w_down[-1]": p["layers"]["mlp"]["w_down"][-1, :4],
+                "layers.norm1": p["layers"]["norm1"]}
+
+    before = {k: v.detach().clone() for k, v in probes(trainer.params).items()}
+    walls, res = [], {"losses": [], "grad_norms": []}
+    train_one(trainer, batches[0], walls, res)             # warm
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[1:1 + TRAIN_TIMED]:
+        train_one(trainer, b, walls, res)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = float(np.median(walls[1:]))
+    moved = {k: float((v.float() - before[k].float()).abs().max())
+             for k, v in probes(trainer.params).items()}
+    tokens = TRAIN_B * TRAIN_S
+    flop_per_token = 6 * n_params + 12 * cfg.n_layers * TRAIN_S * cfg.d_model
+    prof = profile_train_step(trainer, batches[1 + TRAIN_TIMED], step_s)
+
+    # AdamW alone on the trainer's state (the moments stand in for the
+    # gradients: the same work), by CUDA events
+    ocfg = trainer.opt_cfg
+    adamw_ms = time_ms(lambda: opt.apply_updates(
+        ocfg, trainer.params, trainer.opt_state["m"], trainer.opt_state),
+        3)
+    # its floor: p, g, m, v read once and p, m, v written once
+    adamw_bytes = sum(x.numel() * x.element_size() for t in (
+        trainer.params, trainer.params, trainer.opt_state["m"],
+        trainer.opt_state["v"]) for x in leaves(t)) * 7 / 4
+    del trainer
+    torch.cuda.empty_cache()
+
+    # one timed step with the int8 round trip (a fresh Trainer)
+    comp = Trainer(api, opt.AdamWConfig(**TRAIN_OPT),
+                   TrainerConfig(total_steps=0, ckpt_every=0,
+                                 compress_grads=True, log_every=10 ** 9),
+                   seed=0, device=dev, log_fn=quiet)
+    cwalls, cres = [], {"losses": [], "grad_norms": []}
+    train_one(comp, batches[-2], cwalls, cres)             # warm
+    train_one(comp, batches[-1], cwalls, cres)
+    del comp
+    torch.cuda.empty_cache()
+    launches = kernels.launch_counts()
+
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "dtype": "bfloat16 compute, fp32 params",
+           "attention": "chunked, every block recomputed",
+           "batch": TRAIN_B, "seq": TRAIN_S, "tokens_per_step": tokens,
+           "step_s": step_s, "walls_s": walls, "warm_step_s": walls[0],
+           "tokens_per_s": tokens / step_s, "losses": res["losses"],
+           "grad_norms": res["grad_norms"], "peak_mem_gb": peak_gb,
+           "params_moved": moved,
+           "model_flop_per_token": flop_per_token,
+           "model_flop_share": tokens / step_s * flop_per_token
+           / BF16_FLOP_PER_S,
+           "model_flop_share_formula":
+               "tokens/s x (6 N + 12 L S d) / 989e12 (N all parameters; "
+               "the chunked route computes every key)",
+           "profile": {k: prof.get(k) for k in (
+               "by_kind_ms", "device_busy_ms", "idle_share_of_wall",
+               "idle_share_of_unprofiled_wall", "optimizer_launches",
+               "device_events")},
+           "adamw_alone_ms": adamw_ms,
+           "adamw_bytes": adamw_bytes,
+           "adamw_bound_ms": adamw_bytes / MEM_BYTES_PER_S * 1e3,
+           "compressed": {"step_s": cwalls[1], "warm_step_s": cwalls[0],
+                          "losses": cres["losses"],
+                          "grad_norms": cres["grad_norms"]},
+           "launches": launches}
+    finite = all(np.isfinite(res["losses"] + res["grad_norms"]
+                             + cres["losses"] + cres["grad_norms"]))
+    if not finite:
+        raise AssertionError(f"train: non-finite loss or norm: {out}")
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(f"train: params did not move: {moved}")
+    if any(launches.values()):
+        raise AssertionError(f"train: hand-written kernels launched in a "
+                             f"train step: {launches}")
+    return out
+
+
+def _flat(tree, prefix=""):
+    """A tree's leaves by dotted key."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _flat_cpu(tree):
+    """A tree of tensors as {key: fp32 numpy}."""
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in _flat(tree).items()}
+
+
+def train_step_card_vs_cpu(cfg, batch, dev):
+    """One accum-2 step of ``cfg`` (fp32) on the card and on the CPU from
+    the same weights (``params_from_numpy``) and batch: the loss, the
+    pre-clip norm, every gradient leaf and the new params under the
+    tests' rule.  Returns the comparison; raises where it fails."""
+    from repro_torch.models.registry import get_model, params_from_numpy
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import build_train_step
+    from repro_torch.tree import map_tree
+
+    api = get_model(cfg)
+    tree = map_tree(lambda t: t.numpy(), api.init(0, device="cpu"))
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=0)
+    got = {}
+    for where in ("cpu", dev):
+        params = params_from_numpy(cfg, tree, device=where)
+        seen = []
+        step = build_train_step(api, ocfg, accum=2,
+                                compress_grads=lambda g: seen.append(g) or g)
+        t0 = time.perf_counter()
+        new, _, met = step(params, opt.init_state(ocfg, params),
+                           {k: torch.from_numpy(v).to(where)
+                            for k, v in batch.items()})
+        loss = float(met["loss"])
+        got[str(where)] = dict(loss=loss, norm=float(met["grad_norm"]),
+                               grads=_flat_cpu(seen[0]),
+                               params=_flat_cpu(new),
+                               wall_s=time.perf_counter() - t0)
+    cpu, card = got["cpu"], got[str(dev)]
+    worst_grad, worst_sure, worst_param, n_uncertain = 0.0, 0.0, 0.0, 0
+    for k, g in cpu["grads"].items():
+        bound = (TRAIN_GRAD_RTOL * np.abs(g) + TRAIN_GRAD_ATOL
+                 + TRAIN_FLIP_SCALE * np.abs(g).max())
+        worst_grad = max(worst_grad,
+                         float((np.abs(card["grads"][k] - g) / bound).max()))
+        sure = np.abs(g) > np.maximum(TRAIN_GRAD_SMALL, bound)
+        diff = np.abs(card["params"][k] - cpu["params"][k])
+        n_uncertain += int((~sure).sum())
+        worst_param = max(worst_param, float(diff.max()))
+        if sure.any():
+            worst_sure = max(worst_sure, float(diff[sure].max()))
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    norm_rel = abs(card["norm"] - cpu["norm"]) / abs(cpu["norm"])
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "batch": list(batch["tokens"].shape),
+           "loss": cpu["loss"], "loss_rel_err": loss_rel,
+           "grad_norm_rel_err": norm_rel,
+           "worst_grad_err_over_bound": worst_grad,
+           "worst_param_err_sure_sign": worst_sure,
+           "worst_param_err": worst_param,
+           "uncertain_sign_elements": n_uncertain,
+           "cpu_s": cpu["wall_s"], "card_s": card["wall_s"]}
+    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_NORM_RTOL
+            and worst_grad <= 1 and worst_sure <= TRAIN_PARAM_ATOL
+            and worst_param <= 2 * TRAIN_LR):
+        raise AssertionError(f"train step card vs CPU: {out}")
+    return out
+
+
+def train_card_vs_cpu(dev):
+    """Part (b): one accum-2 fp32 step, card against CPU, at tinyllama
+    widths (2 layers, 2 x 256 tokens), then at each family's small
+    config."""
+    from repro_torch.configs.registry import get_config, get_smoke
+
+    def batch_for(cfg, b, s):
+        rng = np.random.default_rng(3)
+        out = {"tokens": rng.integers(0, cfg.vocab, (b, s)),
+               "labels": rng.integers(0, cfg.vocab, (b, s))}
+        if cfg.family in ("vlm", "audio"):
+            out["ctx"] = rng.standard_normal(
+                (b, cfg.n_ctx_tokens, cfg.d_model)).astype(np.float32)
+        return out
+
+    wide = dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=TRAIN_PARITY_LAYERS,
+                               dtype=torch.float32)
+    rows = [train_step_card_vs_cpu(
+        wide, batch_for(wide, TRAIN_PARITY_B, TRAIN_PARITY_S), dev)]
+    for arch in TRAIN_FAMILY_ARCHS:
+        cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32)
+        rows.append(train_step_card_vs_cpu(
+            cfg, batch_for(cfg, TRAIN_FAMILY_B, TRAIN_FAMILY_S), dev))
+    return rows
+
+
+def train_checkpoints(dev):
+    """Part (c): at the smoke width, a Trainer fits TRAIN_CKPT_STEPS steps
+    on the card with a checkpoint every TRAIN_CKPT_EVERY (TRAIN_CKPT_KEEP
+    kept), a fresh Trainer (another seed) resumes: every leaf of its state
+    bit-equal, on the card, in its dtype; then prune to 1."""
+    import os
+    import tempfile
+
+    from repro_torch.configs.registry import get_smoke
+    from repro_torch.data.synthetic import DataConfig, Stream
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_smoke(TRAIN_ARCH)
+    api = get_model(cfg)
+    ocfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=2)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        first = Trainer(api, ocfg, TrainerConfig(
+            total_steps=TRAIN_CKPT_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+            ckpt_dir=d, ckpt_keep=TRAIN_CKPT_KEEP, log_every=10 ** 9),
+            seed=0, device=dev, log_fn=quiet)
+        res = first.fit(Stream(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                          global_batch=8)))
+        fit_s = time.perf_counter() - t0
+        kept = sorted(n for n in os.listdir(d) if n.startswith("step_"))
+        second = Trainer(api, ocfg, TrainerConfig(ckpt_dir=d), seed=1,
+                         device=dev, log_fn=quiet)
+        resumed = second.maybe_resume()
+        want, got = _flat(first.state()), _flat(second.state())
+        unequal = [k for k, a in want.items() if k not in got or not (
+            a.dtype == got[k].dtype and a.device == got[k].device
+            and torch.equal(a, got[k]))]
+        leaves = len(want)
+        ckpt.prune(d, keep=1)
+        after_prune = sorted(n for n in os.listdir(d)
+                             if n.startswith("step_"))
+    want_kept = [f"step_{s:08d}" for s in range(
+        TRAIN_CKPT_STEPS - (TRAIN_CKPT_KEEP - 1) * TRAIN_CKPT_EVERY,
+        TRAIN_CKPT_STEPS + 1, TRAIN_CKPT_EVERY)]
+    out = {"arch": cfg.name, "dtype": str(cfg.dtype).replace("torch.", ""),
+           "steps": res["final_step"], "fit_s": fit_s,
+           "losses_first_last": [res["losses"][0], res["losses"][-1]],
+           "kept": kept, "resumed": resumed, "resumed_step": second.step_idx,
+           "leaves": leaves, "unequal_leaves": unequal,
+           "after_prune_keep_1": after_prune,
+           "full_width": "skipped: 17.6 GB of fp32 params and moments to "
+                         "the machine's disk"}
+    if not (resumed and second.step_idx == TRAIN_CKPT_STEPS and not unequal
+            and set(got) == set(want)
+            and kept == want_kept and after_prune == want_kept[-1:]
+            and res["losses"][-1] < res["losses"][0]):
+        raise AssertionError(f"train checkpoints: {out}")
+    return out
+
+
+def train_phase(dev):
+    """Phase 11c: the training path on the card (parts a-c), one ``train``
+    line.  Returns the hand-written kernels' launches in part (a)."""
+    full = train_full_width(dev)
+    parity = train_card_vs_cpu(dev)
+    ckpts = train_checkpoints(dev)
+    emit({"phase": "train", "full_width": full, "card_vs_cpu": parity,
+          "checkpoints": ckpts})
+    return full["launches"]
+
+
 # ---- serving, figures and the weave bench (phases 12-14) -----------------
 
 # integer fields of a serving cell, held exactly; floats within RTOL
@@ -3103,6 +3542,9 @@ def main():
     # ---- 11b. the five other families on the serving path ----------------
     family_launches, family_flash_rows = lm_families(dev)
 
+    # ---- 11c. the training path ------------------------------------------
+    train_launches = train_phase(dev)
+
     # ---- 12-14. LLM-serving traffic, the paper's figures, the weave bench
     serve = serving_phase(dev)
     figs = figures_phase(dev)
@@ -3205,6 +3647,8 @@ def main():
         by_flops = "flops" in t
         table.append({"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": launches[name],
+                      "train_step_launches": train_launches.get(
+                          name.replace("_d80", ""), 0),
                       "max_abs_err": max_err[name], "ms": t["ms"],
                       "plain_ms": t["plain_ms"], "call_ms": t["call_ms"],
                       "bound_ms": t["bound_ms"] if by_flops

@@ -37,6 +37,10 @@ BACKLOG_MAX = 192
 CHASE_REGION_BITS = 26     # 4 GB pointer-chase region
 #: per-core outstanding-miss bound (Skylake L2 superqueue): the closed loop
 MSHR_CAP = 24
+#: the most channels `inject_queue` ranks: its int32 admission key
+#: ``ch * 2^26 + key`` gives invalid entries ``ch = C``, which wraps
+#: negative at 32 channels (2^31)
+MAX_CHANNELS = 31
 
 _I32 = torch.int32
 _U32 = 0xFFFFFFFF
@@ -239,6 +243,11 @@ def inject_queue(queue: QueueState, cand: Candidates, clock, w: int,
     (B,) accepted requests.
     """
     B, C, Q = queue.valid.shape
+    if C > MAX_CHANNELS:
+        raise ValueError(f"inject_queue ranks at most {MAX_CHANNELS} "
+                         f"channels: the int32 admission key ch * 2^26 + "
+                         f"key wraps at 32 (invalid entries take ch = C); "
+                         f"the queue has {C}")
     dev = queue.valid.device
     n_cores = cand.valid.shape[1]
     n = n_cores * CAND

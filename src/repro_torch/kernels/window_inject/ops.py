@@ -42,8 +42,12 @@ PARAM_NAMES = (
     "c2t_round")
 #: the decode each candidate takes, by its code in the kernel (0, 1, 2)
 MAPPINGS = ("simple", "skylake_xor", "xor_fold")
-#: queue slots and channels a point, candidates a point (two sockets)
-MAX_Q, MAX_C, MAX_CAND = 512, 32, 4096
+#: queue slots and channels a point, candidates a point (two sockets).
+#: The admission key ``ch * 2^26 + key`` is int32 and invalid entries
+#: take ``ch = C``: at 32 channels their key is 2^31 and wraps negative,
+#: so 31 is the most channels the key ranks (``kMaxC`` sizes the
+#: kernel's shared arrays at 32 all the same)
+MAX_Q, MAX_C, MAX_CAND = 512, 31, 4096
 CAND = 80                  # candidates a core a window (workload.CAND)
 CAP_DEMAND = 64            # accesses a trace core reads (workload.CAP_DEMAND)
 MSHR_CAP = 24              # workload.MSHR_CAP
@@ -129,10 +133,15 @@ def _check_queue(queue, wcfg):
     if Q > MAX_Q or Q % 32:
         raise ValueError(f"window_inject takes a multiple of 32 queue slots "
                          f"up to {MAX_Q}, got {Q}")
-    if C > MAX_C or C != wcfg.dram.n_channels:
+    if C > MAX_C:
+        raise ValueError(f"window_inject ranks at most {MAX_C} channels: "
+                         f"the int32 admission key ch * 2^26 + key wraps "
+                         f"at 32 (invalid entries take ch = C); the queue "
+                         f"has {C}")
+    if C != wcfg.dram.n_channels:
         raise ValueError(f"window_inject takes the device's "
-                         f"{wcfg.dram.n_channels} channels, at most "
-                         f"{MAX_C}; the queue has {C}")
+                         f"{wcfg.dram.n_channels} channels; the queue has "
+                         f"{C}")
     if N * CAND > MAX_CAND:
         raise ValueError(f"window_inject ranks at most {MAX_CAND} "
                          f"candidates a point (two sockets), got "

@@ -21,6 +21,9 @@ Conventions
 * Projections are plain products: the port runs on one card, so the
   reference's weight-stationary mesh schedule (``serving_matmul``) and
   its ``shard`` annotations have no counterpart here.
+* Training recomputes each block's activations in the backward pass
+  (`recompute`, the reference's ``jax.checkpoint`` around the same
+  blocks); a forward that autograd does not record runs plainly.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.tree import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +108,19 @@ def cast_params(cfg: ModelConfig, tree):
     return tree
 
 
+def recompute(fn, params, *args):
+    """``fn(*args)``; when autograd records it (grad mode on and a leaf
+    of ``params``, the block's weights, requiring grad) its activations
+    are dropped after the forward and recomputed in the backward pass,
+    as the reference's ``jax.checkpoint`` does: the same values, one
+    block's activations alive at a time."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in leaves(params)):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
 def rmsnorm(x, w, eps: float = 1e-5):
     xf = x.float()
     y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
@@ -128,6 +146,13 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+#: the dtype probabilities and V are rounded to before the chunked
+#: route's P·V product (and the mLSTM's decay-weighted scores before
+#: theirs), which accumulate in fp32: bf16, the reference's default (its
+#: ``_probs_dtype``)
+PROBS_DTYPE = torch.bfloat16
+
+
 def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
                        softcap: float = 0.0):
     """Query-chunked online attention, fp32 softmax, grouped GQA.
@@ -135,8 +160,8 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
     q (B,S,Hq,D); k,v (B,T,Hkv,D), Hq % Hkv == 0.  The GQA group dim is
     contracted by einsum, so the repeated KV is never materialized.
     Loops over query chunks so peak score memory is (B,Hkv,G,chunk,T).
-    Probabilities are rounded to bf16 before the PV product, which
-    accumulates in fp32, as the reference does by default.
+    Probabilities are rounded to `PROBS_DTYPE` (bf16) before the PV
+    product, which accumulates in fp32, as the reference does by default.
     """
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -147,7 +172,7 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
     qp = F.pad(q, (0, 0, 0, 0, 0, nq * chunk - s))
     qc = qp.reshape(b, nq, chunk, hkv, g, d)
     kf = k.float()
-    vb = v.to(torch.bfloat16).float()
+    vb = v.to(PROBS_DTYPE).float()
     kpos = torch.arange(t, device=q.device)[None, :]
     outs = []
     for i in range(nq):
@@ -159,11 +184,11 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
                     + (t - s))                    # (c,1)
             msk = (kpos <= qpos)[None, :, None, None, :]
             sc = torch.where(msk, sc, float("-inf"))
-        m = sc.amax(-1, keepdim=True)
+        m = sc.amax(-1, keepdim=True).detach()   # jax.lax.stop_gradient
         p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0))
         l = p.sum(-1, keepdim=True).clamp_min(1e-30)
         o = torch.einsum("bchgt,bthd->bchgd",
-                         p.to(torch.bfloat16).float(), vb)
+                         p.to(PROBS_DTYPE).float(), vb)
         outs.append((o / l).to(q.dtype))
     o = torch.stack(outs, 1).reshape(b, nq * chunk, hq, d)
     return o[:, :s]

@@ -18,6 +18,8 @@ own KV cache (params shared, activations not).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -206,7 +208,8 @@ def forward(cfg: ModelConfig, params, tokens):
     per = _period(cfg)
     mp = cm.cast_params(cfg, params["mamba"])
     for i in range(cfg.n_layers):
-        x = mamba_fwd(cfg, tt._layer(mp, i), x)
+        lp = tt._layer(mp, i)
+        x = cm.recompute(functools.partial(mamba_fwd, cfg, lp), lp, x)
         if cfg.family == "hybrid" and (i + 1) % per == 0:
             x = _shared_apply(cfg, params["shared"], x, x0, positions)
     return cm.logits(cfg, params["embed"], x)

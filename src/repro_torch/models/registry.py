@@ -29,6 +29,7 @@ import torch
 from repro_torch.core.platform import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
+from repro_torch.tree import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,10 +133,5 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None):
     return conv(tree, want, "")
 
 
-def _leaves(tree):
-    for v in tree.values():
-        yield from _leaves(v) if isinstance(v, dict) else (v,)
-
-
 def count_params(params) -> int:
-    return sum(v.numel() for v in _leaves(params))
+    return sum(v.numel() for v in leaves(params))

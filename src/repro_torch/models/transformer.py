@@ -3,7 +3,8 @@ families) and the block machinery the MoE, VLM, audio and hybrid
 families reuse.
 
 Layers are stacked along a leading L axis, as in the reference, and a
-Python loop over that axis takes the place of ``lax.scan``.  The KV
+Python loop over that axis takes the place of ``lax.scan``; each block
+runs under `common.recompute` (the reference's ``jax.checkpoint``).  The KV
 cache keeps the reference's layout ``k, v: (L, B, T, Hkv, D)`` plus
 ``length: (B,)`` int32.  ``mlp_init`` / ``mlp_fn`` swap the FFN (the
 MoE family's experts), as the reference's hooks do.
@@ -73,7 +74,9 @@ def forward(cfg: ModelConfig, params, tokens, mlp_fn=None):
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     layers = cm.cast_params(cfg, params["layers"])
     for i in range(cfg.n_layers):
-        x = block_fwd(cfg, _layer(layers, i), x, positions, mlp_fn)
+        lp = _layer(layers, i)
+        x = cm.recompute(functools.partial(
+            block_fwd, cfg, lp, positions=positions, mlp_fn=mlp_fn), lp, x)
     return cm.logits(cfg, params["embed"], x)
 
 

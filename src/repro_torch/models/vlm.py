@@ -18,6 +18,8 @@ reads them.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.models import common as cm
@@ -62,7 +64,9 @@ def forward(cfg: ModelConfig, params, tokens, ctx):
     layers = cm.cast_params(cfg, params["layers"])
     for seg in range(n_seg):
         for i in range(seg * n_self, (seg + 1) * n_self):
-            x = tt.block_fwd(cfg, tt._layer(layers, i), x, positions)
+            lp = tt._layer(layers, i)
+            x = cm.recompute(functools.partial(
+                tt.block_fwd, cfg, lp, positions=positions), lp, x)
         pc = tt._layer(params["cross"], seg)
         x = _cross_apply(cfg, pc, x, *cm.cross_kv(cfg, pc["attn"], ctx))
     return cm.logits(cfg, params["embed"], x)

@@ -49,12 +49,16 @@ def encode(cfg: ModelConfig, params, frames):
     enc = cm.cast_params(cfg, params["enc"])
     for i in range(cfg.n_encoder_layers):
         lp = tt._layer(enc, i)
-        h = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
-        x = x + cm.self_attention(cfg, lp["attn"], h, positions,
-                                  causal=False)
-        h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-        x = x + cm.mlp(cfg, lp["mlp"], h, kind="gelu")
+        x = cm.recompute(functools.partial(_enc_block, cfg, lp, positions),
+                         lp, x)
     return cm.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _enc_block(cfg: ModelConfig, lp, positions, x):
+    h = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    x = x + cm.self_attention(cfg, lp["attn"], h, positions, causal=False)
+    h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
+    return x + cm.mlp(cfg, lp["mlp"], h, kind="gelu")
 
 
 def _cross(cfg: ModelConfig, lp, x, xk, xv):
@@ -73,12 +77,18 @@ def forward(cfg: ModelConfig, params, tokens, frames):
     dec = cm.cast_params(cfg, params["dec"])
     for i in range(cfg.n_layers):
         lp = tt._layer(dec, i)
-        h = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
-        x = x + cm.self_attention(cfg, lp["attn"], h, positions)
-        x = _cross(cfg, lp, x, *cm.cross_kv(cfg, lp["xattn"], enc))
-        h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-        x = x + cm.mlp(cfg, lp["mlp"], h, kind="gelu")
+        x = cm.recompute(functools.partial(_dec_block, cfg, lp, positions),
+                         lp, x, enc)
     return cm.logits(cfg, params["embed"], x)
+
+
+def _dec_block(cfg: ModelConfig, lp, positions, x, enc):
+    """A decoder block over the encoder states ``enc`` (teacher-forced)."""
+    h = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    x = x + cm.self_attention(cfg, lp["attn"], h, positions)
+    x = _cross(cfg, lp, x, *cm.cross_kv(cfg, lp["xattn"], enc))
+    h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
+    return x + cm.mlp(cfg, lp["mlp"], h, kind="gelu")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):

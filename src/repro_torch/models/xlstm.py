@@ -19,6 +19,8 @@ kernels per token.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -84,7 +86,7 @@ def _mlstm_parallel(q, k, v, logi, logf, chunk: int = 1024):
     cumf_p = F.pad(cumf, (0, 0, 0, nq * chunk - s))
     kterm = logi - cumf                                 # log i_j - F_j
     kf = k.float()
-    vb = v.to(torch.bfloat16).float()
+    vb = v.to(cm.PROBS_DTYPE).float()
     jpos = torch.arange(s, device=q.device)[None, None, :, None]
     outs = []
     for i in range(nq):
@@ -102,7 +104,7 @@ def _mlstm_parallel(q, k, v, logi, logf, chunk: int = 1024):
         sd = sc * dmat
         norm = torch.maximum(sd.sum(2).abs(), (-m[:, :, 0, :]).exp())
         out = torch.einsum("bcsh,bshd->bchd",
-                           sd.to(torch.bfloat16).float(), vb)
+                           sd.to(cm.PROBS_DTYPE).float(), vb)
         outs.append(out / norm[..., None])
     return torch.cat(outs, 1)[:, :s]
 
@@ -241,7 +243,8 @@ def forward(cfg: ModelConfig, params, tokens):
     mparams = cm.cast_params(cfg, params["mlstm"])
     for seg in range(n_seg):
         for i in range(seg * n_m, (seg + 1) * n_m):
-            x = mlstm_fwd(cfg, tt._layer(mparams, i), x)
+            lp = tt._layer(mparams, i)
+            x = cm.recompute(functools.partial(mlstm_fwd, cfg, lp), lp, x)
         x = slstm_fwd(cfg, tt._layer(params["slstm"], seg), x)
     return cm.logits(cfg, params["embed"], x)
 

@@ -2,8 +2,8 @@
 ``chip_smoke.py`` imports JAX or the JAX package, and the port (a Mess
 point, a trace replay, the telemetry and command recorders through
 ``obs`` and ``oracle``, the LLM-serving lowering and its HLO cost model,
-the figure and serving benches, one forward of every model family) runs
-with ``jax`` blocked."""
+the figure and serving benches, one forward of every model family, two
+compressed ``Trainer`` steps) runs with ``jax`` blocked."""
 import ast
 import pathlib
 import subprocess
@@ -96,6 +96,21 @@ for arch in ("grok-1-314b", "xlstm-1.3b", "zamba2-2.7b",
     logits = api.forward(api.init(0, device="cpu"), batch)
     assert logits.shape == (1, 5, cfg.vocab), arch
     assert bool(logits.isfinite().all()), arch
+import repro_torch.data
+import repro_torch.launch.train
+import repro_torch.parallel
+import repro_torch.train
+from repro_torch.data.synthetic import DataConfig, Stream
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.trainer import Trainer, TrainerConfig
+cfg = get_smoke("tinyllama-1.1b")
+trainer = Trainer(get_model(cfg), AdamWConfig(warmup_steps=1),
+                  TrainerConfig(total_steps=2, ckpt_every=0,
+                                compress_grads=True),
+                  device="cpu", log_fn=lambda s: None)
+res = trainer.fit(Stream(DataConfig(vocab=cfg.vocab, seq_len=8,
+                                    global_batch=2)))
+assert res["final_step"] == 2 and all(l == l for l in res["losses"])
 leaked = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not leaked, leaked
 print("ok")

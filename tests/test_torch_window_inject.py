@@ -137,6 +137,43 @@ def test_wrapper_refuses_cpu_dtype_and_unsized_shapes():
     assert window_inject.launches == 0
 
 
+def _with_channels(cfg, n):
+    """``cfg`` on a geometry of ``n`` channels (the simple mapping)."""
+    dram = dataclasses.replace(cfg.platform.dram, n_channels=n)
+    return dataclasses.replace(
+        cfg, platform=dataclasses.replace(cfg.platform, dram=dram))
+
+
+def test_32_channels_refused_on_both_routes():
+    """The int32 admission key ``ch * 2^26 + key`` gives invalid entries
+    ``ch = C``, which wraps negative at 32 channels: both routes refuse
+    C >= 32 (the kernel's check on CPU tensors, before any launch), and
+    31 channels pass the kernel's check."""
+    from repro_torch.kernels.window_inject import ops
+
+    base = get_stage("01-baseline", preset="ddr5_4800", windows=1, warmup=0)
+    kernels.reset_launch_counts()
+    for n, refused in ((32, True), (33, True), (31, False)):
+        cfg = _with_channels(base, n)
+        wcfg = cfg.workload_config()
+        pace = torch.full((2,), 12, dtype=torch.int32)
+        fe = workload.MessFrontend(pace, pace, wcfg)
+        q, _, cores, l_ir, lat, _ = platform._init_carry(cfg, fe, 2, "cpu")
+        assert q.valid.shape[1] == n
+        if refused:
+            with pytest.raises(ValueError, match="int32 admission key"):
+                ops._check_queue(q, wcfg)
+            with pytest.raises(ValueError, match="int32 admission key"):
+                _call(cfg)
+            cand, _ = workload.generate(cores, pace, pace, l_ir, wcfg)
+            with pytest.raises(ValueError, match="int32 admission key"):
+                workload.inject_queue(q, cand, cfg.clock(), 0, wcfg)
+        else:
+            fields = ops._check_queue(q, wcfg)
+            assert fields[0][2] == (2, n, q.valid.shape[2])
+    assert window_inject.launches == 0
+
+
 def test_param_vector_matches_fields_and_kernel_order():
     src = CSRC.read_text()
     block = src.split("Packed parameter vector")[1].split("#include")[0]
