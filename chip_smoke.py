@@ -221,6 +221,22 @@ Phases, each printing one JSON line:
    event-rate fit beside the tracked calibration report's fit (the one
    ``mess.load_event_calibration`` registers), and the step
    reduction equal to ``weave_budgets(preset)["picosecond"]``.
+15. **placement** — the batch axis split into chunks (``core.shard``):
+   (a) the main path's FAST sweep (its engine, ``mess._run_points``, over
+   the 18 points) on ``device=[cuda:0] * k`` for k = 1-4, every view
+   and count equal to k = 1 bit for bit (and the main path's
+   ``device=None`` views to k = 1), ``window_inject`` == ``weave_window``
+   == k x 48 per engine batch, no ``decode_packed``, each wall printed;
+   over every card too when the host has more than one, else a line
+   saying that only one card was present; (b) stage 10 at
+   ``app_validation.FULL`` (six apps, telemetry) on ``[cuda:0] * 4``
+   equal to one device bit for bit, at the stage's event budget and at
+   one of 48 that sends every row to the dense re-run (merged by row);
+   (c) ``python -m repro_torch.bench.run`` in processes of its own:
+   ``--list`` (the 12 names), ``--only kernels`` (every row matching its
+   plain version; its device µs go into the kernel table as
+   ``kernels_bench_device_us``) and ``--only fig5``, whose CSV equals a
+   direct ``fig5_model_correct.main`` run's.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit as nvidia-smi reports them, and the result line.  Any
@@ -231,6 +247,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -241,6 +258,12 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# time_ms: mean ms per eager call by CUDA events; device_ms: mean device
+# ms per launch, launches captured in one CUDA graph and replayed; the
+# main path's batches and the kernels' C entry points on them
+from repro_torch.bench.kernels_bench import (  # noqa: E402
+    decode_launch, device_ms, inject_launch, sweep_state, time_ms,
+    weave_launch, weave_state)
 
 MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (published peak)
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
@@ -402,49 +425,18 @@ LADDER_MAPE_REF = {"01-baseline": 36.1302, "03-ps-clock": 32.1636,
                    "10-delay-buffer": 24.9727}
 LADDER_MAPE_ATOL = 5e-5
 
+# placement phase: the sweep split into k chunks on one card, the FULL
+# stage-10 replay in 4 chunks at the stage's event budget and at one that
+# sends every row to the dense re-run, and the benchmark CLI
+PLACEMENT_SPLITS = (1, 2, 3, 4)
+PLACEMENT_REPLAY_STAGE = "10-delay-buffer"
+PLACEMENT_RERUN_BUDGET = 48
+PLACEMENT_BENCH_ROWS = 6        # flash x 2 routes, select, decode, weave,
+                                # inject
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def time_ms(fn, iters):
-    """Mean ms per call over ``iters`` eager calls, by CUDA events, warmed
-    up: what a call costs the eager loop, host launch included."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
-def device_ms(fn, iters):
-    """Mean device ms per launch: ``iters`` launches captured in one CUDA
-    graph and replayed, by CUDA events, so host launch cost drops out."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                               # warm up off the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
-        graph.replay()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / (5 * iters)
 
 
 def select_inputs(rng, rows, q, dev, idle_rows=0):
@@ -1097,7 +1089,7 @@ RECORD_INSTANCES = {"plain": (False, False), "telemetry": (True, False),
                     "telemetry+cmd_trace": (True, True)}
 
 
-def record_timing(cfg, dev, persp_cfg, persp_state, w=8):
+def record_timing(dev, persp_cfg, persp_state, w=8):
     """The recording instances at the main path's two batches (window
     ``w`` of the FAST sweep) and at the perspectives ladder's batch.
     First, on the same state: the recording instance (both recorders)
@@ -1110,7 +1102,7 @@ def record_timing(cfg, dev, persp_cfg, persp_state, w=8):
     out, diffs = {}, {}
     with torch.inference_mode():
         for engine in ("dense", "event"):
-            cfg_e, clock, kw, queue, banks = weave_batch(cfg, dev, engine, w)
+            cfg_e, clock, kw, queue, banks = weave_state(dev, engine, w)
             tele = dram.init_tele(cfg_e.platform.dram, queue.valid.shape[0],
                                   dev)
             args = (clock, kw, queue, banks, w, tele)
@@ -1351,37 +1343,7 @@ def cmd_oracle_phase(dev):
     return launches
 
 
-def main_batch(cfg, dev, engine, w):
-    """The main path's batch of one engine (its points, as the knee
-    routing gives them) at the start of window ``w``: ``(cfg, clock,
-    wcfg, frontend, carry)``."""
-    from repro_torch.core import mess, platform, workload
-
-    pts = [(p, wr) for wr in FAST_MIXES for p in FAST_PACES
-           if mess.event_covers(cfg, p) == (engine == "event")]
-    cfg = dataclasses.replace(cfg, weave=engine)
-    paces = torch.tensor([p for p, _ in pts], dtype=torch.int32, device=dev)
-    wrs = torch.tensor([wr for _, wr in pts], dtype=torch.int32, device=dev)
-    frontend = workload.MessFrontend(paces, wrs, cfg.workload_config())
-    carry = platform._init_carry(cfg, frontend, len(pts), dev)
-    clock, wcfg = cfg.clock(), cfg.workload_config()
-    for i in range(w):
-        carry, _ = platform._window_step(cfg, clock, wcfg, frontend, carry,
-                                         i)
-    return cfg, clock, wcfg, frontend, carry
-
-
-def weave_batch(cfg, dev, engine, w):
-    """The main path's batch of one engine after window ``w``'s bound
-    phase and injection."""
-    from repro_torch.core import platform
-
-    cfg, clock, wcfg, frontend, carry = main_batch(cfg, dev, engine, w)
-    queue = platform._bound_inject(cfg, clock, wcfg, frontend, carry, w)[0]
-    return cfg, clock, platform._tick_kw(cfg, clock, dev), queue, carry[1]
-
-
-def inject_timing(cfg, dev, w=8):
+def inject_timing(dev, w=8):
     """`window_inject` at the main path's two batches (window ``w`` of the
     FAST sweep): the kernel's device time (its C entry point on prepared
     arguments, in a CUDA graph), one call of the card's route
@@ -1389,32 +1351,19 @@ def inject_timing(cfg, dev, w=8):
     route on the same state (its plain version), one whole
     `_window_step` on the card's routes, their agreement, and the bytes
     bound (every input read once, every output written once)."""
-    from repro_torch.core import addrmap, platform
-    from repro_torch.kernels.window_inject import ops as iops
+    from repro_torch.core import platform
 
     out = {}
     with torch.inference_mode():
         for engine in ("dense", "event"):
-            cfg_e, clock, wcfg, frontend, carry = main_batch(cfg, dev,
-                                                             engine, w)
+            cfg_e, clock, wcfg, frontend, carry = sweep_state(dev, engine, w)
             args = (cfg_e, clock, wcfg, frontend, carry, w)
             want = platform._bound_inject_eager(*args)
             got = platform._bound_inject_fused(*args)
             diff, same = max_diff(got, want)
-            queue, _, fstate, l_ir, lat_est = carry[:5]
-            cpu = cfg_e.platform.cpu
-            c_args, res = iops.prepare(
-                queue, fstate, frontend.pace, frontend.wr_num, l_ir,
-                lat_est, w=w, wcfg=wcfg, clock=clock,
-                mapping=addrmap.decode_route(wcfg.mapping, wcfg.dram),
-                window_cycles=cpu.window_cycles,
-                window_ps=cpu.window_cycles * cpu.cpu_ps_per_clk)
-            ms = device_ms(lambda: iops.launch(
-                c_args, torch.cuda.current_stream().cuda_stream), 20)
-            io_bytes = sum(x.numel() * x.element_size()
-                           for x in list(res["inputs"])
-                           + [res["queue"], res["core"], res["point"]])
-            B, C, Q = queue.valid.shape
+            launch, io_bytes = inject_launch(*args)
+            ms = device_ms(launch, 20)
+            B, C, Q = carry[0].valid.shape
             out[engine] = dict(
                 ms=ms, call_ms=time_ms(
                     lambda: platform._bound_inject_fused(*args), 50),
@@ -1504,7 +1453,7 @@ def trace_inject_timing(dev, w=8):
     return out
 
 
-def weave_timing(cfg, dev, w=8):
+def weave_timing(dev, w=8):
     """`weave_window` at the main path's two batches (window ``w`` of the
     FAST sweep): the kernel's device time (its C entry point on packed
     inputs, in a CUDA graph), one wrapper call (`_weave_fused`, packing
@@ -1512,13 +1461,11 @@ def weave_timing(cfg, dev, w=8):
     ~170 eager ops + one `frfcfs_select` per step), their agreement, and
     the bytes bound (state in and out once)."""
     from repro_torch.core import platform
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.weave_window import ops as wops
 
     out = {}
     with torch.inference_mode():
         for engine in ("dense", "event"):
-            cfg_e, clock, kw, queue, banks = weave_batch(cfg, dev, engine, w)
+            cfg_e, clock, kw, queue, banks = weave_state(dev, engine, w)
             args = (cfg_e, clock, kw, queue, banks, w)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1527,33 +1474,9 @@ def weave_timing(cfg, dev, w=8):
             plain_ms = (time.perf_counter() - t0) * 1e3
             got = platform._weave_fused(*args)
             diff, same = max_diff(got, want)
-
-            B, C, Q = queue.valid.shape
-            d = cfg_e.platform.dram
-            start, end = clock.window_start_tick(w), clock.window_end_tick(w)
-            n_steps = (cfg_e.event_budget() if engine == "event"
-                       else clock.ticks_per_window_static)
-            inp, res = wops.pack_inputs(queue, banks)
-            params = wops.pack_params(d, cfg_e.policy, **{
-                k: kw[k] for k in ("tick2cpu_num", "tick2cpu_den",
-                                   "cpu_ps_per_clk")})
-            c_params = (ctypes.c_int * len(params))(*params)
-            fn = _build.function("weave_window_launch", wops._ARGTYPES)
-            ptrs = [x.data_ptr() for x in inp.values()] + [
-                x.data_ptr() for x in res.values()]
-
-            def launch():
-                err = fn(*ptrs, ctypes.addressof(c_params), len(params),
-                         B * C, Q, d.banks_per_channel, d.ranks_per_channel,
-                         start, end, start + clock.ticks_per_window_static,
-                         n_steps, int(engine == "event"),
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"weave_window launch: error {err}")
-
+            launch, io_bytes, n_steps = weave_launch(*args)
             ms = device_ms(launch, 5)
-            io_bytes = sum(x.numel() * x.element_size()
-                           for x in list(inp.values()) + list(res.values()))
+            B, C, Q = queue.valid.shape
             out[engine] = dict(
                 ms=ms, us_per_step=ms * 1e3 / n_steps,
                 call_ms=time_ms(lambda: platform._weave_fused(*args), 5),
@@ -3299,6 +3222,165 @@ def weave_bench_phase(dev):
     return dict(launches, wall_s=wall)
 
 
+def replay_equal(got, want):
+    """Keys whose arrays differ between two replay dicts (bit for bit;
+    NaN equal to NaN)."""
+    return sorted(k for k, v in want.items()
+                  if k not in got or not np.array_equal(
+                      got[k], v, equal_nan=v.dtype.kind == "f"))
+
+
+def placement_sweep(cfg, devices, grid):
+    """The FAST sweep's engine (`mess._run_points` over ``grid``, the
+    body of `sweep`) on ``devices``: ``(out, wall_s, launches)``."""
+    from repro_torch import kernels
+    from repro_torch.core import mess
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = mess._run_points(cfg, *grid, devices)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, kernels.launch_counts()
+
+
+def placement_cli(tmp):
+    """``python -m repro_torch.bench.run`` in a process of its own:
+    ``--list``, ``--only kernels`` and ``--only fig5`` into ``tmp``.
+    Returns the listed names, the kernels' rows and fig5's CSV."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def run(*args):
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.bench.run",
+                               *args], capture_output=True, text=True,
+                              env=env, cwd=ROOT, timeout=600)
+        if proc.returncode:
+            raise AssertionError(f"bench.run {' '.join(args)} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        return proc.stdout.splitlines()
+
+    listed = [ln.split()[0] for ln in run("--list")]
+    rows = []
+    for ln in run("--only", "kernels", "--out-dir", str(tmp / "kernels")):
+        if ln.startswith("kernel."):
+            name, us, derived = ln.split(",", 2)
+            rows.append({"name": name, "device_us": float(us),
+                         "derived": derived})
+    run("--only", "fig5", "--out-dir", str(tmp / "cli"))
+    return listed, rows, (tmp / "cli" / "fig5_model_correct.csv").read_text()
+
+
+def placement_phase(dev):
+    """15. The batch axis split into chunks (`core.shard`): (a) the main
+    path's FAST sweep on ``[dev] * k``, k = 1-4, every key equal to
+    k = 1 and to the main path's views, launches k per window and engine
+    batch, and over every card when there is more than one; (b) the
+    stage-10 FULL replay of the six apps on ``[dev] * 4`` equal to one
+    device, at the stage's own budget and at one that sends every row to
+    the dense re-run; (c) the benchmark CLI in its own processes.
+    Returns the launches by k and the kernels bench's rows."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.bench import app_validation as av
+    from repro_torch.bench import fig5_model_correct, registry
+    from repro_torch.core import get_stage, mess
+    from repro_torch.traces import make_suite, replay_suite, stack_traces, to
+
+    cfg = get_stage("07-prefetch", windows=48, warmup=16)
+    grid = ([p for _ in FAST_MIXES for p in FAST_PACES],
+            [wr for wr in FAST_MIXES for _ in FAST_PACES])
+    n_event = sum(mess.event_covers(cfg, p) for p in grid[0])
+    batches = [n for n in (n_event, len(grid[0]) - n_event) if n]
+    runs, bad = {}, []
+    whole = None
+    for k in PLACEMENT_SPLITS:
+        out, wall, n = placement_sweep(cfg, [dev] * k, grid)
+        whole = out if whole is None else whole
+        want = cfg.windows * sum(min(k, b) for b in batches)
+        runs[k] = {"wall_s": wall, "launches": n,
+                   "expected_launches": want,
+                   "differs": replay_equal(out, whole)}
+        if (runs[k]["differs"] or n["window_inject"] != want
+                or n["weave_window"] != want or n["decode_packed"]
+                or n["frfcfs_select"]):
+            bad.append((k, runs[k]))
+    main_views = mess.sweep(cfg, paces=FAST_PACES, write_mixes=FAST_MIXES)
+    for f, key in (("sim_bw", "sim_bw_gbs"), ("app_lat", "app_lat_ns"),
+                   ("chase_lat", "chase_lat_ns")):
+        if not np.array_equal(getattr(main_views, f).reshape(-1),
+                              whole[key]):
+            bad.append(("device=None vs one card", f))
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    every = None
+    if n_cards > 1:
+        out, wall, n = placement_sweep(cfg, cards, grid)
+        every = {"cards": n_cards, "wall_s": wall, "launches": n,
+                 "differs": replay_equal(out, whole)}
+        if every["differs"]:
+            bad.append(("every card", every))
+    emit({"phase": "placement", "part": "sweep", "stage": cfg.name,
+          "preset": "ddr4_2666", "points": len(grid[0]),
+          "engine_batches": batches, "splits": runs, "every_card": every})
+    if every is None:
+        emit({"phase": "placement", "part": "every_card",
+              "note": "only one card was present: the sweep over every "
+                      "card is the k = 1 run"})
+
+    rcfg = get_stage(PLACEMENT_REPLAY_STAGE, windows=av.FULL["windows"],
+                     warmup=av.FULL["warmup"], telemetry=True)
+    batch = to(stack_traces(make_suite(n=av.FULL["n"])[1]), dev)
+    replays = {}
+    for budget in (None, PLACEMENT_RERUN_BUDGET):
+        c = rcfg if budget is None else dataclasses.replace(
+            rcfg, weave_events=budget)
+        cases = [("one", [dev]), ("four", [dev] * 4)]
+        if n_cards > 1:
+            cases.append(("every_card", cards))
+        row, outs = {}, {}
+        for name, devices in cases:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs[name] = replay_suite(c, batch, device=devices)
+            row[name] = {"wall_s": time.perf_counter() - t0,
+                         "launches": kernels.launch_counts()}
+        reruns = int((outs["one"]["weave_sat"] > 0).sum())
+        for name in outs:
+            row[name]["differs"] = replay_equal(outs[name], outs["one"])
+            if row[name]["differs"]:
+                bad.append(("replay", budget, name, row[name]["differs"]))
+        if budget is not None and reruns != len(outs["one"]["weave_sat"]):
+            bad.append(("replay", budget, "dense re-runs", reruns))
+        replays[str(budget or c.event_budget())] = dict(row,
+                                                        dense_reruns=reruns)
+    emit({"phase": "placement", "part": "replay", "stage": rcfg.name,
+          "knobs": av.FULL, "by_event_budget": replays})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        listed, bench_rows, fig5_cli = placement_cli(tmp)
+        cli_wall = time.perf_counter() - t0
+        fig5_model_correct.main(out_dir=tmp / "direct")
+        fig5_direct = (tmp / "direct" / "fig5_model_correct.csv").read_text()
+    names = list(registry.BENCHMARKS)
+    if listed != names:
+        bad.append(("--list", listed))
+    mismatched = [r["name"] for r in bench_rows if "match=True" not in
+                  r["derived"]]
+    if mismatched or len(bench_rows) != PLACEMENT_BENCH_ROWS:
+        bad.append(("kernels bench", mismatched, len(bench_rows)))
+    if fig5_cli != fig5_direct:
+        bad.append(("fig5 CSV through the CLI differs from a direct run",))
+    emit({"phase": "placement", "part": "cli", "listed": listed,
+          "kernels_bench": bench_rows, "fig5_csv_equal":
+          fig5_cli == fig5_direct, "fig5_rows": len(fig5_cli.splitlines()),
+          "wall_s": cli_wall})
+    if bad:
+        raise AssertionError(f"placement: {bad}")
+    return {k: r["launches"] for k, r in runs.items()}, bench_rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3308,8 +3390,6 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.addr_decode import (decode_packed,
                                                  decode_packed_plain)
-    from repro_torch.kernels.addr_decode import ops as decode_ops
-    from repro_torch.kernels.addr_decode.ref import to_int32_bits
     from repro_torch.kernels.bank_timing import frfcfs_select, select_plain
     from repro_torch.kernels.weave_window import weave_window
 
@@ -3380,20 +3460,10 @@ def main():
     # channels x 256), decode_packed at the trace route's window batch
     rows, Q = n_dense * cfg.platform.dram.n_channels, 256
     planes, scal = select_inputs(rng, rows, Q, dev)
-    launch = _build.function("decode_packed_launch", decode_ops._ARGTYPES)
 
     def decode_kernel(n):
         """The kernel's C entry point on ``n`` prepared lines."""
-        bits = to_int32_bits(chase_lines(rng, n, dev)
-                             & 0xFFFFFFFF).contiguous()
-        out = torch.empty_like(bits)
-
-        def run():
-            err = launch(bits.data_ptr(), out.data_ptr(), n,
-                         torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"decode_packed launch: CUDA error {err}")
-        return run
+        return decode_launch(chase_lines(rng, n, dev))
 
     lines = chase_lines(rng, n_replay, dev)
 
@@ -3480,8 +3550,8 @@ def main():
     # the weave phase's device time (one more sweep, profiled) and the
     # kernel at the main path's two batches
     prof = profile_sweep(cfg, wall)
-    timing["weave_window"] = weave_timing(cfg, dev)
-    timing["window_inject"] = inject_timing(cfg, dev)
+    timing["weave_window"] = weave_timing(dev)
+    timing["window_inject"] = inject_timing(dev)
     timing["window_inject_trace"] = trace_inject_timing(dev)
     weave_dev_s = prof.get("weave_device_s")
     idle_share = prof.get("idle_share_of_unprofiled_wall")
@@ -3531,7 +3601,7 @@ def main():
     persp_launches, persp_wall = perspectives_phase(dev)
     oracle_launches = cmd_oracle_phase(dev)
     persp_cfg, persp_state = perspectives_state(dev)
-    timing["weave_window_recording"] = record_timing(cfg, dev, persp_cfg,
+    timing["weave_window_recording"] = record_timing(dev, persp_cfg,
                                                      persp_state)
 
     # ---- 10-11. the dense LM serving path, and its card-vs-CPU parity ----
@@ -3549,6 +3619,9 @@ def main():
     serve = serving_phase(dev)
     figs = figures_phase(dev)
     wbench = weave_bench_phase(dev)
+
+    # ---- 15. the batch axis in chunks, and the benchmark CLI --------------
+    placement_launches, bench_rows = placement_phase(dev)
 
     # ---- the kernel table, the card, the result ---------------------------
     # launches: weave_window / window_inject from the main path's sweep
@@ -3642,6 +3715,9 @@ def main():
     timing["flash_attention"] = flash_timing["sm90_bf16"]
     max_err["flash_attention"] = flash_err["sm90_bf16/bfloat16"]
     table = []
+    # the kernels bench's rows (device µs per launch, in the CLI's run)
+    bench_us = {r["name"].split(".")[-1]: r["device_us"] for r in bench_rows}
+    bench_us["flash_attention"] = bench_us.pop("sm90_bf16")
     for name, (src, replaces) in sources.items():
         t = timing[name]
         by_flops = "flops" in t
@@ -3656,6 +3732,11 @@ def main():
                       "bound_by": "operations" if by_flops else "bytes",
                       "library_ms": t.get("library_ms"),
                       "shape": t["shape"]})
+        if name in bench_us:
+            table[-1]["kernels_bench_device_us"] = bench_us[name]
+        if name in ("weave_window", "window_inject"):
+            table[-1]["placement_sweep_launches"] = {
+                k: n[name] for k, n in placement_launches.items()}
         if name == "weave_window":
             table[-1].update({k: t[k] for k in (
                 "us_per_step", "ms_event", "us_per_step_event",

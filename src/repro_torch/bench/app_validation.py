@@ -21,13 +21,16 @@ row also carries the interface-latency percentiles (``if_p50_ns`` /
 ``tele_hist_if_ps`` histogram; on the card the weave is then the
 telemetry instance of `weave_window`.
 
-CSV: ``reports/torch/app_validation[_<preset>][_2s].csv``, one row per
-(stage, app), and ``app_validation_mix[...]``, one row per (stage, mix,
-app), with the JAX benchmark's columns.
+CSV: ``<out_dir>/app_validation[_<preset>][_2s].csv`` (by default
+``reports/torch/``), one row per (stage, app), and
+``app_validation_mix[...]``, one row per (stage, mix, app), with the JAX
+benchmark's columns.  ``main`` and ``main_mix`` are the reference's
+entry points (`bench.registry`'s ``app_validation`` and ``app_mix``);
+``--grid`` runs every preset.
 
 Usage (on the card; ``--device cpu`` runs the plain versions):
     python -m repro_torch.bench.app_validation [--full] [--preset P]
-                                               [--mix] [--sockets N]
+        [--grid] [--mix] [--sockets N] [--device D] [--out-dir DIR]
 """
 from __future__ import annotations
 
@@ -37,8 +40,8 @@ import time
 
 from repro_torch import kernels
 from repro_torch.core import get_stage
-from repro_torch.core.platform import resolve_device
 from repro_torch.core.presets import PRESET_ORDER
+from repro_torch.core.shard import resolve_devices
 from repro_torch.core.workload import N_CORES_PER_SOCKET
 from repro_torch.obs.telemetry import hist_percentiles
 from repro_torch.traces import (anchor_mix_ms, anchor_suite_ms,
@@ -80,9 +83,10 @@ def _suffix(preset: str, sockets: int) -> str:
         "" if sockets == 1 else f"_{sockets}s")
 
 
-def _write_csv(rows, name: str) -> pathlib.Path:
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    path = OUT_DIR / f"{name}.csv"
+def _write_csv(rows, name: str, out_dir=None) -> pathlib.Path:
+    out_dir = pathlib.Path(OUT_DIR if out_dir is None else out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"{name}.csv"
     with open(path, "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=list(rows[0]))
         w.writeheader()
@@ -102,18 +106,21 @@ def _timed(fn):
 
 
 def run_preset(preset: str = "ddr4_2666", full: bool = False,
-               stages=STAGES, sockets: int = 1, device=None) -> dict:
+               stages=STAGES, sockets: int = 1, device=None,
+               out_dir=None) -> dict:
     """Validate one device preset across the stage progression.
 
-    Returns ``{stage: replay_suite(...)}``, each result with ``apps``
-    (the app names), ``anchor_ms``, ``mape_pct``, ``wall_s`` (the
-    stage's replay, dense re-runs included) and ``launches`` (kernel
-    launches during the stage) added.
+    ``device``: as `replay.replay_suite` (``None``: the card; a list
+    spreads the app axis over its devices).  Returns ``{stage:
+    replay_suite(...)}``, each result with ``apps`` (the app names),
+    ``anchor_ms``, ``mape_pct``, ``wall_s`` (the stage's replay, dense
+    re-runs included) and ``launches`` (kernel launches during the
+    stage) added.
     """
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
     knobs = FULL if full else FAST
     names, traces = make_suite(n=knobs["n"])
-    batch = to(stack_traces(traces), dev)
+    batch = to(stack_traces(traces), devices[0])
     anchors = anchor_suite_ms(traces, preset, n_sockets=sockets)
 
     tag = f"app_validation{_suffix(preset, sockets)}"
@@ -124,7 +131,7 @@ def run_preset(preset: str = "ddr4_2666", full: bool = False,
                         warmup=knobs["warmup"], n_sockets=sockets,
                         telemetry=True)
         out, wall, launches = _timed(
-            lambda: replay_suite(cfg, batch, device=dev))
+            lambda: replay_suite(cfg, batch, device=devices))
         err = mape(out["runtime_ms"], anchors)
         out.update(apps=names, anchor_ms=anchors, mape_pct=err,
                    wall_s=wall, launches=launches)
@@ -145,7 +152,7 @@ def run_preset(preset: str = "ddr4_2666", full: bool = False,
                 app_lat_ns=f"{out['app_lat_ns'][i]:.1f}",
                 sim_bw_gbs=f"{out['sim_bw_gbs'][i]:.1f}",
             ))
-    _write_csv(rows, tag)
+    _write_csv(rows, tag, out_dir)
     first, last = (results[s]["mape_pct"] for s in (stages[0], stages[-1]))
     emit(f"app_validation.{mtag}.baseline_vs_corrected",
          sum(r["wall_s"] for r in results.values())
@@ -155,7 +162,8 @@ def run_preset(preset: str = "ddr4_2666", full: bool = False,
 
 
 def run_mixes(preset: str = "ddr4_2666", full: bool = False,
-              stages=MIX_STAGES, sockets: int = 1, device=None) -> dict:
+              stages=MIX_STAGES, sockets: int = 1, device=None,
+              out_dir=None) -> dict:
     """Multiprogrammed validation: per-app-in-mix runtime MAPE.
 
     All mixes of `MIXES` replay as one batched call per stage, and each
@@ -164,7 +172,7 @@ def run_mixes(preset: str = "ddr4_2666", full: bool = False,
     ``mix_mape_pct`` (one MAPE per mix), ``anchor_ms`` (per mix), the
     solo replay's ``solo_runtime_ms`` and ``wall_s`` added.
     """
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
     knobs = FULL if full else FAST
     n_cores = N_CORES_PER_SOCKET * sockets
 
@@ -175,14 +183,14 @@ def run_mixes(preset: str = "ddr4_2666", full: bool = False,
         cores = [asn.count(a) for a in range(len(traces))]
         built.append((mix_name, names, traces, cores,
                       assign_traces(traces, asn)))
-    mix_batch = to(stack_mixes([b[4] for b in built]), dev)
+    mix_batch = to(stack_mixes([b[4] for b in built]), devices[0])
     anchors = [anchor_mix_ms(traces, cores, preset, n_sockets=sockets)
                for _, _, traces, cores, _ in built]
 
     # solo baselines: only the kernels that appear in a mix
     used = tuple(dict.fromkeys(k for _, ks in MIXES for k in ks))
     solo_names, solo_traces = make_suite(n=knobs["n"], names=used)
-    solo_batch = to(stack_traces(solo_traces), dev)
+    solo_batch = to(stack_traces(solo_traces), devices[0])
     solo_anchor = dict(zip(solo_names, anchor_suite_ms(
         solo_traces, preset, n_sockets=sockets)))
 
@@ -193,8 +201,8 @@ def run_mixes(preset: str = "ddr4_2666", full: bool = False,
                         warmup=knobs["warmup"], n_sockets=sockets,
                         telemetry=True)
         (out, solo), wall, _ = _timed(lambda: (
-            replay_mixes(cfg, mix_batch, device=dev),
-            replay_suite(cfg, solo_batch, device=dev)))
+            replay_mixes(cfg, mix_batch, device=devices),
+            replay_suite(cfg, solo_batch, device=devices)))
         us = wall / len(built) * 1e6
         solo_rt = dict(zip(solo_names, solo["runtime_ms"]))
         errs = []
@@ -220,27 +228,47 @@ def run_mixes(preset: str = "ddr4_2666", full: bool = False,
         out.update(mixes=[(b[0], b[1]) for b in built], anchor_ms=anchors,
                    mix_mape_pct=errs, solo_runtime_ms=solo_rt, wall_s=wall)
         results[stage] = out
-    _write_csv(rows, f"app_validation_mix{_suffix(preset, sockets)}")
+    _write_csv(rows, f"app_validation_mix{_suffix(preset, sockets)}",
+               out_dir)
     return results
 
 
-def main(argv=None):
+def main(full: bool = False, preset: str = "ddr4_2666", grid: bool = False,
+         mix: bool = False, sockets: int = 1, device=None,
+         out_dir=None) -> dict:
+    """The reference's entry point: ``{preset: run_preset(...)}`` (or
+    `run_mixes` with ``mix``) for ``preset``, or every preset with
+    ``grid``."""
+    presets = PRESET_ORDER if grid else (preset,)
+    run = run_mixes if mix else run_preset
+    return {p: run(p, full=full, sockets=sockets, device=device,
+                   out_dir=out_dir)
+            for p in presets}
+
+
+def main_mix(full: bool = False, **kw) -> dict:
+    """The multiprogrammed-mix entry point (``app_mix``): `main` with
+    ``mix``, over every preset unless ``grid=False``."""
+    kw.setdefault("grid", True)
+    return main(full=full, mix=True, **kw)
+
+
+if __name__ == "__main__":
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--preset", default="ddr4_2666",
                     choices=list(PRESET_ORDER))
+    ap.add_argument("--grid", action="store_true",
+                    help="run the full preset x stage x app grid")
     ap.add_argument("--mix", action="store_true",
                     help="multiprogrammed per-core trace mixes")
     ap.add_argument("--sockets", type=int, default=1, choices=(1, 2))
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
-    args = ap.parse_args(argv)
-    run = run_mixes if args.mix else run_preset
-    return run(args.preset, full=args.full, sockets=args.sockets,
-               device=args.device)
-
-
-if __name__ == "__main__":
-    main()
+    ap.add_argument("--out-dir", default=OUT_DIR,
+                    help="directory of the CSVs (default: reports/torch)")
+    args = ap.parse_args()
+    main(full=args.full, preset=args.preset, grid=args.grid, mix=args.mix,
+         sockets=args.sockets, device=args.device, out_dir=args.out_dir)

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import time
 
 import numpy as np
@@ -163,9 +164,9 @@ def run_cell(stage, preset, frontend, windows, device=None):
     return cell, streams["dense"]
 
 
-def main(full: bool = False, device=None) -> dict:
-    """Every cell of `SMOKE` (or `FULL`); writes the artifacts.  Raises
-    when a cell fails."""
+def main(full: bool = False, device=None, out_dir=None) -> dict:
+    """Every cell of `SMOKE` (or `FULL`); writes the artifacts into
+    ``out_dir`` (by default `OUT_DIR`).  Raises when a cell fails."""
     dev = resolve_device(device)
     cells, export_stream = [], None
     for stage, preset, frontend, windows in (FULL if full else SMOKE):
@@ -184,9 +185,10 @@ def main(full: bool = False, device=None) -> dict:
                   all_ok=all(c["ok"] for c in cells), cells=cells)
     # one exported Ramulator2-style trace, schema-gated
     s, preset = export_stream
-    path = OUT_DIR / f"cmd_oracle_{preset}.cmd.trace"
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
-    with open(OUT_DIR / "cmd_oracle.json", "w") as f:
+    out_dir = pathlib.Path(OUT_DIR if out_dir is None else out_dir)
+    path = out_dir / f"cmd_oracle_{preset}.cmd.trace"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "cmd_oracle.json", "w") as f:
         json.dump(report, f, indent=2)
         f.write("\n")
     text = to_cmd_trace(s, path=path, preset=preset)
@@ -195,7 +197,7 @@ def main(full: bool = False, device=None) -> dict:
          f"exported={path.name}")
     if not report["all_ok"]:
         raise SystemExit("cmd_oracle: a grid cell failed "
-                         f"(see {OUT_DIR / 'cmd_oracle.json'})")
+                         f"(see {out_dir / 'cmd_oracle.json'})")
     return report
 
 
@@ -206,8 +208,10 @@ def cli(argv=None):
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--out-dir", default=OUT_DIR,
+                    help="directory of the reports (default: reports/torch)")
     args = ap.parse_args(argv)
-    return main(full=args.full, device=args.device)
+    return main(full=args.full, device=args.device, out_dir=args.out_dir)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ Usage (on the card; ``--device cpu`` runs the plain versions, slowly):
 from __future__ import annotations
 
 import json
+import pathlib
 import time
 
 from repro_torch import kernels, obs
@@ -78,10 +79,11 @@ def run_stage(stage: str, preset: str, windows: int, warmup: int, n: int,
 
 
 def main(full: bool = False, preset: str = "ddr4_2666", device=None,
-         stages=LADDER, write: bool = True) -> dict:
-    """The divergence ladder over ``stages``; writes the artifacts unless
-    ``write`` is False.  Returns the report (the reference's keys, plus
-    ``wall_s`` and ``launches`` per stage)."""
+         stages=LADDER, write: bool = True, out_dir=None) -> dict:
+    """The divergence ladder over ``stages``; writes the artifacts into
+    ``out_dir`` (by default `OUT_DIR`) unless ``write`` is False.
+    Returns the report (the reference's keys, plus ``wall_s`` and
+    ``launches`` per stage)."""
     dev = resolve_device(device)
     knobs = FULL if full else SMOKE
     records, walls, launches = {}, {}, {}
@@ -108,14 +110,15 @@ def main(full: bool = False, preset: str = "ddr4_2666", device=None,
          f"monotone_ok={report['monotone_ok']}")
     if not write:
         return report
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = pathlib.Path(OUT_DIR if out_dir is None else out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
     sfx = _suffix(preset)
-    with open(OUT_DIR / f"perspectives{sfx}.json", "w") as f:
+    with open(out_dir / f"perspectives{sfx}.json", "w") as f:
         json.dump(report, f, indent=2)
         f.write("\n")
     # the final stage's timeline, schema-checked
     trace = obs.to_perfetto(records[stages[-1]],
-                            path=OUT_DIR / f"perspectives{sfx}_trace.json")
+                            path=out_dir / f"perspectives{sfx}_trace.json")
     obs.validate_perfetto(trace)
     return report
 
@@ -145,14 +148,18 @@ def cli(argv=None):
     ap.add_argument("--preset", default="ddr4_2666")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--out-dir", default=OUT_DIR,
+                    help="directory of the reports (default: reports/torch)")
     ap.add_argument("--table", action="store_true",
                     help="print the saved report as a markdown table")
     args = ap.parse_args(argv)
     if args.table:
-        path = OUT_DIR / f"perspectives{_suffix(args.preset)}.json"
+        path = (pathlib.Path(args.out_dir)
+                / f"perspectives{_suffix(args.preset)}.json")
         print(ladder_table(json.loads(path.read_text())))
         return None
-    return main(full=args.full, preset=args.preset, device=args.device)
+    return main(full=args.full, preset=args.preset, device=args.device,
+                out_dir=args.out_dir)
 
 
 if __name__ == "__main__":

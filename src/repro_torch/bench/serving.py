@@ -44,7 +44,7 @@ from repro_torch import kernels
 from repro_torch.bench.util import OUT_DIR, emit
 from repro_torch.configs.registry import get_config
 from repro_torch.core import get_stage
-from repro_torch.core.platform import resolve_device
+from repro_torch.core.shard import resolve_devices
 from repro_torch.kernels.weave_window import weave_window
 from repro_torch.obs import hist_percentiles
 from repro_torch.traces import (ServeScenario, lower_scenario,
@@ -108,17 +108,17 @@ def serve_grid(models, presets, rates, *, arrival: str = "poisson",
                n_requests: int = 12, n_slots: int = 4,
                windows: int = 6, device=None) -> list[dict]:
     """Lower + replay the grid; one batched replay per preset on
-    ``device`` (``None``: the card)."""
-    dev = resolve_device(device)
+    ``device`` (``None``: the card; as `replay.replay_suite`)."""
+    devices = resolve_devices(device)
     cells = []
     scns, lowered = lower_grid(models, rates, arrival=arrival,
                                n_requests=n_requests, n_slots=n_slots)
-    batch = to(stack_traces([tr for tr, _, _ in lowered]), dev)
+    batch = to(stack_traces([tr for tr, _, _ in lowered]), devices[0])
     for preset in presets:
         cfg = _stage_cfg(preset, windows=windows)
         before = kernel_launches()
         t0 = time.perf_counter()
-        out = replay_suite(cfg, batch, device=dev)
+        out = replay_suite(cfg, batch, device=devices)
         wall = time.perf_counter() - t0       # the results are on the host
         after = kernel_launches()
         launches = {k: after[k] - before[k] for k in after}

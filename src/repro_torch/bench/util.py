@@ -14,7 +14,7 @@ import time
 from repro_torch.bench.app_validation import OUT_DIR
 from repro_torch.core import get_stage, sweep
 from repro_torch.core.mess import DEFAULT_PACES, WRITE_MIXES
-from repro_torch.core.platform import resolve_device
+from repro_torch.core.shard import resolve_devices
 
 #: CI-speed defaults; ``full=True`` runs the paper-resolution sweeps
 FAST_PACES = (1, 4, 12, 24, 48, 64)
@@ -30,17 +30,18 @@ def preset_suffix(preset: str) -> str:
 def run_sweep(stage: str, *, full: bool = False,
               preset: str = "ddr4_2666", device=None):
     """One stage's Mess sweep at the figures' settings on ``device``
-    (``None``: the card); ``(SweepResult, us per simulated point)``.
+    (``None``: the card; as `mess.sweep`); ``(SweepResult, us per
+    simulated point)``.
 
     Prints a ``sweep.<stage>[_<preset>]`` line with the sweep's wall.
     """
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
     kw = {} if full else FAST_WINDOWS
     cfg = get_stage(stage, preset=preset, **kw)
     t0 = time.perf_counter()
     res = sweep(cfg, paces=DEFAULT_PACES if full else FAST_PACES,
                 write_mixes=WRITE_MIXES if full else FAST_MIXES,
-                device=dev)
+                device=devices)
     wall = time.perf_counter() - t0           # the views are on the host
     n_points = len(res.paces) * len(res.write_mixes)
     us = wall / n_points * 1e6

@@ -38,7 +38,8 @@ import torch
 
 from repro_torch.bench.util import OUT_DIR, emit
 from repro_torch.core import get_stage, sweep
-from repro_torch.core.platform import resolve_device, run_point
+from repro_torch.core.platform import run_point
+from repro_torch.core.shard import resolve_devices
 
 STAGE = "10-delay-buffer"
 SMOKE = dict(windows=16, warmup=4, presets=("ddr4_2666",),
@@ -50,11 +51,11 @@ FULL = dict(windows=48, warmup=16,
 REPORT = "BENCH_weave.json"
 
 
-def _time_sweep(cfg, paces, mixes, dev):
+def _time_sweep(cfg, paces, mixes, devices):
     """Steady-state sweep wall-clock (the second of two runs)."""
-    sweep(cfg, paces=paces, write_mixes=mixes, device=dev)
+    sweep(cfg, paces=paces, write_mixes=mixes, device=devices)
     t0 = time.perf_counter()
-    sweep(cfg, paces=paces, write_mixes=mixes, device=dev)
+    sweep(cfg, paces=paces, write_mixes=mixes, device=devices)
     return time.perf_counter() - t0           # the views are on the host
 
 
@@ -87,16 +88,16 @@ def _event_diag(cfg, paces, dev):
 
 def bench_preset(preset: str, windows: int, warmup: int, paces, mixes,
                  device=None) -> dict:
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
     base = get_stage(STAGE, preset=preset, windows=windows, warmup=warmup)
     cfg_d = dataclasses.replace(base, weave="dense")
     cfg_e = dataclasses.replace(base, weave="event")
     clock = base.clock()
     n_windows = len(paces) * len(mixes) * windows
 
-    wall_d = _time_sweep(cfg_d, paces, mixes, dev)
-    wall_e = _time_sweep(cfg_e, paces, mixes, dev)
-    pace_diag, rate_fit = _event_diag(cfg_e, paces, dev)
+    wall_d = _time_sweep(cfg_d, paces, mixes, devices)
+    wall_e = _time_sweep(cfg_e, paces, mixes, devices)
+    pace_diag, rate_fit = _event_diag(cfg_e, paces, devices[0])
     row = dict(
         ticks_per_window=clock.ticks_per_window_static,
         event_budget=base.event_budget(),
@@ -121,13 +122,13 @@ def bench_preset(preset: str, windows: int, warmup: int, paces, mixes,
 
 def main(full: bool = False, preset: str | None = None, device=None,
          out_dir=OUT_DIR) -> dict:
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
     knobs = dict(FULL if full else SMOKE)
     if preset:
         knobs["presets"] = (preset,)
     presets = {
         p: bench_preset(p, knobs["windows"], knobs["warmup"],
-                        knobs["paces"], knobs["mixes"], dev)
+                        knobs["paces"], knobs["mixes"], device)
         for p in knobs["presets"]
     }
     report = dict(
@@ -136,8 +137,8 @@ def main(full: bool = False, preset: str | None = None, device=None,
         windows=knobs["windows"],
         paces=list(knobs["paces"]),
         write_mixes=list(knobs["mixes"]),
-        device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                else dev.type),
+        device=(torch.cuda.get_device_name(devices[0])
+                if devices[0].type == "cuda" else devices[0].type),
         presets=presets,
     )
     out_dir = pathlib.Path(out_dir)

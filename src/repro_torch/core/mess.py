@@ -7,7 +7,9 @@ probe observes.  `sweep` drives `platform.run_point` over the
 (pace x write-mix) grid.  The points are independent, so every point
 that one weave engine serves runs in **one batched call**, across all
 mixes — the batch axis takes the place of the reference's per-mix
-``vmap``.  Results are plain numpy arrays.
+``vmap`` — and `shard.sharded_vmap` spreads that batch over the devices
+it is given, as the reference shards it over its devices.  Results are
+plain numpy arrays.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import pathlib
 
 import numpy as np
 
-from repro_torch.core.platform import StageConfig, resolve_device, run_point
+from repro_torch.core.platform import StageConfig, run_point
+from repro_torch.core.shard import resolve_devices, sharded_vmap
 
 #: write-fraction numerators out of 64 -> read fractions 100..50%
 WRITE_MIXES = (0, 8, 16, 24, 32)
@@ -134,8 +137,14 @@ def event_covers(cfg: StageConfig, pace: int) -> bool:
     return est <= cfg.event_budget()
 
 
-def _batch(cfg: StageConfig, paces, wrs, device) -> dict:
-    out = run_point(cfg, list(paces), list(wrs), device=device)
+def _batch(cfg: StageConfig, paces, wrs, devices) -> dict:
+    """One engine batch of points, split over ``devices``; numpy arrays,
+    one row per point."""
+    def chunk(pw, dev):
+        return run_point(cfg, pw[0].tolist(), pw[1].tolist(), device=dev)
+
+    pw = (np.asarray(paces, np.int32), np.asarray(wrs, np.int32))
+    out = sharded_vmap(chunk, devices)(pw)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
@@ -146,19 +155,21 @@ def _run_points(cfg: StageConfig, paces, wrs, device=None) -> dict:
     suffices (`event_covers`) run the event engine in one batch; the
     rest, and any event point that still reports ``weave_sat``, run the
     dense reference in one batch.  The result is bit-identical to an
-    all-dense run by construction.  Returns one array per view key,
-    one row per point.
+    all-dense run by construction.  Each batch spreads over ``device``
+    (`shard.resolve_devices`: a list spreads, anything else is one
+    device).  Returns one array per view key, one row per point.
     """
     n = len(paces)
+    devices = resolve_devices(device)
     if cfg.weave != "event":
-        return _batch(cfg, paces, wrs, device)
+        return _batch(cfg, paces, wrs, devices)
     _ensure_calibration()
     ev = [i for i in range(n) if event_covers(cfg, paces[i])]
     dn = [i for i in range(n) if i not in ev]
     parts = []
     if ev:
         out = _batch(cfg, [paces[i] for i in ev], [wrs[i] for i in ev],
-                     device)
+                     devices)
         sat = out["weave_sat"] > 0
         if sat.any():                       # estimator missed: go exact
             dn += [ev[j] for j in np.flatnonzero(sat)]
@@ -169,7 +180,7 @@ def _run_points(cfg: StageConfig, paces, wrs, device=None) -> dict:
     if dn:
         parts.append((dn, _batch(dataclasses.replace(cfg, weave="dense"),
                                  [paces[i] for i in dn],
-                                 [wrs[i] for i in dn], device)))
+                                 [wrs[i] for i in dn], devices)))
     merged = {}
     for k, proto in parts[0][1].items():
         col = np.empty((n,) + proto.shape[1:], proto.dtype)
@@ -189,10 +200,14 @@ def sweep(cfg: StageConfig, paces=DEFAULT_PACES, write_mixes=WRITE_MIXES,
     """Run the Mess characterization of one simulation stage.
 
     Every (mix, pace) point of the grid is knee-routed by `_run_points`
-    in one pass, so each weave engine runs once for the whole grid.
-    ``device=None`` means ``"cuda"``.  ``cfg.telemetry`` runs through the
-    merge (its planes are per window, shaped alike on both engines);
-    ``cfg.cmd_trace`` raises, as the reference's does.
+    in one pass, so each weave engine runs once for the whole grid, its
+    batch on ``device``: ``None`` means the card, an explicit device
+    (``"cuda:k"``, ``"cpu"``) that device, a list of devices spreads the
+    batch over them (a device may repeat: chunks on one card).  The
+    result is bit-identical however the batch is split.
+    ``cfg.telemetry`` runs through the merge (its planes are per window,
+    shaped alike on both engines); ``cfg.cmd_trace`` raises, as the
+    reference's does.
     """
     if cfg.cmd_trace:
         # the per-step `cmd_*` records have engine-dependent step axes
@@ -202,11 +217,11 @@ def sweep(cfg: StageConfig, paces=DEFAULT_PACES, write_mixes=WRITE_MIXES,
         raise ValueError("cmd_trace is unsupported in mess.sweep's "
                          "knee-routed engine mix; run run_frontend "
                          "with an explicit weave engine instead")
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
     paces, write_mixes = tuple(paces), tuple(write_mixes)
     grid_p = [p for _ in write_mixes for p in paces]
     grid_w = [wr for wr in write_mixes for _ in paces]
-    out = _run_points(cfg, grid_p, grid_w, dev)
+    out = _run_points(cfg, grid_p, grid_w, devices)
     shape = (len(write_mixes), len(paces))
     views = dict(sim_bw="sim_bw_gbs", sim_lat="sim_lat_ns",
                  if_bw="if_bw_gbs", if_lat="if_lat_ns",

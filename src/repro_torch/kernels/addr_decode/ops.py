@@ -34,8 +34,10 @@ def decode_packed(lines):
     bits = to_int32_bits(lines.reshape(-1) & 0xFFFFFFFF).contiguous()
     out = torch.empty_like(bits)
     fn = _build.function("decode_packed_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(lines.device).cuda_stream
-    err = fn(bits.data_ptr(), out.data_ptr(), bits.numel(), stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(lines.device):
+        stream = torch.cuda.current_stream(lines.device).cuda_stream
+        err = fn(bits.data_ptr(), out.data_ptr(), bits.numel(), stream)
     if err:
         raise RuntimeError(f"decode_packed launch failed: CUDA error {err}")
     decode_packed.launches += 1

@@ -51,9 +51,11 @@ def frfcfs_select(arrived, is_write, row, open_e, nrd_e, nwr_e, nact_e,
     _check("ch_scalars", ch_scalars, (rows, N_SCALARS), arrived.device)
     out = torch.empty((rows, 2), dtype=torch.int32, device=arrived.device)
     fn = _build.function("frfcfs_select_launch", _ARGTYPES)
-    stream = torch.cuda.current_stream(arrived.device).cuda_stream
-    err = fn(*(x.data_ptr() for x in planes), ch_scalars.data_ptr(),
-             out.data_ptr(), rows, q, int(row_hit_cap), stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(arrived.device):
+        stream = torch.cuda.current_stream(arrived.device).cuda_stream
+        err = fn(*(x.data_ptr() for x in planes), ch_scalars.data_ptr(),
+                 out.data_ptr(), rows, q, int(row_hit_cap), stream)
     if err:
         raise RuntimeError(f"frfcfs_select launch failed: CUDA error {err}")
     frfcfs_select.launches += 1

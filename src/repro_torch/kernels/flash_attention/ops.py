@@ -126,10 +126,14 @@ def flash_attention(q, k, v, *, causal: bool = False,
     else:
         fn = _build.function("flash_attention_launch", _ARGTYPES)
         flags = (_DTYPES[q.dtype], int(causal))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             *strides, b, hq, hkv, sq, sk, d, *flags,
-             default_scale(d) if scale is None else float(scale), stream)
+    # the runtime launches (and sets the kernel's shared-memory
+    # attribute) on the current device: make it the tensors'
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 *strides, b, hq, hkv, sq, sk, d, *flags,
+                 default_scale(d) if scale is None else float(scale),
+                 stream)
     if err:
         raise RuntimeError(f"flash_attention ({which}) launch failed: "
                            f"error {err}")

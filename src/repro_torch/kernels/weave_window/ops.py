@@ -250,12 +250,15 @@ def weave_window(queue, banks, *, start: int, end: int, horizon: int,
         ptrs += [rout[k].data_ptr() if k in rout else None
                  for k in ("opened", "burst", "counters", "busy", "hist",
                            "rec")]
-        err = fn(*ptrs, ctypes.addressof(c_params), len(params), *window,
-                 int(bool(telemetry)), int(bool(cmd_trace)), stream)
+        args = (*ptrs, ctypes.addressof(c_params), len(params), *window,
+                int(bool(telemetry)), int(bool(cmd_trace)), stream)
     else:
         fn = _build.function("weave_window_launch", _ARGTYPES)
-        err = fn(*ptrs, ctypes.addressof(c_params), len(params), *window,
-                 stream)
+        args = (*ptrs, ctypes.addressof(c_params), len(params), *window,
+                stream)
+    # the runtime launches on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        err = fn(*args)
     if err:
         raise RuntimeError(f"weave_window launch failed: CUDA error {err}")
     weave_window.launches += 1

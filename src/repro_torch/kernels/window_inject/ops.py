@@ -227,7 +227,11 @@ def window_inject(queue, cores, pace, wr_num, l_ir, lat_est, *, w: int,
     args, out = prepare(queue, cores, pace, wr_num, l_ir, lat_est, w=w,
                         wcfg=wcfg, clock=clock, mapping=mapping,
                         window_cycles=window_cycles, window_ps=window_ps)
-    launch(args, torch.cuda.current_stream(queue.valid.device).cuda_stream)
+    dev = queue.valid.device
+    # the runtime launches (and sets the kernel's shared-memory
+    # attribute) on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        launch(args, torch.cuda.current_stream(dev).cuda_stream)
     window_inject.launches += 1
     core, point = out["core"], out["point"]
     return (queue._make(out["queue"].unbind(0)),
@@ -330,8 +334,9 @@ def window_inject_trace(queue, state, trace, l_ir, lat_est, *, w: int,
                               wcfg=wcfg, clock=clock, mapping=mapping,
                               window_cycles=window_cycles,
                               window_ps=window_ps)
-    launch_trace(args,
-                 torch.cuda.current_stream(queue.valid.device).cuda_stream)
+    dev = queue.valid.device
+    with torch.cuda.device(dev):           # as `window_inject`
+        launch_trace(args, torch.cuda.current_stream(dev).cuda_stream)
     window_inject_trace.launches += 1
     core, point = out["core"], out["point"]
     return (queue._make(out["queue"].unbind(0)),

@@ -1,11 +1,15 @@
 """Batched multi-application replay engine.
 
 One batched `platform.run_frontend` call replays a whole application
-suite: the stacked `Trace` batch is the frontend's batch axis (the
-reference maps with a device-sharded ``vmap``; here one call covers the
-batch on one device), the same pattern `mess.sweep` uses for pace
-points.  Stages and device presets iterate in Python; `replay_grid`
-wraps that iteration, so a (preset x stage x app) grid is one call.
+suite: the stacked `Trace` batch is the frontend's batch axis, run by
+`shard.sharded_vmap` on ``device``: ``None`` means the card, an
+explicit device (``"cuda:k"``, ``"cpu"``) that device, a list of
+devices spreads the batch over them (one contiguous chunk of apps per
+device, each chunk moved to its device), as the reference shards its
+``vmap`` over its devices and as `mess.sweep` spreads pace points.  The
+results are bit-identical however the batch is split.  Stages and
+device presets iterate in Python; `replay_grid` wraps that iteration,
+so a (preset x stage x app) grid is one call.
 
 Multiprogrammed workloads ride the same machinery: a `TraceMix` replays
 through `replay_mix`, a stack of mixes through `replay_mixes` — the mix
@@ -34,8 +38,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.platform import (StageConfig, resolve_device,
-                                       run_frontend)
+from repro_torch.core.platform import StageConfig, run_frontend
+from repro_torch.core.shard import resolve_devices, sharded_vmap
 from repro_torch.traces.frontend import TraceFrontend
 from repro_torch.traces.mix import TraceMix
 from repro_torch.traces.trace import Trace, to
@@ -47,38 +51,45 @@ VIEW_KEYS = ("sim_bw_gbs", "sim_lat_ns", "if_bw_gbs", "if_lat_ns",
 DIAG_KEYS = ("injected", "weave_events", "weave_sat")
 
 
-def _replay(cfg: StageConfig, batch, dev) -> dict:
-    """One batched replay of ``batch`` (on ``dev``); numpy arrays, one
-    row per entry."""
-    frontend = TraceFrontend(batch, cfg.workload_config())
-    views, outs = run_frontend(cfg, frontend, batch=frontend.batch,
-                               device=dev)
-    out = {k: views[k] for k in VIEW_KEYS + DIAG_KEYS}
-    out["progress"] = outs.progress.transpose(0, 1)      # (B, W, n_cores)
-    if cfg.telemetry:
-        # the telemetry planes, (B, W, ...): the dense re-run's rows
-        # merge into them like every other key
-        out.update({k: v for k, v in views.items() if k.startswith("tele_")})
+def _replay(cfg: StageConfig, batch, devices) -> dict:
+    """One batched replay of ``batch``, split over ``devices``; numpy
+    arrays, one row per entry."""
+    def chunk(part, dev):
+        frontend = TraceFrontend(to(part, dev), cfg.workload_config())
+        views, outs = run_frontend(cfg, frontend, batch=frontend.batch,
+                                   device=dev)
+        out = {k: views[k] for k in VIEW_KEYS + DIAG_KEYS}
+        out["progress"] = outs.progress.transpose(0, 1)  # (B, W, n_cores)
+        if cfg.telemetry:
+            # the telemetry planes, (B, W, ...): the dense re-run's rows
+            # merge into them like every other key
+            out.update({k: v for k, v in views.items()
+                        if k.startswith("tele_")})
+        return out
+
+    out = sharded_vmap(chunk, devices)(batch)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
-def _replay_exact(cfg: StageConfig, batch, dev) -> dict:
+def _replay_exact(cfg: StageConfig, batch, devices) -> dict:
     """Replay a batch, re-running event-budget-saturated rows dense.
 
     Under the event weave engine, a row whose windows exhaust the event
     budget (``weave_sat``, the exact divergence detector) is replayed
     through the dense engine and merged back by row, so the results are
     bit-identical to an all-dense replay.  ``weave_sat`` keeps the first
-    pass's flag (how many rows were re-run).  The batch is moved to
-    ``dev`` first, so the re-run rows are indexed there.
+    pass's flag (how many rows were re-run).  Both passes spread over
+    ``devices``.  The batch is moved to the first device, so the re-run
+    rows are indexed there.
     """
-    batch = to(batch, dev)
-    out = _replay(cfg, batch, dev)
+    batch = to(batch, devices[0])
+    out = _replay(cfg, batch, devices)
     sat = np.flatnonzero(out["weave_sat"] > 0)
     if sat.size and cfg.weave == "event":
         rows = torch.as_tensor(sat, device=batch.delta.device)
         sub = type(batch)(*(x[rows] for x in batch))
-        fixed = _replay(dataclasses.replace(cfg, weave="dense"), sub, dev)
+        fixed = _replay(dataclasses.replace(cfg, weave="dense"), sub,
+                        devices)
         for k, v in fixed.items():
             if k != "weave_sat":           # keep the diagnostic flag
                 out[k][sat] = v
@@ -121,16 +132,19 @@ def replay_suite(cfg: StageConfig, traces: Trace, *, device=None) -> dict:
     Args:
         cfg: the stage configuration (clock model, policy, platform).
         traces: a `Trace` with a leading application axis
-            (`stack_traces`), on any device: it is moved to ``device``.
-        device: ``None`` means ``"cuda"``.  The reference's ``donate``
-            has no counterpart: the batch is never consumed.
+            (`stack_traces`), on any device: each chunk is moved to its
+            device.
+        device: ``None`` means the card; ``"cuda:k"`` or ``"cpu"`` that
+            device; a list of devices spreads the batch over them
+            (`shard.resolve_devices`).  The reference's ``donate`` has
+            no counterpart: the batch is never consumed.
     Returns:
         Numpy arrays keyed by `VIEW_KEYS` (bandwidth GB/s, latency ns)
         plus ``runtime_ms`` / ``runtime_windows`` / ``done`` /
         ``progress_final`` per application, and the port's
         ``progress`` / ``injected`` / ``weave_events`` / ``weave_sat``.
     """
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
     wcfg = cfg.workload_config()
     length = traces.length.cpu().numpy()              # (A,)
     # per-core regions must stay below the chase-probe region (bit 31):
@@ -142,7 +156,7 @@ def replay_suite(cfg: StageConfig, traces: Trace, *, device=None) -> dict:
             f"the 2^31-line traffic address space (the chase-probe "
             f"region starts at bit 31); shrink the footprint")
 
-    out = _replay_exact(cfg, traces, dev)
+    out = _replay_exact(cfg, traces, devices)
     progress = out["progress"]                         # (A, W, n_cores)
     cid = np.arange(wcfg.n_cores)
     target = np.where(cid[None, :] < wcfg.n_traffic,
@@ -166,7 +180,7 @@ def replay_mix(cfg: StageConfig, mix: TraceMix, *, device=None) -> dict:
         cfg: the stage configuration; ``cfg.n_sockets`` must match the
             mix's core count (24 cores per socket).
         mix: an unbatched `TraceMix` (`assign_traces`).
-        device: ``None`` means ``"cuda"``.
+        device: as `replay_suite` (the one row runs on one device).
     Returns:
         `replay_mixes`'s dict with the mix axis dropped.
     """
@@ -182,17 +196,17 @@ def replay_mixes(cfg: StageConfig, mixes: TraceMix, *, device=None) -> dict:
         cfg: the stage configuration.
         mixes: a `TraceMix` batch from `stack_mixes`; all mixes share
             the platform's core count.
-        device: ``None`` means ``"cuda"``.
+        device: as `replay_suite`.
     Returns:
         Host-side dict: views (M,), per-core arrays (M, n_cores), and
         per-app arrays (M, A) where A is the largest app count across
         the batch (``nan`` / False padding for mixes with fewer apps).
     """
-    dev = resolve_device(device)
+    devices = resolve_devices(device)
     target = mixes.length.cpu().numpy()                # (M, n_cores)
     app_id = mixes.app_id.cpu().numpy()                # (M, n_cores)
     pos0 = mixes.pos0.cpu().numpy()                    # (M, n_cores)
-    out = _replay_exact(cfg, mixes, dev)
+    out = _replay_exact(cfg, mixes, devices)
     rt, done = _runtime_windows(out["progress"], target, pos0)
 
     M = app_id.shape[0]
@@ -223,7 +237,7 @@ def replay_stages(stages, traces: Trace, preset: str | None = None, *,
         stages: iterable of stage names or `StageConfig`s.
         traces: stacked `Trace` batch (leading application axis).
         preset: optional device preset applied to every named stage.
-        device: ``None`` means ``"cuda"``.
+        device: as `replay_suite`.
         **overrides: `StageConfig` field overrides applied to every
             named stage (``windows``, ``warmup``, ``n_sockets``, ...).
     Returns:
@@ -231,13 +245,14 @@ def replay_stages(stages, traces: Trace, preset: str | None = None, *,
     """
     from repro_torch.core import get_stage
 
-    dev = resolve_device(device)
-    batch = to(traces, dev)           # moved once, shared by every stage
+    devices = resolve_devices(device)
+    # moved once (to the first device), shared by every stage
+    batch = to(traces, devices[0])
     results = {}
     for st in stages:
         cfg = st if isinstance(st, StageConfig) else get_stage(
             st, preset=preset, **overrides)
-        results[cfg.name] = replay_suite(cfg, batch, device=dev)
+        results[cfg.name] = replay_suite(cfg, batch, device=devices)
     return results
 
 

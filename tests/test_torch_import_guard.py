@@ -3,7 +3,8 @@
 point, a trace replay, the telemetry and command recorders through
 ``obs`` and ``oracle``, the LLM-serving lowering and its HLO cost model,
 the figure and serving benches, one forward of every model family, two
-compressed ``Trainer`` steps) runs with ``jax`` blocked."""
+compressed ``Trainer`` steps, the benchmark registry with every entry
+resolved, a replay split over two devices) runs with ``jax`` blocked."""
 import ast
 import pathlib
 import subprocess
@@ -111,6 +112,16 @@ trainer = Trainer(get_model(cfg), AdamWConfig(warmup_steps=1),
 res = trainer.fit(Stream(DataConfig(vocab=cfg.vocab, seq_len=8,
                                     global_batch=2)))
 assert res["final_step"] == 2 and all(l == l for l in res["losses"])
+import repro_torch.bench.kernels_bench
+import repro_torch.bench.registry
+import repro_torch.bench.run
+import repro_torch.core.shard
+from repro_torch.bench.registry import BENCHMARKS
+assert all(spec.main for spec in BENCHMARKS.values())
+rep = replay_suite(get_stage("01-baseline", windows=1, warmup=0),
+                   stack_traces(make_suite(n=64, names=("stream", "gups"))[1]),
+                   device=[torch.device("cpu")] * 2)
+assert rep["injected"].shape == (2,) and int(rep["injected"][1]) > 0
 leaked = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not leaked, leaked
 print("ok")
