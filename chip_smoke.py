@@ -233,10 +233,26 @@ Phases, each printing one JSON line:
    equal to one device bit for bit, at the stage's event budget and at
    one of 48 that sends every row to the dense re-run (merged by row);
    (c) ``python -m repro_torch.bench.run`` in processes of its own:
-   ``--list`` (the 12 names), ``--only kernels`` (every row matching its
+   ``--list`` (the 13 names), ``--only kernels`` (every row matching its
    plain version; its device µs go into the kernel table as
    ``kernels_bench_device_us``) and ``--only fig5``, whose CSV equals a
    direct ``fig5_model_correct.main`` run's.
+16. **roofline** — the planning tools against the card: for
+   tinyllama-1.1b at full width in bf16 (as registered: the chunked
+   attention), at PR 21's training shape (B 4 x S 2048, one microbatch)
+   and a prefill of 2 x 2048, ``launch.dryrun`` writes the ``host``
+   record from meta tensors; the same step then runs on the card: under
+   ``FlopCounterMode`` its FLOPs must equal the record's exactly and the
+   bytes of its params, state and batch the record's ``args`` exactly;
+   its peak (``max_memory_allocated`` over the step, what was allocated
+   before it but the args left out) beside the predicted ``args +
+   temp``, the ratio within ``ROOFLINE_PEAK_RATIO``; a warm-up, then the
+   median of five synced steps beside ``compute_s``, ``memory_s``, the
+   bottleneck, ``mfu`` (``model_flops`` over the time at 989 TFLOP/s)
+   and the hardware-FLOP share, with the card's name and power limit;
+   then ``python -m repro_torch.bench.run --only roofline --out-dir``
+   over the records: one row per record (and a ``NO RECORDS`` row per
+   empty mesh).
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit as nvidia-smi reports them, and the result line.  Any
@@ -265,8 +281,10 @@ from repro_torch.bench.kernels_bench import (  # noqa: E402
     decode_launch, device_ms, inject_launch, sweep_state, time_ms,
     weave_launch, weave_state)
 
-MEM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (published peak)
-BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor cores
+# the H100 SXM's HBM3 and dense bf16 peaks, from their one home
+from repro_torch.perfmodel.roofline import (  # noqa: E402
+    HBM_BW as MEM_BYTES_PER_S, PEAK_FLOPS as BF16_FLOP_PER_S)
+
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 FAST_PACES = (1, 4, 12, 24, 48, 64)
 FAST_MIXES = (0, 16, 32)
@@ -433,6 +451,18 @@ PLACEMENT_REPLAY_STAGE = "10-delay-buffer"
 PLACEMENT_RERUN_BUDGET = 48
 PLACEMENT_BENCH_ROWS = 6        # flash x 2 routes, select, decode, weave,
                                 # inject
+# roofline phase: the dry-run's host record of tinyllama-1.1b (bf16, the
+# chunked route, as registered) at the train phase's shape in one
+# microbatch and at a prefill of 2 x 2048, against the same step on the
+# card; the card's peak over the predicted args + temp within
+# ROOFLINE_PEAK_RATIO (PERF.md §6, PR 24: the allocator's rounding and
+# the scratch of reductions and library calls, which meta tensors do not
+# show)
+ROOFLINE_ARCH = "tinyllama-1.1b"
+ROOFLINE_SHAPES = (("train_2k_b4", "train", TRAIN_S, TRAIN_B),
+                   ("prefill_2k_b2", "prefill", 2048, 2))
+ROOFLINE_TIMED = 5
+ROOFLINE_PEAK_RATIO = (0.95, 1.05)
 
 
 def emit(obj):
@@ -3381,6 +3411,129 @@ def placement_phase(dev):
     return {k: r["launches"] for k, r in runs.items()}, bench_rows
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def roofline_step(cell, dev):
+    """``cell``'s step on the card: its FLOPs (under FlopCounterMode, the
+    call that warms it up), the peak of the bytes it allocates over what
+    was allocated before it, and ROOFLINE_TIMED synced walls."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    grad = torch.enable_grad if cell.kind == "train" else torch.no_grad
+
+    def step():
+        with grad():
+            out = cell.fn(*cell.args)
+        torch.cuda.synchronize(dev)
+        return out
+
+    with FlopCounterMode(display=False) as counter:
+        out = step()
+    del out
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = step()
+    step_peak = torch.cuda.max_memory_allocated(dev) - before
+    del out
+    walls = []
+    for _ in range(ROOFLINE_TIMED):
+        t0 = time.perf_counter()
+        out = step()
+        walls.append(time.perf_counter() - t0)
+        del out
+    return float(counter.get_total_flops()), step_peak, walls
+
+
+def roofline_phase(dev):
+    """16. The dry-run's host records against the card (see the module
+    docstring), and the roofline bench over them.  Returns the rows."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config(ROOFLINE_ARCH)
+    if cfg.use_flash_kernel or cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"{cfg.name}: the roofline phase counts bf16 "
+                             f"on the chunked route")
+    api = get_model(cfg)
+    card = card_line()
+    rows, bad = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kind, seq, batch in ROOFLINE_SHAPES:
+            shape = ShapeConfig(name, kind, seq, batch)
+            rec = dryrun.run_cell(ROOFLINE_ARCH, shape, "host",
+                                  report_dir=tmp, force=True, accum=1,
+                                  verbose=False)
+            torch.cuda.empty_cache()
+            cell = dryrun.build_cell(api, shape, accum=1, device=dev)
+            args = float(sum(dryrun.tree_bytes(a) for a in cell.args))
+            kernels.reset_launch_counts()
+            flops, step_peak, walls = roofline_step(cell, dev)
+            launches = kernels.launch_counts()
+            del cell
+            torch.cuda.empty_cache()
+            mem = rec["memory_analysis"]
+            predicted = mem["args"] + mem["temp"]
+            measured = args + step_peak
+            step_s = float(np.median(walls))
+            row = {"phase": "roofline", "arch": ROOFLINE_ARCH, "shape": name,
+                   "kind": kind, "batch": batch, "seq": seq, "accum": 1,
+                   "card": card, "count_s": rec["compile_s"],
+                   "flops_record": rec["hlo_flops_dev"], "flops_card": flops,
+                   "args_record": mem["args"], "args_card": args,
+                   "temp_record": mem["temp"],
+                   "peak_predicted_bytes": predicted,
+                   "peak_card_bytes": measured,
+                   "peak_ratio": measured / predicted,
+                   "peak_ratio_limits": list(ROOFLINE_PEAK_RATIO),
+                   "step_s": step_s, "walls_s": walls,
+                   "compute_s": rec["compute_s"],
+                   "memory_s": rec["memory_s"],
+                   "bottleneck": rec["bottleneck"],
+                   "bytes_record": rec["hlo_bytes_dev"],
+                   "model_flops": rec["model_flops"],
+                   "mfu": rec["model_flops"] / (step_s * BF16_FLOP_PER_S),
+                   "hw_flop_share": flops / (step_s * BF16_FLOP_PER_S),
+                   "roofline_fraction": max(rec["compute_s"],
+                                            rec["memory_s"]) / step_s,
+                   "kernel_launches": launches}
+            emit(row)
+            rows.append(row)
+            lo, hi = ROOFLINE_PEAK_RATIO
+            if not (flops == rec["hlo_flops_dev"] and args == mem["args"]
+                    and lo <= row["peak_ratio"] <= hi
+                    and not any(launches.values())):
+                bad.append(name)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.bench.run", "--only",
+             "roofline", "--out-dir", tmp], capture_output=True, text=True,
+            env=env, cwd=ROOT, timeout=600)
+    bench = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("roofline.")]
+    host = [ln for ln in bench if ln.startswith("roofline.host.")]
+    want = [f"roofline.host.{ROOFLINE_ARCH}.{n}" for n, *_ in ROOFLINE_SHAPES]
+    emit({"phase": "roofline", "part": "bench", "rc": proc.returncode,
+          "rows": bench})
+    if (proc.returncode or sorted(ln.split(",")[0] for ln in host)
+            != sorted(want) or len(bench) != len(want) + 2):
+        bad.append(("bench.run --only roofline", proc.returncode, bench,
+                    proc.stderr[-2000:]))
+    if bad:
+        raise AssertionError(f"roofline: {bad}: {rows}")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3623,6 +3776,9 @@ def main():
     # ---- 15. the batch axis in chunks, and the benchmark CLI --------------
     placement_launches, bench_rows = placement_phase(dev)
 
+    # ---- 16. the planning tools' records against the card -----------------
+    roofline_phase(dev)
+
     # ---- the kernel table, the card, the result ---------------------------
     # launches: weave_window / window_inject from the main path's sweep
     # (weave_window's ladder launches beside them), window_inject_trace
@@ -3824,11 +3980,7 @@ def main():
                 zamba2_forward_routes=family_launches["forward_by_arch"][
                     "zamba2-2.7b"])
     emit({"kernels": table})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,10 +7,10 @@ every benchmark module under ``repro_torch.bench`` exposes
 caller's output directory (``out_dir``; by default ``reports/torch/``),
 never to the reference's tracked ``reports/benchmarks/``.
 
-The names and descriptions are the reference's, but for two: there is
-no ``roofline`` yet (its records come from the dry-run, which the port
-does not have), and ``kernels`` times the hand-written CUDA kernels on
-the card.
+The names and descriptions are the reference's; ``kernels`` times the
+hand-written CUDA kernels on the card, and ``roofline`` reads the
+records of the port's dry-run (`launch.dryrun`) from the output
+directory.
 """
 from __future__ import annotations
 
@@ -64,6 +64,9 @@ BENCHMARKS: dict[str, BenchSpec] = {s.name: s for s in sorted((
               ("fig7*.csv",)),
     BenchSpec("kernels", "repro_torch.bench.kernels_bench",
               "hand-written CUDA kernel micro-benchmarks on the card",
+              ()),
+    BenchSpec("roofline", "repro_torch.bench.roofline_bench",
+              "HLO roofline model benchmarks",
               ()),
     BenchSpec("serving", "repro_torch.bench.serving",
               "LLM-serving traffic on the memory platform: model x "

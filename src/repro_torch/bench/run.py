@@ -8,7 +8,8 @@ benchmark set comes from `bench.registry` (``--list`` shows it; an
 unknown ``--only`` name raises).  ``--preset``, ``--device`` and
 ``--out-dir`` go to each benchmark whose ``main`` takes them: the
 artifacts land in ``--out-dir`` (by default each benchmark's
-``reports/torch/``, never the reference's ``reports/benchmarks/``).
+``reports/torch/``, never the reference's ``reports/benchmarks/``), and
+``roofline`` reads the dry-run's records from it (its ``report_dir``).
 
 Usage (on the card; ``--device cpu`` runs the CPU)::
 
@@ -42,7 +43,8 @@ def main(argv=None) -> None:
                     help="torch device (default: the card)")
     ap.add_argument("--out-dir", default=None,
                     help="directory of the artifacts (default: each "
-                         "benchmark's reports/torch)")
+                         "benchmark's reports/torch; for roofline, the "
+                         "dry-run's records)")
     ap.add_argument("--list", action="store_true",
                     help="list registered benchmarks and exit")
     args = ap.parse_args(argv)
@@ -63,6 +65,10 @@ def main(argv=None) -> None:
                                 ("device", args.device),
                                 ("out_dir", args.out_dir))
               if v is not None and _takes(fn, k)}
+        # the roofline bench reads the dry-run's records from --out-dir
+        if (args.out_dir is not None
+                and "report_dir" in inspect.signature(fn).parameters):
+            kw["report_dir"] = args.out_dir
         fn(full=args.full, **kw)
     print(f"# total {time.time() - t0:.0f}s", file=sys.stderr)
 

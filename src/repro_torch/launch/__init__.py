@@ -1,1 +1,2 @@
-"""Command-line launchers."""
+"""Command-line launchers (`serve`, `train`, `dryrun`) and the meshes
+they plan for (`mesh`)."""

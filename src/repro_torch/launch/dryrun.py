@@ -1,0 +1,449 @@
+"""Dry-run: count each (arch x shape x mesh) cell's step on meta tensors.
+
+The reference lowers and compiles every cell on 512 forced host devices
+and reads FLOPs, bytes and collectives out of the partitioned HLO.  A
+torch step has no HLO and the port has no SPMD partitioner, so the port
+counts the step it runs, once, on ``meta`` tensors (shapes without
+storage) at the cell's global shape:
+
+* the train step (`train.step.build_train_step`, the reference's
+  ``TRAIN_ACCUM`` / ``DEFAULT_ACCUM`` microbatches, bf16 Adam moments
+  for the archs in ``BF16_OPT_STATE``), the prefill forward, or one
+  decode step against ``init_cache(global_batch, seq_len)``; parameters
+  from ``api.init(0, device="meta")``, their fp32 leaves cast to bf16
+  for a decode cell under ``--variant opt`` (weight-stationary serving);
+* ``hlo_flops_dev``: ``FlopCounterMode``'s total, the products (``mm``,
+  ``bmm``, ``addmm``, ``baddbmm``, convolutions), as the reference's
+  ``hlo_cost`` counts its ``dot`` ops;
+* ``hlo_bytes_dev``: for each aten op that materialises an output, its
+  operand bytes plus its output bytes (`StepCounter`; views and reshapes
+  0; an op that writes into an operand counts its other operands and the
+  bytes it writes: the values of an indexed write, else the operand).
+  These are the eager program's bytes, op by op: not XLA's fused bytes,
+  which are fewer;
+* ``memory_analysis``: ``args``, the exact bytes of params, optimizer
+  state, batch and cache; ``temp``, the peak of the bytes of the
+  storages the step creates and holds at once (the step's outputs
+  included); ``output``, the bytes of the outputs it creates;
+  ``bytes_per_device = args + temp``, the predicted peak;
+* ``n_params``, ``n_active_params`` and ``model_flops`` (tokens = batch
+  x seq for train and prefill, batch for decode).
+
+The meshes (``--mesh``):
+
+* ``host`` — the port's own program on one card, priced at one H100:
+  every term is the count itself, ``chips`` 1, no collective,
+  ``partition: "exact"``;
+* ``pod`` / ``multipod`` (``single`` / ``multi``; ``both``) — the
+  reference's 16x16 and 2x16x16 meshes as H100 meshes,
+  ``partition: "ideal"``: ``args`` per card is exact (each leaf's local
+  shape under `parallel.axes.resolve_tree` of its specs and
+  `launch.mesh.rules_for`); FLOPs, bytes and ``temp`` per card are the
+  global counts over ``chips``, a lower bound (the reference's
+  partitioner sometimes replicates work, and the port has none).
+  Collectives cover the weights only (``collectives_scope:
+  "weights"``): each parameter leaf is all-gathered over the mesh axes
+  the rules give its ``fsdp`` / ``embed`` dims, in its stored dtype, once
+  per forward (per microbatch); a train step gathers it once more for
+  the recompute and backward and reduce-scatters its fp32 gradient over
+  the same axes, once per microbatch.  Bytes are each collective's
+  output, as the reference's ``hlo`` counts them.  Under the serving
+  rules no weight moves; activation collectives are not priced.
+
+Each record keeps the reference's keys (so `perfmodel.report` and
+`bench.roofline_bench` read either kind) plus ``partition``,
+``collectives_scope`` and ``peak`` (the constants used);
+``compile_s`` holds the count's wall time.  Records go to
+``reports/torch/dryrun[_opt]/<mesh>/<arch>__<shape>.json``; a record on
+disk is reused unless ``--force``.  A config with ``use_flash_kernel``
+raises: ``FlopCounterMode`` cannot see the kernel's launch.
+
+``--all`` is slow for xlstm-1.3b's long cells: its sLSTM loop runs over
+time, about 7.5 s per 256 tokens of forward on meta at full width.
+
+Usage:
+  python -m repro_torch.launch.dryrun --mesh host --arch tinyllama-1.1b \\
+      --shape train_4k
+  python -m repro_torch.launch.dryrun --all --mesh both
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import json
+import math
+import pathlib
+import time
+import traceback
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import registry as cfgs
+from repro_torch.configs.shapes import SHAPES, ShapeConfig
+from repro_torch.launch.mesh import make_production_mesh, rules_for
+from repro_torch.models.registry import get_model
+from repro_torch.parallel.axes import (local_shape, resolve, resolve_tree,
+                                       serving_mode, sharding_rules)
+from repro_torch.perfmodel import report
+from repro_torch.perfmodel import roofline as roof
+from repro_torch.perfmodel.hlo import COLLECTIVES
+from repro_torch.train import optimizer as opt
+from repro_torch.train.step import batch_specs, build_train_step
+from repro_torch.tree import leaves, map_tree
+
+REPORT_DIR = report.DEFAULT_DIR
+
+#: gradient-accumulation factor per arch for train_4k (bounds
+#: activation memory; microbatch = 256/accum global).
+TRAIN_ACCUM = {
+    "qwen2-72b": 16, "arctic-480b": 16, "grok-1-314b": 16,
+    "minitron-8b": 8, "llama-3.2-vision-11b": 8,
+}
+DEFAULT_ACCUM = 4
+
+#: bf16 Adam moments for archs whose fp32 m+v would not fit one card
+BF16_OPT_STATE = {"arctic-480b", "grok-1-314b"}
+
+MESHES = ("host", "pod", "multipod")
+
+#: the logical names whose mesh axes a weight is gathered over
+_GATHERED = ("fsdp", "embed")
+
+#: ops that write into an operand at indices: they write their values
+_INDEXED_WRITES = ("index_put", "scatter", "index_copy", "index_add",
+                   "index_fill", "masked_scatter")
+
+
+def tensor_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def tree_bytes(tree) -> int:
+    return sum(tensor_bytes(t) for t in leaves(tree))
+
+
+def _mutated(func, args, kwargs) -> list:
+    """The tensors ``func`` writes into (in-place and ``out=``)."""
+    out = []
+    for i, arg in enumerate(func._schema.arguments):
+        if arg.alias_info is None or not arg.alias_info.is_write:
+            continue
+        val = args[i] if i < len(args) else kwargs.get(arg.name)
+        out += [t for t in tree_leaves(val) if isinstance(t, torch.Tensor)]
+    return out
+
+
+class StepCounter(TorchDispatchMode):
+    """Counts, for every aten op dispatched inside it, the bytes it moves
+    (``bytes``), and tracks the storages the ops create: the bytes alive
+    at once (``live``) and their peak (``peak``).  A storage counts from
+    the op that creates it until it is freed."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = 0
+        self.live = 0
+        self.peak = 0
+        self._new = {}             # id(storage) -> nbytes, while alive
+
+    def _free(self, key):
+        self.live -= self._new.pop(key)
+
+    def created(self, tree) -> int:
+        """Bytes of the storages of ``tree``'s tensors that ops inside
+        this counter created and that are still alive."""
+        keys = {id(t.untyped_storage()) for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor)}
+        return sum(self._new.get(k, 0) for k in keys)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.is_view or func is torch.ops.aten._unsafe_view.default:
+            return out
+        ins = [t for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)]
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        mutated = _mutated(func, args, kwargs)
+        if mutated:
+            others = [t for t in ins if all(t is not m for m in mutated)]
+            if any(w in func._schema.name for w in _INDEXED_WRITES):
+                written = tensor_bytes(others[-1]) if others else 0
+            else:
+                written = sum(tensor_bytes(m) for m in mutated)
+            self.bytes += sum(tensor_bytes(t) for t in others) + written
+        else:
+            self.bytes += sum(tensor_bytes(t) for t in ins + outs)
+        seen = {id(t.untyped_storage()) for t in ins}
+        for t in outs:
+            st = t.untyped_storage()
+            key = id(st)
+            if key in seen or key in self._new:
+                continue
+            self._new[key] = st.nbytes()
+            self.live += self._new[key]
+            self.peak = max(self.peak, self.live)
+            weakref.finalize(st, self._free, key)
+        return out
+
+
+@dataclasses.dataclass
+class Cell:
+    """One cell's step: ``fn(*args)``, the logical specs of each arg, and
+    what the step does (``kind``: train / prefill / decode)."""
+
+    fn: object
+    args: tuple
+    specs: tuple
+    kind: str
+    accum: int = 1
+
+
+def input_batch(api, shape: ShapeConfig, *, for_train: bool, device="meta"):
+    cfg = api.cfg
+    gb, seq = shape.global_batch, shape.seq_len
+
+    def zeros(sh, dt):
+        return torch.zeros(sh, dtype=dt, device=device)
+
+    batch = dict(tokens=zeros((gb, seq), torch.int32))
+    if for_train:
+        batch["labels"] = zeros((gb, seq), torch.int32)
+    if api.needs_ctx:
+        batch["ctx"] = zeros((gb, cfg.n_ctx_tokens, cfg.d_model), cfg.dtype)
+    return batch
+
+
+def build_cell(api, shape: ShapeConfig, *, serving: bool = False,
+               accum: int | None = None, device="meta") -> Cell:
+    """The step of ``shape``'s kind on ``device`` (meta: shapes only; the
+    card runs the same step in ``chip_smoke.py``).  ``accum`` overrides
+    the arch's train accumulation factor."""
+    cfg = api.cfg
+    if cfg.use_flash_kernel:
+        raise ValueError(
+            f"{cfg.name}: use_flash_kernel is set, and the dry-run cannot "
+            f"count the flash kernel's launch; count the chunked route "
+            f"(use_flash_kernel=False)")
+    params = api.init(0, device=device)
+    if serving:
+        # weight-stationary serving stores the parameters in bf16
+        params = map_tree(lambda t: t.to(torch.bfloat16)
+                          if t.dtype == torch.float32 else t, params)
+    pspecs = api.param_specs()
+    if shape.kind == "train":
+        accum = accum or TRAIN_ACCUM.get(cfg.name, DEFAULT_ACCUM)
+        ocfg = opt.AdamWConfig(
+            state_dtype=(torch.bfloat16 if cfg.name in BF16_OPT_STATE
+                         else torch.float32))
+        batch = input_batch(api, shape, for_train=True, device=device)
+        return Cell(build_train_step(api, ocfg, accum=accum),
+                    (params, opt.init_state(ocfg, params), batch),
+                    (pspecs, opt.state_specs(pspecs), batch_specs(api)),
+                    "train", accum)
+    if shape.kind == "prefill":
+        batch = input_batch(api, shape, for_train=False, device=device)
+        bspecs = {k: v for k, v in batch_specs(api).items() if k in batch}
+        return Cell(api.forward, (params, batch), (pspecs, bspecs),
+                    "prefill")
+    gb = shape.global_batch
+    cache = api.init_cache(gb, shape.seq_len, device=device)
+    tokens = torch.zeros((gb,), dtype=torch.int32, device=device)
+    return Cell(api.decode, (params, cache, tokens),
+                (pspecs, api.cache_specs(shard_seq=True), ("batch",)),
+                "decode")
+
+
+def count_step(cell: Cell) -> dict:
+    """Run ``cell``'s step once under the counters: FLOPs, bytes, the
+    peak of the bytes it creates (``temp``), the bytes of its outputs,
+    and the wall time of the count."""
+    grad = torch.enable_grad() if cell.kind == "train" else torch.no_grad()
+    t0 = time.perf_counter()
+    with grad, FlopCounterMode(display=False) as flops, \
+            StepCounter() as counter:
+        out = cell.fn(*cell.args)
+        output = counter.created(out)
+    del out
+    return dict(flops=float(flops.get_total_flops()),
+                bytes=float(counter.bytes), temp=float(counter.peak),
+                output=float(output),
+                args=float(sum(tree_bytes(a) for a in cell.args)),
+                wall_s=time.perf_counter() - t0)
+
+
+def _weight_collectives(cell: Cell, mesh) -> dict:
+    """Per-card bytes of the weights' collectives under the installed
+    rules (see the module docstring)."""
+    by_op = {c: 0 for c in COLLECTIVES}
+    counts = {c: 0 for c in COLLECTIVES}
+    if serving_mode():         # weights resident, never gathered
+        return dict(bytes_by_op=by_op, counts=counts, total_bytes=0)
+    forwards = 2 * cell.accum if cell.kind == "train" else 1
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+
+    def leaf(names, t):
+        spec = resolve(names, t.shape)
+        axes = [ax for name, entry in zip(names, spec) if name in _GATHERED
+                for ax in ((entry,) if isinstance(entry, str)
+                           else entry or ())]
+        g = math.prod(sizes[ax] for ax in axes)
+        if g == 1:
+            return
+        local = math.prod(local_shape(spec, t.shape, mesh))
+        by_op["all-gather"] += forwards * local * g * t.element_size()
+        counts["all-gather"] += forwards
+        if cell.kind == "train":
+            by_op["reduce-scatter"] += cell.accum * local * 4
+            counts["reduce-scatter"] += cell.accum
+
+    def walk(spec, tree):
+        if isinstance(spec, dict):
+            for k in spec:
+                walk(spec[k], tree[k])
+        else:
+            leaf(spec, tree)
+
+    walk(cell.specs[0], cell.args[0])
+    return dict(bytes_by_op=by_op, counts=counts,
+                total_bytes=sum(by_op.values()))
+
+
+def _local_args_bytes(cell: Cell, mesh) -> int:
+    """Per-card bytes of every arg leaf under the installed rules."""
+    total = 0
+    for spec_tree, tree in zip(cell.specs, cell.args):
+        specs = resolve_tree(spec_tree, tree)
+        for s, t in zip(leaves(specs), leaves(tree)):
+            total += math.prod(local_shape(s, t.shape, mesh)) \
+                * t.element_size()
+    return total
+
+
+def _shape(shape) -> ShapeConfig:
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+@functools.lru_cache(maxsize=8)
+def _counted(arch: str, shape: ShapeConfig, serving: bool,
+             accum: int | None):
+    api = get_model(cfgs.get_config(arch))
+    cell = build_cell(api, shape, serving=serving, accum=accum)
+    return api, cell, count_step(cell)
+
+
+def run_cell(arch: str, shape, mesh: str = "host", *,
+             report_dir=REPORT_DIR, force: bool = False,
+             verbose: bool = True, variant: str = "baseline",
+             accum: int | None = None) -> dict:
+    """The record of one cell: ``shape`` a name of ``SHAPES`` or a
+    `ShapeConfig` (a cut shape), ``mesh`` one of ``MESHES``."""
+    if mesh not in MESHES:
+        raise ValueError(f"unknown mesh {mesh!r}; one of {MESHES}")
+    shape = _shape(shape)
+    outdir = (pathlib.Path(str(report_dir)
+                           + ("_opt" if variant == "opt" else "")) / mesh)
+    outdir.mkdir(parents=True, exist_ok=True)
+    outfile = outdir / f"{arch}__{shape.name}.json"
+    if outfile.exists() and not force:
+        return json.loads(outfile.read_text())
+
+    serving = variant == "opt" and shape.kind == "decode"
+    api, cell, c = _counted(arch, shape, serving, accum)
+    cfg = api.cfg
+    params = cell.args[0]
+    n_active = roof.count_active_params(params, cfg.top_k, cfg.n_experts)
+    tokens = (shape.global_batch * shape.seq_len
+              if shape.kind in ("train", "prefill") else shape.global_batch)
+    mflops = roof.model_flops(shape.kind, n_active, tokens)
+    if mesh == "host":
+        chips, args = 1, c["args"]
+        coll = dict(bytes_by_op={k: 0 for k in COLLECTIVES},
+                    counts={k: 0 for k in COLLECTIVES}, total_bytes=0)
+        scope = "none: one card"
+    else:
+        m = make_production_mesh(multi_pod=mesh == "multipod")
+        chips = m.size
+        with sharding_rules(m, rules_for(m, serving=serving)):
+            args = float(_local_args_bytes(cell, m))
+            coll = _weight_collectives(cell, m)
+        scope = "weights"
+    temp, output = c["temp"] / chips, c["output"] / chips
+    r = roof.make(arch, shape.name, mesh, chips,
+                  cost={"flops": c["flops"] / chips,
+                        "bytes accessed": c["bytes"] / chips},
+                  collectives=coll, model_flops=mflops,
+                  bytes_per_device=temp + args)
+    record = dict(r.as_dict(), compile_s=c["wall_s"],
+                  collectives=coll,
+                  cost_analysis_raw={"flops": c["flops"],
+                                     "bytes accessed": c["bytes"]},
+                  n_params=roof.count_params_struct(params),
+                  n_active_params=n_active,
+                  memory_analysis=dict(temp=temp, args=args, output=output),
+                  partition="exact" if mesh == "host" else "ideal",
+                  collectives_scope=scope,
+                  peak=dict(PEAK_FLOPS=roof.PEAK_FLOPS, HBM_BW=roof.HBM_BW,
+                            LINK_BW=roof.LINK_BW[mesh]),
+                  kind=shape.kind, global_batch=shape.global_batch,
+                  seq_len=shape.seq_len, accum=cell.accum,
+                  variant=variant)
+    outfile.write_text(json.dumps(record, indent=1))
+    if verbose:
+        print(f"[dryrun] {arch} x {shape.name} x {mesh}: "
+              f"count {c['wall_s']:.1f}s  "
+              f"mem/dev {r.bytes_per_device / 2**30:.2f} GiB  "
+              f"compute {r.compute_s * 1e3:.2f} ms  "
+              f"memory {r.memory_s * 1e3:.2f} ms  "
+              f"collective {r.collective_s * 1e3:.2f} ms  "
+              f"-> {r.bottleneck}", flush=True)
+    return record
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=tuple(SHAPES))
+    ap.add_argument("--mesh", choices=("host", "single", "multi", "both"),
+                    default="host")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--report-dir", default=str(REPORT_DIR))
+    ap.add_argument("--variant", choices=("baseline", "opt"),
+                    default="baseline")
+    args = ap.parse_args(argv)
+
+    if args.all:
+        cells = cfgs.cells()
+        if args.arch:
+            cells = [c for c in cells if c[0] == args.arch]
+    elif args.arch and args.shape:
+        cells = [(args.arch, args.shape)]
+    else:
+        ap.error("give --arch and --shape, or --all")
+
+    meshes = {"host": ("host",), "single": ("pod",), "multi": ("multipod",),
+              "both": ("pod", "multipod")}[args.mesh]
+    failures = []
+    for arch, shape in cells:
+        for mesh in meshes:
+            try:
+                run_cell(arch, shape, mesh, report_dir=args.report_dir,
+                         force=args.force, variant=args.variant)
+            except Exception as e:       # noqa: BLE001
+                failures.append((arch, shape, mesh, repr(e)))
+                print(f"[dryrun] FAIL {arch} x {shape} x {mesh}: {e}",
+                      flush=True)
+                traceback.print_exc()
+    if failures:
+        raise SystemExit(f"{len(failures)} dry-run cells failed")
+    print("[dryrun] all requested cells counted OK")
+
+
+if __name__ == "__main__":
+    main()

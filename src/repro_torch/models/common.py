@@ -20,7 +20,10 @@ Conventions
   meta tensors: shapes without storage, how a full config is counted.
 * Projections are plain products: the port runs on one card, so the
   reference's weight-stationary mesh schedule (``serving_matmul``) and
-  its ``shard`` annotations have no counterpart here.
+  its ``shard`` annotations have no counterpart here.  The logical axis
+  names of each weight are kept as data (``*_specs``: one tuple of names
+  per leaf, one name per dim), which `parallel.axes` resolves to price
+  the production meshes (`launch.dryrun`).
 * Training recomputes each block's activations in the backward pass
   (`recompute`, the reference's ``jax.checkpoint`` around the same
   blocks); a forward that autograd does not record runs plainly.
@@ -254,6 +257,18 @@ def init_attn(cfg: ModelConfig, gen: torch.Generator, scale: float,
     return p
 
 
+def attn_specs(cfg: ModelConfig):
+    # 'embed' == 'fsdp' under training rules; under serving rules it
+    # keeps the d_model dim data-sharded (resident weights) instead of
+    # replicating when the head count does not divide the model axis.
+    p = dict(wq=("embed", "heads", None), wk=("embed", "kv_heads", None),
+             wv=("embed", "kv_heads", None), wo=("heads", None, "embed"))
+    if cfg.qkv_bias:
+        p.update(bq=("heads", None), bk=("kv_heads", None),
+                 bv=("kv_heads", None))
+    return p
+
+
 def _proj(x, w):
     """x (..., d) @ w (d, *out) -> (..., *out)."""
     return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
@@ -312,6 +327,14 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, scale: float,
     )
 
 
+def mlp_specs(kind: str = "swiglu"):
+    if kind == "swiglu":
+        return dict(w_gate=("embed", "mlp"), w_up=("embed", "mlp"),
+                    w_down=("mlp", "embed"))
+    return dict(w_up=("embed", "mlp"), b_up=("mlp",),
+                w_down=("mlp", "embed"), b_down=(None,))
+
+
 def mlp(cfg: ModelConfig, p, x, kind: str = "swiglu"):
     """SwiGLU FFN, (silu(x Wg) * x Wu) Wd; or ``kind="gelu"``,
     gelu(x Wu + bu) Wd + bd with the tanh approximation, which is
@@ -330,6 +353,13 @@ def init_embedding(cfg: ModelConfig, gen: torch.Generator):
                                device=gen.device))
     if not cfg.tie_embeddings:
         p["head"] = _normal(gen, (cfg.d_model, cfg.vocab), 0.02)
+    return p
+
+
+def embedding_specs(cfg: ModelConfig):
+    p = dict(tok=("vocab", "embed"), norm_f=(None,))
+    if not cfg.tie_embeddings:
+        p["head"] = ("embed", "vocab")
     return p
 
 

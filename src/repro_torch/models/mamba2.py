@@ -57,6 +57,13 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, scale: float,
     )
 
 
+def mamba_specs(cfg: ModelConfig):
+    return dict(norm=(None,), w_in=("fsdp", "state"),
+                conv_w=(None, "state"), conv_b=("state",),
+                a_log=(None,), dt_bias=(None,), d_skip=(None,),
+                norm_y=("state",), w_out=("state", "fsdp"))
+
+
 def _split_proj(cfg: ModelConfig, zxbcdt):
     d_in, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     return torch.split(zxbcdt, [d_in, d_in, 2 * n, h], dim=-1)
@@ -196,6 +203,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
     return p
 
 
+def param_specs(cfg: ModelConfig):
+    p = dict(embed=cm.embedding_specs(cfg),
+             mamba=tt.stacked_specs(mamba_specs(cfg)))
+    if cfg.family == "hybrid":
+        p["shared"] = dict(w_cat=("fsdp", None), block=tt.block_specs(cfg))
+    return p
+
+
 def _shared_apply(cfg: ModelConfig, p, x, x0, positions):
     u = torch.cat([x, x0], dim=-1) @ p["w_cat"].to(cfg.dtype)
     return x + tt.block_fwd(cfg, p["block"], u, positions) - u  # on x
@@ -232,6 +247,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
         cache["shared_kv"] = dict(k=zeros(shape, cfg.dtype),
                                   v=zeros(shape, cfg.dtype))
     return cache
+
+
+def cache_specs(cfg: ModelConfig, *, shard_seq: bool = True):
+    spec = dict(
+        mamba=dict(h=(None, "batch", "state", None, None),
+                   conv=(None, "batch", None, "state")),
+        length=(None,))
+    if cfg.family == "hybrid":
+        kv = (None, "batch", "kv_seq" if shard_seq else None,
+              "kv_heads", None)
+        spec["shared_kv"] = dict(k=kv, v=kv)
+    return spec
 
 
 def batch_axes(cfg: ModelConfig):

@@ -47,6 +47,16 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, scale: float,
     return p
 
 
+def moe_specs(cfg: ModelConfig):
+    p = dict(router=(None, None),
+             we_gate=("experts", "fsdp", "mlp"),
+             we_up=("experts", "fsdp", "mlp"),
+             we_down=("experts", "mlp", "fsdp"))
+    if cfg.dense_residual:
+        p["dense"] = cm.mlp_specs()
+    return p
+
+
 def capacity(cfg: ModelConfig, group: int) -> int:
     c = int(group * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
     return max(c, cfg.top_k)
@@ -68,9 +78,12 @@ def route(cfg: ModelConfig, gates, c: int):
     fill = torch.zeros((b, ng, e), dtype=torch.int32, device=dev)
     gate_sum = torch.zeros((b, ng, g), dtype=torch.float32, device=dev)
     slots = torch.arange(c, dtype=torch.float32, device=dev)
+    experts = torch.arange(e, device=dev)
     for _ in range(cfg.top_k):
         idx = remaining.argmax(-1)                        # (B,ng,G)
-        mask = F.one_hot(idx, e).float()
+        # one-hot by comparison: the same ops on every device (F.one_hot
+        # takes another path on meta tensors, see launch.dryrun)
+        mask = (idx[..., None] == experts).float()
         gval = (remaining * mask).sum(-1)                 # (B,ng,G)
         remaining = remaining * (1.0 - mask)
         pos = mask.cumsum(2) - mask + fill[:, :, None, :].float()
@@ -88,10 +101,9 @@ def route(cfg: ModelConfig, gates, c: int):
     return dispatch, combine
 
 
-def moe_mlp(cfg: ModelConfig, p, x):
-    """x (B, S, d) -> (y (B, S, d), GShard load-balancing aux loss)."""
+def _moe_y(cfg: ModelConfig, p, x):
+    """x (B, S, d) -> (y (B, S, d), gates (B, ng, G, E))."""
     b, s, d = x.shape
-    e = cfg.n_experts
     g = min(MOE_GROUP, s)
     if s % g:
         raise ValueError(f"sequence {s} is not a multiple of the dispatch "
@@ -109,15 +121,23 @@ def moe_mlp(cfg: ModelConfig, p, x):
          * torch.einsum("bnecd,edf->bnecf", xe, p["we_up"].to(dt)))
     ye = torch.einsum("bnecf,efd->bnecd", h, p["we_down"].to(dt))
     y = torch.einsum("bngec,bnecd->bngd", combine.to(dt), ye).reshape(b, s, d)
-
-    me = gates.mean((0, 1, 2))                            # (E,)
-    fe = F.one_hot(gates.argmax(-1), e).float().mean((0, 1, 2))
-    aux = e * (me * fe).sum()
-
     if cfg.dense_residual:
         y = y + cm.mlp(cfg, p["dense"], x)
-    return y, aux
+    return y, gates
+
+
+def moe_mlp(cfg: ModelConfig, p, x):
+    """x (B, S, d) -> (y (B, S, d), GShard load-balancing aux loss)."""
+    y, gates = _moe_y(cfg, p, x)
+    e = cfg.n_experts
+    me = gates.mean((0, 1, 2))                            # (E,)
+    top1 = gates.argmax(-1)[..., None] == torch.arange(e, device=x.device)
+    fe = top1.float().mean((0, 1, 2))
+    return y, e * (me * fe).sum()
 
 
 def moe_mlp_y(cfg: ModelConfig, p, x):
-    return moe_mlp(cfg, p, x)[0]
+    """The residual block's FFN: ``moe_mlp``'s output without the aux
+    term, which it does not compute (a recomputed block would otherwise
+    rerun the combine einsum to re-save the aux term's operands)."""
+    return _moe_y(cfg, p, x)[0]

@@ -13,6 +13,9 @@ and audio (frame embeddings), (B, n_ctx_tokens, d_model).
 resets a slot along it), ``None`` for the cross K/V a slot keeps.
 ``api.init(seed, device="meta")`` gives the parameter tree's shapes
 without allocating it (`count_params` of a full config).
+``api.param_specs()`` / ``api.cache_specs(shard_seq=True)`` give the
+logical axis names of every parameter and cache leaf, one tuple per
+leaf, one name per dim (`parallel.axes` resolves them on a mesh).
 
 `params_from_numpy` carries a reference parameter tree (nested dict of
 arrays, layers stacked on a leading axis) across leaf by leaf.
@@ -40,6 +43,8 @@ class ModelApi:
     init_cache: Callable[..., Any]         # (batch, max_seq, device=None)
     decode: Callable[..., Any]             # (params, cache, tokens)
     batch_axes: Callable[[], Any]          # () -> batch axis per leaf
+    param_specs: Callable[[], Any]         # () -> spec tree
+    cache_specs: Callable[..., Any]        # (shard_seq=...) -> spec tree
     fill_ctx: Callable[..., Any] | None = None   # (params, cache, ctx)
     needs_ctx: bool = False
 
@@ -79,12 +84,13 @@ def _module(cfg: ModelConfig):
 
 def get_model(cfg: ModelConfig) -> ModelApi:
     m = _module(cfg)
-    init, hooks = m.init_params, {}
+    init, hooks, specs = m.init_params, {}, m.param_specs
     if cfg.family == "moe":
         from repro_torch.models import moe
         init = functools.partial(
             m.init_params, mlp_init=functools.partial(moe.init_moe, cfg))
         hooks = dict(mlp_fn=functools.partial(moe.moe_mlp_y, cfg))
+        specs = functools.partial(m.param_specs, mlp_spec=moe.moe_specs(cfg))
     needs_ctx = cfg.family in ("vlm", "audio")
     if needs_ctx:
         def forward(p, b):
@@ -100,6 +106,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
             cfg, bs, ms, device=resolve_device(device)),
         decode=lambda p, c, t: m.decode_step(cfg, p, c, t, **hooks),
         batch_axes=lambda: m.batch_axes(cfg),
+        param_specs=lambda: specs(cfg),
+        cache_specs=lambda **kw: m.cache_specs(cfg, **kw),
         fill_ctx=(lambda p, c, ctx: m.fill_cross_cache(cfg, p, c, ctx))
         if needs_ctx else None,
         needs_ctx=needs_ctx)

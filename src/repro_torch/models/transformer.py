@@ -41,12 +41,32 @@ def init_block(cfg: ModelConfig, gen: torch.Generator, lead: tuple = (),
                 norm2=ones.clone(), mlp=mlp_init(gen, scale, lead))
 
 
+def block_specs(cfg: ModelConfig, mlp_spec=None):
+    """Spec tree of one block; `stacked_specs` adds the layer axis."""
+    return dict(norm1=(None,), attn=cm.attn_specs(cfg), norm2=(None,),
+                mlp=mlp_spec or cm.mlp_specs())
+
+
+def stacked_specs(spec_tree):
+    """Prepend the (unsharded) layer axis to every leaf of a spec tree."""
+    if isinstance(spec_tree, dict):
+        return {k: stacked_specs(v) for k, v in spec_tree.items()}
+    return (None,) + spec_tree
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, mlp_init=None):
     """Random weights with the reference's shapes and scales, drawn from
     ``gen`` on its device (not the reference's bits: parity tests carry
     the reference's weights across with `registry.params_from_numpy`)."""
     return dict(embed=cm.init_embedding(cfg, gen),
                 layers=init_block(cfg, gen, (cfg.n_layers,), mlp_init))
+
+
+def param_specs(cfg: ModelConfig, mlp_spec=None):
+    """Logical axis names of every parameter (``mlp_spec``: the MoE
+    family's experts in place of the SwiGLU)."""
+    return dict(embed=cm.embedding_specs(cfg),
+                layers=stacked_specs(block_specs(cfg, mlp_spec)))
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +112,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                 v=torch.zeros(shape, dtype=dt, device=device),
                 length=torch.zeros((batch,), dtype=torch.int32,
                                    device=device))
+
+
+def cache_specs(cfg: ModelConfig, *, shard_seq: bool = True):
+    """KV sharded (batch, seq, kv-heads) by the dedup rules: the seq dim
+    takes whatever mesh axes the batch dim leaves free."""
+    kv = (None, "batch", "kv_seq" if shard_seq else None, "kv_heads", None)
+    return dict(k=kv, v=kv, length=(None,))
 
 
 def batch_axes(cfg: ModelConfig):

@@ -45,6 +45,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
                 cross=cross)
 
 
+def param_specs(cfg: ModelConfig):
+    cross = dict(tt.block_specs(cfg), gate_attn=(), gate_mlp=())
+    return dict(embed=cm.embedding_specs(cfg),
+                layers=tt.stacked_specs(tt.block_specs(cfg)),
+                cross=tt.stacked_specs(cross))
+
+
 def _cross_apply(cfg: ModelConfig, p, x, ck, cv):
     """Gated cross-attention block; ck/cv the image K/V."""
     h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
@@ -83,6 +90,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
                 xv=zeros(xshape),
                 length=torch.zeros((batch,), dtype=torch.int32,
                                    device=device))
+
+
+def cache_specs(cfg: ModelConfig, *, shard_seq: bool = True):
+    kv = (None, "batch", "kv_seq" if shard_seq else None, "kv_heads", None)
+    return dict(k=kv, v=kv, xk=kv, xv=kv, length=(None,))
 
 
 def batch_axes(cfg: ModelConfig):

@@ -42,6 +42,17 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
     )
 
 
+def param_specs(cfg: ModelConfig):
+    dec = dict(norm1=(None,), attn=cm.attn_specs(cfg), norm_x=(None,),
+               xattn=cm.attn_specs(cfg), norm2=(None,),
+               mlp=cm.mlp_specs("gelu"))
+    return dict(embed=cm.embedding_specs(cfg),
+                enc=tt.stacked_specs(tt.block_specs(cfg,
+                                                    cm.mlp_specs("gelu"))),
+                enc_norm=(None,),
+                dec=tt.stacked_specs(dec))
+
+
 def encode(cfg: ModelConfig, params, frames):
     """frames (B, T_enc, d) stub embeddings -> encoder states."""
     x = frames.to(cfg.dtype)
@@ -98,6 +109,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
     cache["xk"] = torch.zeros(xshape, dtype=cfg.dtype, device=device)
     cache["xv"] = torch.zeros(xshape, dtype=cfg.dtype, device=device)
     return cache
+
+
+def cache_specs(cfg: ModelConfig, *, shard_seq: bool = True):
+    kv = (None, "batch", "kv_seq" if shard_seq else None, "kv_heads", None)
+    return dict(k=kv, v=kv, xk=kv, xv=kv, length=(None,))
 
 
 def batch_axes(cfg: ModelConfig):

@@ -72,6 +72,14 @@ def init_mlstm(cfg: ModelConfig, gen: torch.Generator, scale: float,
     )
 
 
+def mlstm_specs(cfg: ModelConfig):
+    return dict(norm=(None,), w_up=("fsdp", "state"),
+                wq=("heads", None, "state"), wk=("heads", None, "state"),
+                wv=("heads", None, "state"),
+                wif=("fsdp", None, None), bif=(None, None),
+                wo=("heads", "state", "fsdp"))
+
+
 def _mlstm_parallel(q, k, v, logi, logf, chunk: int = 1024):
     """Stabilised quadratic mLSTM, looped over query chunks.
 
@@ -174,6 +182,12 @@ def init_slstm(cfg: ModelConfig, gen: torch.Generator, scale: float,
     )
 
 
+def slstm_specs(cfg: ModelConfig):
+    return dict(norm=(None,), wx=("fsdp", None, "state"),
+                rh=("heads", None, None, "state"), b=(None, "state"),
+                wo=("state", "fsdp"))
+
+
 def _slstm_cell(cfg: ModelConfig, rh, bias, state, xt):
     """xt (B, 4, d_in) precomputed input contributions; ``rh`` and
     ``bias`` the block's recurrent weights and bias in fp32."""
@@ -237,6 +251,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
                 slstm=init_slstm(cfg, gen, scale, (n_seg,)))
 
 
+def param_specs(cfg: ModelConfig):
+    return dict(embed=cm.embedding_specs(cfg),
+                mlstm=tt.stacked_specs(mlstm_specs(cfg)),
+                slstm=tt.stacked_specs(slstm_specs(cfg)))
+
+
 def forward(cfg: ModelConfig, params, tokens):
     n_seg, n_m = _segments(cfg)
     x = cm.embed(cfg, params["embed"], tokens)
@@ -260,6 +280,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int = 0, device=None):
                    m=torch.full(lead + (h,), M_INIT, device=device)),
         slstm=_slstm_state(cfg, (n_seg, batch), device),
         length=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def cache_specs(cfg: ModelConfig, *, shard_seq: bool = True):
+    return dict(
+        mlstm=dict(C=(None, "batch", "heads", "state", None),
+                   n=(None, "batch", "heads", None),
+                   m=(None, "batch", "heads")),
+        slstm=dict(c=(None, "batch", "state"), n=(None, "batch", "state"),
+                   h=(None, "batch", "state"), m=(None, "batch", "state")),
+        length=(None,))
 
 
 def batch_axes(cfg: ModelConfig):

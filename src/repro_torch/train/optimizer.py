@@ -69,6 +69,12 @@ def init_state(cfg: AdamWConfig, params):
                 step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def state_specs(param_specs_tree):
+    """Logical axis names of the state: the moments shard exactly like
+    the params (ZeRO), the step is a scalar."""
+    return dict(m=param_specs_tree, v=param_specs_tree, step=())
+
+
 def global_norm(tree):
     """sqrt of the sum of squares of every leaf, in fp32, the leaves
     added in sorted-key order."""

@@ -17,8 +17,8 @@ metrics)``, the reference's ``train/step.py`` on one card:
   (`repro_torch.train.optimizer`).
 
 The reference's ``shard`` annotations are the identity here, as in the
-port's models, and its ``batch_specs`` (the batch's logical mesh axes)
-has no counterpart on one card.
+port's models; `batch_specs` keeps the batch's logical mesh axes as data
+(`launch.dryrun` prices the production meshes with them).
 """
 from __future__ import annotations
 
@@ -109,3 +109,11 @@ def build_train_step(api: ModelApi, opt_cfg: opt.AdamWConfig, *,
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step
+
+
+def batch_specs(api: ModelApi):
+    """Logical specs for the training batch dict."""
+    spec = dict(tokens=("batch", None), labels=("batch", None))
+    if api.needs_ctx:
+        spec["ctx"] = ("batch", None, None)
+    return spec

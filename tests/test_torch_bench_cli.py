@@ -2,12 +2,13 @@
 and `bench.kernels_bench`, and `bench.app_validation`'s entry points,
 against the JAX package's ``benchmarks/`` on the CPU.
 
-The registry is alphabetized and holds the reference's names but
-``roofline``; every entry resolves its ``main``; ``run`` lists them,
-refuses an unknown name and runs a benchmark by name into ``--out-dir``
-(never into ``reports/benchmarks/``), with the same CSV as a direct
-call; the kernels bench raises without a card, and its inputs are the
-reference's cases.
+The registry is alphabetized and holds the reference's 13 names; every
+entry resolves its ``main``; ``run`` lists them, refuses an unknown name
+and runs a benchmark by name into ``--out-dir`` (never into
+``reports/benchmarks/``), with the same CSV as a direct call; the
+roofline bench reads the dry-run's records from ``--out-dir``; the
+kernels bench raises without a card, and its inputs are the reference's
+cases.
 """
 import inspect
 import pathlib
@@ -35,15 +36,17 @@ def ref_registry():
 
 def test_registry_is_alphabetized():
     names = list(registry.BENCHMARKS)
-    assert names == sorted(names) and len(names) == 12
+    assert names == sorted(names) and len(names) == 13
     for spec in registry.BENCHMARKS.values():
         assert spec.name and spec.description
         assert spec.module.startswith("repro_torch.bench.")
 
 
 def test_names_are_the_references_but_roofline(ref_registry):
+    """Every name of the reference, ``roofline`` now included (the name
+    is kept from when it was the one left out)."""
     ref = ref_registry.BENCHMARKS
-    assert list(registry.BENCHMARKS) == [n for n in ref if n != "roofline"]
+    assert list(registry.BENCHMARKS) == list(ref)
     for name, spec in registry.BENCHMARKS.items():
         want = ref[name]
         assert spec.main_attr == want.main_attr, name
@@ -58,7 +61,13 @@ def test_every_spec_resolves_a_main_that_takes_full(name):
     main = registry.get_benchmark(name).main
     params = inspect.signature(main).parameters
     assert "full" in params and params["full"].default is False
-    # every benchmark but the kernels bench writes into an output directory
+    # every benchmark but the kernels bench writes into an output
+    # directory; the roofline bench reads the dry-run's records from it
+    # and runs nothing on a device
+    if name == "roofline":
+        assert "report_dir" in params
+        assert not run._takes(main, "device")
+        return
     assert name == "kernels" or run._takes(main, "out_dir"), name
     assert run._takes(main, "device"), name
 
@@ -112,14 +121,72 @@ def test_run_forwards_only_what_a_main_takes(monkeypatch):
     def mix_main(full=False, **kw):
         seen["app_mix"] = dict(full=full, **kw)
 
+    def roofline_main(full=False, report_dir=None):
+        seen["roofline"] = dict(full=full, report_dir=report_dir)
+
     monkeypatch.setattr(registry.BenchSpec, "main", property(
-        lambda spec: {"kernels": kernels_main,
-                      "app_mix": mix_main}[spec.name]))
-    run.main(["--only", "kernels,app_mix", "--full", "--preset", "hbm2e",
-              "--device", "cpu", "--out-dir", "d"])
+        lambda spec: {"kernels": kernels_main, "app_mix": mix_main,
+                      "roofline": roofline_main}[spec.name]))
+    run.main(["--only", "kernels,app_mix,roofline", "--full", "--preset",
+              "hbm2e", "--device", "cpu", "--out-dir", "d"])
     assert seen == {"kernels": dict(full=True, device="cpu"),
                     "app_mix": dict(full=True, preset="hbm2e",
-                                    device="cpu", out_dir="d")}
+                                    device="cpu", out_dir="d"),
+                    "roofline": dict(full=True, report_dir="d")}
+
+
+def _roofline_rows(out):
+    return [ln for ln in out.splitlines() if ln.startswith("roofline.")]
+
+
+def test_roofline_bench_without_records_prints_a_row_per_mesh(tmp_path,
+                                                             capsys):
+    run.main(["--only", "roofline", "--out-dir", str(tmp_path / "none")])
+    rows = _roofline_rows(capsys.readouterr().out)
+    assert [r.split(",")[0] for r in rows] == [
+        "roofline.pod", "roofline.multipod", "roofline.host"]
+    assert all(r.split(",")[1] == "0.0" and "NO RECORDS" in r
+               for r in rows)
+
+
+def test_roofline_bench_reads_the_dry_run_records(tmp_path, capsys,
+                                                  ref_registry):
+    """Records written by the dry-run CLI into ``--out-dir``: one row
+    each, the reference's ``derived`` text (the reference's own
+    ``main`` over the same records, its reader pointed at them)."""
+    from repro_torch.launch import dryrun
+    d = tmp_path / "records"
+    for mesh in ("host", "single"):
+        dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "decode_32k",
+                     "--mesh", mesh, "--report-dir", str(d)])
+    capsys.readouterr()
+    run.main(["--only", "roofline", "--out-dir", str(d)])
+    rows = _roofline_rows(capsys.readouterr().out)
+    assert [r.split(",")[0] for r in rows] == [
+        "roofline.pod.tinyllama-1.1b.decode_32k", "roofline.multipod",
+        "roofline.host.tinyllama-1.1b.decode_32k"]
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        from benchmarks import roofline_bench as ref
+    finally:
+        sys.path.remove(str(ROOT))
+    from repro.perfmodel import report as ref_report
+
+    def ref_load(report_dir=None, mesh="pod"):
+        return ref_report.load_records(str(d), mesh)
+
+    old = ref.load_records
+    ref.load_records = ref_load
+    try:
+        ref.main()
+    finally:
+        ref.load_records = old
+    want = _roofline_rows(capsys.readouterr().out)
+    # the reference's bench reads pod and multipod; the port adds host
+    assert rows[:2] == [w.replace("repro.launch.dryrun",
+                                  "repro_torch.launch.dryrun")
+                        for w in want]
 
 
 def test_kernels_bench_raises_without_a_card(monkeypatch):

@@ -1,0 +1,334 @@
+"""The port's dry-run (`repro_torch.launch.dryrun`) against the JAX
+package's cost model, at the smoke configs on the CPU.
+
+The reference's count is ``repro.perfmodel.hlo_cost.analyze`` on
+``jax.jit(step).lower(...).compile().as_text()`` on one CPU device, as
+its own tests run it; the port's is `count_step` of `build_cell` on meta
+tensors.  ``hlo_flops_dev`` equals the reference's exactly for every
+family's forward and decode step and for every train step but three,
+whose gaps are reckoned in closed form, each with its cause:
+
+* xlstm-1.3b: the reference runs the sLSTM's recurrence as a
+  ``lax.scan``, whose transpose also computes the gradient into the
+  zero initial state at the first step (one recurrent product per
+  sLSTM layer and row); autograd skips it.  Gap -0.03%.
+* zamba2-2.7b: the reference writes the SSD scan's three contractions
+  as three-operand einsums, which XLA differentiates into other dots
+  than the port's two-operand einsums and elementwise products; with
+  the port's factorisation in the reference the counts are equal.  Gap
+  -0.15%.
+* arctic-480b: ``torch.utils.checkpoint`` recomputes a block in program
+  order and stops after the last tensor its backward needs; arctic's
+  FFN ends in two products whose outputs the backward does not need
+  (the experts' combine einsum, then the dense residual), so the
+  recompute runs the combine einsum to reach the dense residual's
+  operands, while XLA drops both from its recompute.  Gap +2.26%, one
+  combine einsum per layer.
+"""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.configs import registry as ref_cfgs
+from repro.models import mamba2 as ref_mamba2
+from repro.models.registry import get_model as ref_model
+from repro.perfmodel import hlo_cost
+from repro.train import optimizer as ref_opt
+from repro.train import step as ref_step
+from repro_torch.configs import registry as cfgs
+from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh, rules_for
+from repro_torch.models import moe
+from repro_torch.models.registry import get_model
+from repro_torch.parallel.axes import sharding_rules
+
+B_FWD, B, S = 2, 4, 64
+TRAIN_ACCUM2 = ("tinyllama-1.1b", "xlstm-1.3b", "arctic-480b",
+                "zamba2-2.7b")
+
+
+def ref_flops(fn, *structs):
+    text = jax.jit(fn).lower(*structs).compile().as_text()
+    return hlo_cost.analyze(text)["flops"]
+
+
+def port_count(arch, kind, b, accum=1, device="meta"):
+    api = get_model(cfgs.get_smoke(arch))
+    return dryrun.count_step(dryrun.build_cell(
+        api, ShapeConfig(kind, kind, S, b), accum=accum, device=device))
+
+
+def _ref(arch):
+    rcfg = ref_cfgs.get_smoke(arch)
+    rapi = ref_model(rcfg)
+    return rcfg, rapi, jax.eval_shape(rapi.init, jax.random.PRNGKey(0))
+
+
+def _ref_batch(rcfg, rapi, b, train):
+    s = jax.ShapeDtypeStruct
+    batch = dict(tokens=s((b, S), jnp.int32))
+    if train:
+        batch["labels"] = s((b, S), jnp.int32)
+    if rapi.needs_ctx:
+        batch["ctx"] = s((b, rcfg.n_ctx_tokens, rcfg.d_model), rcfg.dtype)
+    return batch
+
+
+def ref_train_flops(arch, accum):
+    rcfg, rapi, params = _ref(arch)
+    ocfg = ref_opt.AdamWConfig()
+    state = jax.eval_shape(lambda p: ref_opt.init_state(ocfg, p), params)
+    return ref_flops(ref_step.build_train_step(rapi, ocfg, accum=accum),
+                     params, state, _ref_batch(rcfg, rapi, B, True))
+
+
+@pytest.mark.parametrize("arch", cfgs.ARCH_ORDER)
+def test_forward_flops_equal_the_references(arch):
+    rcfg, rapi, params = _ref(arch)
+    want = ref_flops(lambda p, b: rapi.forward(p, b), params,
+                     _ref_batch(rcfg, rapi, B_FWD, False))
+    got = port_count(arch, "prefill", B_FWD)
+    assert got["flops"] == want > 0
+
+
+@pytest.mark.parametrize("arch", cfgs.ARCH_ORDER)
+def test_decode_flops_equal_the_references(arch):
+    _, rapi, params = _ref(arch)
+    cache = jax.eval_shape(lambda: rapi.init_cache(B, S))
+    want = ref_flops(lambda p, c, t: rapi.decode(p, c, t), params, cache,
+                     jax.ShapeDtypeStruct((B,), jnp.int32))
+    got = port_count(arch, "decode", B)
+    assert got["flops"] == want > 0
+
+
+def _train_gap(arch):
+    """The port's train-step FLOPs minus the reference's, in closed form
+    (see the module docstring), at B x S tokens; zamba2's is checked by
+    its cause instead."""
+    cfg = cfgs.get_smoke(arch)
+    if arch == "xlstm-1.3b":
+        rh = get_model(cfg).init(0, device="meta")["slstm"]["rh"]
+        return -2 * B * rh[0].numel() * rh.shape[0]
+    if arch == "arctic-480b":
+        slots = cfg.n_experts * moe.capacity(cfg, min(moe.MOE_GROUP, S))
+        return 2 * B * S * slots * cfg.d_model * cfg.n_layers
+    return 0
+
+
+def _ssd_two_operand(cfg, xh, dt, a, bmat, cmat):
+    """The reference's SSD scan with the port's factorisation of its
+    three contractions (`repro_torch.models.mamba2._ssd_scan`)."""
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    q = min(cfg.ssm_chunk, s)
+    nc = s // q
+    da = dt * a[None, None, :]
+    xb = (xh * dt[..., None]).astype(jnp.float32)
+
+    def resh(t):
+        return t.reshape(b, nc, q, *t.shape[2:])
+    da_c, xb_c = resh(da), resh(xb)
+    b_c = resh(bmat.astype(jnp.float32))
+    c_c = resh(cmat.astype(jnp.float32))
+    cum = jnp.cumsum(da_c, axis=2)
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    iq = jnp.arange(q)
+    mask = iq[:, None] >= iq[None, :]
+    l_mat = jnp.where(mask[None, None, :, :, None], jnp.exp(rel), 0.0)
+    cb = jnp.einsum("bkin,bkjn->bkij", c_c, b_c)
+    y_diag = jnp.einsum("bkijh,bkjhp->bkihp", cb[..., None] * l_mat, xb_c)
+    decay_to_end = jnp.exp(cum[:, :, -1:, :] - cum)
+    states = jnp.einsum("bkjn,bkjhp->bkhnp", b_c,
+                        xb_c * decay_to_end[..., None])
+    chunk_decay = jnp.exp(cum[:, :, -1, :])
+
+    def scanb(h_prev, args):
+        st, dec = args
+        return h_prev * dec[..., None, None] + st, h_prev
+
+    _, h_prevs = jax.lax.scan(
+        scanb, jnp.zeros((b, h, n, p), jnp.float32),
+        (states.transpose(1, 0, 2, 3, 4), chunk_decay.transpose(1, 0, 2)))
+    h_prevs = h_prevs.transpose(1, 0, 2, 3, 4)
+    y_off = (jnp.einsum("bkin,bkhnp->bkihp", c_c, h_prevs)
+             * jnp.exp(cum)[..., None])
+    return (y_diag + y_off).reshape(b, s, h, p)
+
+
+TRAIN_CASES = [(arch, 1) for arch in cfgs.ARCH_ORDER] + [
+    (arch, 2) for arch in TRAIN_ACCUM2]
+
+
+@pytest.mark.parametrize("arch,accum", TRAIN_CASES)
+def test_train_flops_equal_the_references(arch, accum, monkeypatch):
+    want = ref_train_flops(arch, accum)
+    got = port_count(arch, "train", B, accum)["flops"]
+    if arch == "zamba2-2.7b":
+        assert got != want and abs(got / want - 1) < 5e-3
+        monkeypatch.setattr(ref_mamba2, "_ssd_scan", _ssd_two_operand)
+        assert got == ref_train_flops(arch, accum)
+        return
+    assert got - want == _train_gap(arch)
+    assert abs(got / want - 1) < (2.5e-2 if arch == "arctic-480b"
+                                  else 5e-3)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "xlstm-1.3b",
+                                  "grok-1-314b", "whisper-large-v3",
+                                  "zamba2-2.7b"])
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_meta_count_is_the_real_steps(arch, kind):
+    """The same step run on real CPU tensors: the same FLOPs, bytes,
+    peak and outputs as on meta, and ``args`` the bytes of the real
+    tensors' storages."""
+    meta = port_count(arch, kind, B)
+    api = get_model(cfgs.get_smoke(arch))
+    cell = dryrun.build_cell(api, ShapeConfig(kind, kind, S, B),
+                             accum=1, device="cpu")
+    real = dryrun.count_step(cell)
+    storages = {}
+    for arg in cell.args:
+        for t in torch.utils._pytree.tree_leaves(arg):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    assert real["args"] == meta["args"] == sum(storages.values())
+    for k in ("flops", "bytes", "temp", "output"):
+        assert real[k] == meta[k], k
+
+
+def test_byte_and_peak_counters_on_closed_forms():
+    f32 = 4
+    a = torch.zeros((4, 8), device="meta")
+    b = torch.zeros((8, 16), device="meta")
+
+    def product_add_view(a, b):
+        c = a @ b               # reads a and b, writes c
+        d = c + c               # reads c twice, writes d
+        return d.view(-1)       # a view: nothing moves
+
+    got = dryrun.count_step(dryrun.Cell(product_add_view, (a, b), ((), ()),
+                                        "prefill"))
+    assert got["flops"] == 2 * 4 * 8 * 16
+    assert got["bytes"] == ((32 + 128 + 64) + (64 + 64 + 64)) * f32
+    assert got["temp"] == (64 + 64) * f32          # c and d held at once
+    assert got["output"] == 64 * f32
+    assert got["args"] == (32 + 128) * f32
+
+    def chain(a):
+        x = a.exp()
+        y = x.exp()
+        del x                   # freed before z: two alive at most
+        return y.exp()
+
+    got = dryrun.count_step(dryrun.Cell(chain, (a,), ((),), "prefill"))
+    assert (got["bytes"], got["temp"], got["output"]) == (
+        3 * 2 * 32 * f32, 2 * 32 * f32, 32 * f32)
+
+    cache = torch.zeros((10, 4), device="meta")
+    idx = torch.zeros((2,), dtype=torch.long, device="meta")
+    vals = torch.zeros((2, 4), device="meta")
+
+    def write(cache, idx, vals):
+        cache[idx] = vals       # index_put_: reads idx and vals, writes
+        return cache            # the two rows; creates nothing
+
+    got = dryrun.count_step(dryrun.Cell(write, (cache, idx, vals),
+                                        ((), (), ()), "decode"))
+    assert (got["bytes"], got["temp"], got["output"]) == (
+        2 * 8 + 2 * 8 * f32, 0, 0)
+
+
+def test_ideal_partition_on_a_toy():
+    """One (512, 64) fp32 weight named ("fsdp", "mlp") on the 16x16 pod:
+    training rules give it (data, model), local (32, 4); a forward
+    gathers it over data (16) once, to (512, 4); a train step at accum 2
+    gathers it 4 times and reduce-scatters its fp32 gradient twice.
+    Under the serving rules it is (None, data): local (512, 4), resident,
+    no collective."""
+    w = torch.zeros((512, 64), device="meta")
+    x = torch.zeros((8, 512), device="meta", dtype=torch.bfloat16)
+    mesh = make_production_mesh()
+
+    def cell(kind, accum=1):
+        return dryrun.Cell(None, ({"w": w}, {"x": x}),
+                           ({"w": ("fsdp", "mlp")}, {"x": ("batch", None)}),
+                           kind, accum)
+
+    with sharding_rules(mesh, rules_for(mesh)):
+        assert dryrun._local_args_bytes(cell("prefill"), mesh) == \
+            32 * 4 * 4 + (8 // 16 or 8) * 512 * 2
+        fwd = dryrun._weight_collectives(cell("prefill"), mesh)
+        train = dryrun._weight_collectives(cell("train", 2), mesh)
+    assert fwd["bytes_by_op"]["all-gather"] == 512 * 4 * 4
+    assert fwd["counts"]["all-gather"] == 1
+    assert fwd["total_bytes"] == 512 * 4 * 4
+    assert train["bytes_by_op"]["all-gather"] == 4 * 512 * 4 * 4
+    assert train["bytes_by_op"]["reduce-scatter"] == 2 * 32 * 4 * 4
+    assert train["counts"] == dict(fwd["counts"], **{
+        "all-gather": 4, "reduce-scatter": 2})
+    with sharding_rules(mesh, rules_for(mesh, serving=True)):
+        assert dryrun._local_args_bytes(cell("decode"), mesh) == \
+            512 * 4 * 4 + 8 * 512 * 2
+        serve = dryrun._weight_collectives(cell("decode"), mesh)
+    assert serve["total_bytes"] == 0 and not any(serve["counts"].values())
+
+
+REF_KEYS = {"arch", "shape", "mesh", "chips", "hlo_flops_dev",
+            "hlo_bytes_dev", "collective_bytes_dev", "model_flops",
+            "compute_s", "memory_s", "collective_s", "bottleneck",
+            "useful_ratio", "bytes_per_device", "compile_s", "collectives",
+            "cost_analysis_raw", "n_params", "n_active_params",
+            "memory_analysis"}
+
+
+def test_cli_writes_caches_and_forces_a_record(tmp_path):
+    d = tmp_path / "dryrun"
+    argv = ["--arch", "tinyllama-1.1b", "--shape", "decode_32k",
+            "--report-dir", str(d)]
+    dryrun.main(argv + ["--mesh", "host"])
+    path = d / "host" / "tinyllama-1.1b__decode_32k.json"
+    rec = json.loads(path.read_text())
+    assert REF_KEYS <= set(rec)
+    assert (rec["mesh"], rec["chips"], rec["partition"],
+            rec["collective_bytes_dev"]) == ("host", 1, "exact", 0)
+    assert rec["bytes_per_device"] == (rec["memory_analysis"]["args"]
+                                       + rec["memory_analysis"]["temp"])
+    assert rec["n_params"] == 1_100_048_384
+    assert rec["model_flops"] == 2 * rec["n_params"] * 128
+    assert rec["peak"] == {"PEAK_FLOPS": 989e12, "HBM_BW": 3.35e12,
+                           "LINK_BW": 450e9}
+    path.write_text(json.dumps(dict(rec, marker=1)))
+    dryrun.main(argv + ["--mesh", "host"])
+    assert json.loads(path.read_text())["marker"] == 1       # cached
+    dryrun.main(argv + ["--mesh", "host", "--force"])
+    assert "marker" not in json.loads(path.read_text())
+
+    dryrun.main(argv + ["--mesh", "both"])
+    for mesh, chips in (("pod", 256), ("multipod", 512)):
+        r = json.loads((d / mesh / path.name).read_text())
+        assert (r["chips"], r["partition"], r["collectives_scope"]) == (
+            chips, "ideal", "weights")
+        assert r["hlo_flops_dev"] == rec["hlo_flops_dev"] / chips
+        assert 0 < r["memory_analysis"]["args"] < rec[
+            "memory_analysis"]["args"]
+        assert r["collective_s"] == r["collective_bytes_dev"] / 50e9 > 0
+    dryrun.main(argv + ["--mesh", "single", "--variant", "opt"])
+    opt = json.loads((tmp_path / "dryrun_opt" / "pod" / path.name)
+                     .read_text())
+    assert opt["collective_bytes_dev"] == 0
+    assert opt["memory_analysis"]["args"] < json.loads(
+        (d / "pod" / path.name).read_text())["memory_analysis"]["args"]
+
+
+def test_flash_kernel_config_is_refused():
+    cfg = dataclasses.replace(cfgs.get_smoke("tinyllama-1.1b"),
+                              use_flash_kernel=True)
+    with pytest.raises(ValueError, match="use_flash_kernel"):
+        dryrun.build_cell(get_model(cfg), ShapeConfig("p", "prefill", S, 2))
+    with pytest.raises(ValueError, match="unknown mesh"):
+        dryrun.run_cell("tinyllama-1.1b", "train_4k", "v5e")

@@ -4,7 +4,9 @@ point, a trace replay, the telemetry and command recorders through
 ``obs`` and ``oracle``, the LLM-serving lowering and its HLO cost model,
 the figure and serving benches, one forward of every model family, two
 compressed ``Trainer`` steps, the benchmark registry with every entry
-resolved, a replay split over two devices) runs with ``jax`` blocked."""
+resolved, a replay split over two devices, the planning tools: the
+logical-axis rules, the meshes, the roofline, a dry-run count on meta
+tensors, the report and the roofline bench) runs with ``jax`` blocked."""
 import ast
 import pathlib
 import subprocess
@@ -122,6 +124,20 @@ rep = replay_suite(get_stage("01-baseline", windows=1, warmup=0),
                    stack_traces(make_suite(n=64, names=("stream", "gups"))[1]),
                    device=[torch.device("cpu")] * 2)
 assert rep["injected"].shape == (2,) and int(rep["injected"][1]) > 0
+import repro_torch.bench.roofline_bench
+import repro_torch.perfmodel.report
+import repro_torch.perfmodel.roofline
+from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh, rules_for
+from repro_torch.parallel.axes import P, resolve, sharding_rules
+mesh = make_production_mesh()
+with sharding_rules(mesh, rules_for(mesh)):
+    assert resolve(("fsdp", "heads", None), (8192, 64, 128)) == P("data",
+                                                                   "model")
+count = dryrun.count_step(dryrun.build_cell(
+    get_model(get_smoke("zamba2-2.7b")), ShapeConfig("d", "decode", 16, 2)))
+assert count["flops"] > 0 and count["args"] > 0
 leaked = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
 assert not leaked, leaked
 print("ok")
