@@ -253,6 +253,32 @@ Phases, each printing one JSON line:
    then ``python -m repro_torch.bench.run --only roofline --out-dir``
    over the records: one row per record (and a ``NO RECORDS`` row per
    empty mesh).
+17. **partition** — the partitioned dry-run (DTensor over the fake
+   process group, `launch.dryrun.partitioned_cell`) on the card: (a)
+   tinyllama-1.1b at full width, bf16, chunked route, a forward over 2 x
+   2048 tokens on the 1 x 1 host ``DeviceMesh`` (one real NCCL rank,
+   the training rules installed): every placement ``Replicate`` and
+   the logits equal the plain forward's bit for bit; (b) rank 0's local
+   train step of tinyllama-1.1b's ``pod`` record (``train_4k``: 256 x
+   4096 over 16 x 16, accum 4) run with CUDA local shards over the fake
+   group, whose collectives move no data (the values mean nothing): its
+   FLOPs (counted below DTensor on the card), ``args`` and collectives
+   equal the record's; its peak (``max_memory_allocated`` over a second,
+   uncounted run) within ``PARTITION_PEAK_RATIO`` of the record's
+   ``bytes_per_device`` and of the same counter's args + temp on the
+   card; its wall beside the record's ``compute_s`` and ``memory_s``;
+   (c) the ``pod`` and ``multipod`` records of tinyllama-1.1b and of
+   grok-1-314b (cut to 2 of its 64 layers and to accum 8) at
+   ``train_4k`` and ``decode_32k``, partitioned and ideal (counted on
+   meta tensors on the host), each record's per-device FLOPs and
+   collective bytes by op side by side.
+9b. **fuzz** (after ``cmd_oracle``) — the scenario fuzzer's 8 seeds
+   (`repro_torch.oracle.fuzz`, the draws of the reference's
+   ``tests/test_fuzz_oracle.py``) on the card and on the CPU: every
+   stream legal, the card's stream, ``cmd_*`` records and integer views
+   equal to the CPU's (float views within ``RTOL``), one ``cmd_trace``
+   ``weave_window`` and one ``window_inject`` / ``window_inject_trace``
+   launch a window; the launches printed.
 
 Then the kernel table (``{"kernels": [...]}``), the card's name and
 power limit as nvidia-smi reports them, and the result line.  Any
@@ -463,6 +489,15 @@ ROOFLINE_SHAPES = (("train_2k_b4", "train", TRAIN_S, TRAIN_B),
                    ("prefill_2k_b2", "prefill", 2048, 2))
 ROOFLINE_TIMED = 5
 ROOFLINE_PEAK_RATIO = (0.95, 1.05)
+PARTITION_ARCH = "tinyllama-1.1b"
+PARTITION_FWD = (2, 2048)        # phase (a): B x S
+PARTITION_PEAK_RATIO = (0.95, 1.05)
+#: (arch, layers, train accum): grok-1 cut to 2 of its 64 layers and to
+#: accum 8 (at its registered 16 a microbatch has 16 rows for the
+#: multipod's 32 batch ranks, which DTensor cannot split: that cell
+#: fails, as `launch.dryrun` says)
+PARTITION_RECORDS = (("tinyllama-1.1b", None, None), ("grok-1-314b", 2, 8))
+PARTITION_SHAPES = ("train_4k", "decode_32k")
 
 
 def emit(obj):
@@ -1371,6 +1406,78 @@ def cmd_oracle_phase(dev):
         raise AssertionError(f"cmd_oracle launches {launches}: expected "
                              f"{n_batches} cmd_trace weave_window")
     return launches
+
+
+def fuzz_phase(dev):
+    """9b. The scenario fuzzer's seeds (`repro_torch.oracle.fuzz`, the
+    draws of the reference's ``tests/test_fuzz_oracle.py``) on the card
+    and on the CPU: per seed the card's stream has no violation, equals
+    the CPU's, and every integer view and ``cmd_*`` record is equal (the
+    float views within RTOL); one ``cmd_trace`` ``weave_window`` launch a
+    window, and one ``window_inject`` (a Mess point) or
+    ``window_inject_trace`` (a trace or mix) launch a window.  Returns
+    the launches summed over the seeds."""
+    from repro_torch import kernels
+    from repro_torch.kernels.weave_window import weave_window
+    from repro_torch.oracle import diff_streams, fuzz
+
+    total, rows, bad = {}, [], []
+    t0 = time.perf_counter()
+    for seed in range(fuzz.N_SEEDS):
+        scn = fuzz.draw_scenario(seed)
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        card = fuzz.run(scn, dev)
+        torch.cuda.synchronize(dev)
+        card_s = time.perf_counter() - t1
+        launches = dict(kernels.launch_counts(),
+                        by_instance=dict(weave_window.launches_by_instance))
+        cpu = fuzz.run(scn, "cpu")
+        s_card, rep = fuzz.check(scn, card)
+        s_cpu, rep_cpu = fuzz.check(scn, cpu)
+        unequal, worst = [], 0.0
+        for k, want in cpu.items():
+            got = card[k].cpu()
+            if got.is_floating_point():
+                rel = float(((got - want).abs()
+                             / want.abs().clamp(min=1e-30)).max())
+                worst = max(worst, rel)
+                if not rel <= RTOL:
+                    unequal.append(k)
+            elif not torch.equal(got, want):
+                unequal.append(k)
+        same = diff_streams(s_card, s_cpu) is None
+        inject = ("window_inject" if scn.kind == "mess"
+                  else "window_inject_trace")
+        w = scn.cfg.windows
+        want_launches = {"cmd_trace": w, inject: w}
+        got_launches = {"cmd_trace": launches["by_instance"]["cmd_trace"],
+                        inject: launches[inject]}
+        others = {k: n for k, n in launches.items()
+                  if k not in (inject, "weave_window", "by_instance",
+                               "weave_window_recording") and n}
+        by = launches["by_instance"]
+        if by["cmd_trace"] != sum(by.values()):
+            others["weave_window_other_instances"] = by
+        for k, n in got_launches.items():
+            total[k] = total.get(k, 0) + n
+        rows.append({"seed": seed, "scenario": scn.desc,
+                     "commands": len(s_card), "counts": s_card.counts(),
+                     "violations": len(rep.violations),
+                     "cpu_violations": len(rep_cpu.violations),
+                     "streams_equal": same, "views_unequal": unequal,
+                     "float_max_rel_err": worst, "launches": got_launches,
+                     "card_s": card_s})
+        if (len(s_card) == 0 or not rep.ok or not rep_cpu.ok or not same
+                or unequal or got_launches != want_launches or others):
+            bad.append((seed, scn.desc, unequal, got_launches,
+                        want_launches, others, rep.summary()))
+    emit({"phase": "fuzz", "seeds": fuzz.N_SEEDS,
+          "wall_s": time.perf_counter() - t0, "launches": total,
+          "rows": rows})
+    if bad:
+        raise AssertionError(f"fuzz: {bad}")
+    return total
 
 
 def inject_timing(dev, w=8):
@@ -3534,6 +3641,194 @@ def roofline_phase(dev):
     return rows
 
 
+def partition_forward(dev):
+    """17 (a): the annotated forward on the 1 x 1 host DeviceMesh, bit
+    for bit against the plain forward."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import device_mesh, make_host_mesh, rules_for
+    from repro_torch.models.registry import get_model
+    from repro_torch.parallel.axes import distribute_tree, sharding_rules
+    from repro_torch.tree import leaves
+
+    cfg = get_config(PARTITION_ARCH)
+    api = get_model(cfg)
+    params = api.init(0, device=dev)
+    b, s = PARTITION_FWD
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    with torch.no_grad():
+        plain = api.forward(params, batch)
+    host = make_host_mesh(dev)
+    rules = rules_for(host)
+    t0 = time.perf_counter()
+    with device_mesh(host, "cuda", rules) as dm, sharding_rules(host, rules):
+        dp = distribute_tree(api.param_specs(), params, dm)
+        db = distribute_tree({"tokens": ("batch", None)}, batch, dm)
+        placed = [p for tree in (dp, db) for t in leaves(tree)
+                  for p in t.placements]
+        with torch.no_grad(), implicit_replication():
+            out = api.forward(dp, db)
+        torch.cuda.synchronize(dev)
+        equal = torch.equal(out.to_local(), plain)
+        all_replicated = all(p == Replicate() for p in placed) and all(
+            p == Replicate() for p in out.placements)
+    row = {"phase": "partition", "part": "host_forward", "arch": cfg.name,
+           "batch": b, "seq": s, "dtype": str(cfg.dtype),
+           "placements": len(placed), "all_replicate": all_replicated,
+           "logits_bit_equal": equal,
+           "max_abs_diff": float((out.to_local().float()
+                                  - plain.float()).abs().max()),
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    del params, plain, out, dp
+    torch.cuda.empty_cache()
+    if not (equal and all_replicated):
+        raise AssertionError(f"partition (a): {row}")
+    return row
+
+
+def partition_local_step(dev, card):
+    """17 (b): rank 0's local train step of the ``pod`` record on the
+    card, against the record."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config(PARTITION_ARCH)
+    shape = SHAPES["train_4k"]
+    t0 = time.perf_counter()
+    rec = dryrun.cell_record(cfg, shape, "pod")
+    record_s = time.perf_counter() - t0
+    mesh = make_production_mesh()
+    torch.cuda.empty_cache()
+    with dryrun.partitioned_cell(get_model(cfg), shape, mesh,
+                                 device=dev.type) as cell:
+        args = float(sum(dryrun.tree_bytes(a) for a in cell.args))
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        counted = dryrun.count_step(cell, local=True)
+        torch.cuda.synchronize(dev)
+        counted_s = time.perf_counter() - t1
+        counted_peak = torch.cuda.max_memory_allocated(dev) - before
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t2 = time.perf_counter()
+        with torch.enable_grad(), implicit_replication():
+            out = cell.fn(*cell.args)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t2
+        step_peak = torch.cuda.max_memory_allocated(dev) - before
+        del out
+    torch.cuda.empty_cache()
+    mem = rec["memory_analysis"]
+    measured = args + step_peak
+    counted_peak_pred = args + counted["temp"]
+    row = {"phase": "partition", "part": "pod_local_step",
+           "arch": cfg.name, "shape": shape.name, "card": card,
+           "global_batch": shape.global_batch, "seq": shape.seq_len,
+           "accum": rec["accum"], "chips": rec["chips"],
+           "record_count_s": record_s, "card_count_s": counted_s,
+           "flops_record": rec["hlo_flops_dev"],
+           "flops_card": counted["flops"],
+           "args_record": mem["args"], "args_card": args,
+           "temp_record": mem["temp"], "temp_card_count": counted["temp"],
+           "counted_run_peak_bytes": counted_peak,
+           "peak_card_bytes": measured,
+           "peak_counted_on_card_bytes": counted_peak_pred,
+           "peak_ratio_to_card_count": measured / counted_peak_pred,
+           "peak_ratio_limits": list(PARTITION_PEAK_RATIO),
+           "peak_predicted_bytes": rec["bytes_per_device"],
+           "peak_ratio_to_record": measured / rec["bytes_per_device"],
+           "collectives_equal": counted["collectives"] == rec["collectives"],
+           "collectives_card": counted["collectives"],
+           "step_wall_s": wall, "compute_s": rec["compute_s"],
+           "memory_s": rec["memory_s"],
+           "collective_s": rec["collective_s"],
+           "wall_over_compute_plus_memory":
+               wall / (rec["compute_s"] + rec["memory_s"])}
+    emit(row)
+    lo, hi = PARTITION_PEAK_RATIO
+    if not (counted["flops"] == rec["hlo_flops_dev"]
+            and args == mem["args"] and row["collectives_equal"]
+            and lo <= row["peak_ratio_to_record"] <= hi
+            and lo <= row["peak_ratio_to_card_count"] <= hi):
+        raise AssertionError(f"partition (b): {row}")
+    return row
+
+
+def partition_records():
+    """17 (c): the pod / multipod records, partitioned and ideal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun
+
+    rows = []
+    for arch, layers, accum in PARTITION_RECORDS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        for name in PARTITION_SHAPES:
+            for mesh in ("pod", "multipod"):
+                t0 = time.perf_counter()
+                got = {p: dryrun.cell_record(cfg, SHAPES[name], mesh,
+                                             partition=p, accum=accum)
+                       for p in ("dtensor", "ideal")}
+                d, i = got["dtensor"], got["ideal"]
+                row = {"phase": "partition", "part": "records",
+                       "arch": arch, "layers": cfg.n_layers,
+                       "accum": d["accum"],
+                       "shape": name, "mesh": mesh,
+                       "flops_dev": {p: r["hlo_flops_dev"]
+                                     for p, r in got.items()},
+                       "flops_ratio": d["hlo_flops_dev"]
+                       / i["hlo_flops_dev"],
+                       "collective_bytes": {
+                           p: r["collectives"]["bytes_by_op"]
+                           for p, r in got.items()},
+                       "collective_s": {p: r["collective_s"]
+                                        for p, r in got.items()},
+                       "args": {p: r["memory_analysis"]["args"]
+                                for p, r in got.items()},
+                       "bytes_per_device": {p: r["bytes_per_device"]
+                                            for p, r in got.items()},
+                       "bound": {p: r["bottleneck"]
+                                 for p, r in got.items()},
+                       "count_s": time.perf_counter() - t0}
+                emit(row)
+                rows.append(row)
+                if ((d["partition"], i["partition"]) != ("dtensor", "ideal")
+                        or d["memory_analysis"]["args"]
+                        != i["memory_analysis"]["args"]
+                        or d["collectives_scope"] != "all"):
+                    raise AssertionError(f"partition (c): {row}")
+    return rows
+
+
+def partition_phase(dev):
+    """17. The partitioned dry-run on the card (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    card = card_line()
+    fwd = partition_forward(dev)
+    step = partition_local_step(dev, card)
+    rows = partition_records()
+    emit({"phase": "partition", "part": "summary", "card": card,
+          "wall_s": time.perf_counter() - t0,
+          "host_forward_bit_equal": fwd["logits_bit_equal"],
+          "pod_step_wall_s": step["step_wall_s"],
+          "records": len(rows)})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3753,6 +4048,7 @@ def main():
     # ---- 8-9. the simulator perspective's recorders ----------------------
     persp_launches, persp_wall = perspectives_phase(dev)
     oracle_launches = cmd_oracle_phase(dev)
+    fuzz_launches = fuzz_phase(dev)
     persp_cfg, persp_state = perspectives_state(dev)
     timing["weave_window_recording"] = record_timing(dev, persp_cfg,
                                                      persp_state)
@@ -3778,6 +4074,8 @@ def main():
 
     # ---- 16. the planning tools' records against the card -----------------
     roofline_phase(dev)
+
+    partition_phase(dev)
 
     # ---- the kernel table, the card, the result ---------------------------
     # launches: weave_window / window_inject from the main path's sweep
@@ -3914,6 +4212,7 @@ def main():
                 plain_instance_ms_event=timing["weave_window"]["ms_event"],
                 cmd_oracle_launches=oracle_launches[
                     "weave_window_recording"],
+                fuzz_launches=fuzz_launches.get("cmd_trace", 0),
                 ladder_launches=ladder_launches["weave_window_recording"],
                 perspectives_smoke_wall_s=persp_wall,
                 serving_smoke_launches=serve["smoke"][
@@ -3926,6 +4225,7 @@ def main():
                 "ms_event", "call_ms_event", "plain_ms_event",
                 "bound_ms_event", "window_step_ms", "window_step_ms_event",
                 "shape_event")}, idle_share_of_sweep=idle_share,
+                fuzz_launches=fuzz_launches.get("window_inject", 0),
                 figures_full_launches=figs["window_inject"],
                 figures_full_wall_s=figs["wall_s"],
                 weave_bench_launches=wbench["window_inject"])
@@ -3936,6 +4236,7 @@ def main():
             table[-1].update(
                 {k: t[k] for k in ("window_step_ms", "trace_entries_read")},
                 path="replay ladder (trace route)",
+                fuzz_launches=fuzz_launches.get("window_inject_trace", 0),
                 replay_profile_device_s=replay_prof.get("inject_device_s"),
                 replay_profile_launches=replay_prof.get("inject_launches"),
                 replay_card_vs_cpu_max_rel_err=replay_rel,

@@ -5,8 +5,10 @@ The port's counterpart of the JAX package's
 (written by ``python -m repro_torch.launch.dryrun``; by default under
 ``reports/torch/dryrun/``) for the ``pod``, ``multipod`` and ``host``
 meshes and emits one row per record with its roofline terms, or a
-``NO RECORDS`` row for a mesh that has none.  It counts nothing itself:
-the dry-run is the expensive step, and its records are cached.
+``NO RECORDS`` row for a mesh that has none; each row names its
+record's partition (``exact``, ``dtensor`` or ``ideal``).  It counts
+nothing itself: the dry-run is the expensive step, and its records are
+cached.
 ``bench.run --only roofline --out-dir D`` reads the records under ``D``.
 """
 from __future__ import annotations
@@ -35,7 +37,8 @@ def main(full: bool = False, report_dir=None):
                  f"collective={r['collective_s'] * 1e3:.1f}ms "
                  f"useful={r['useful_ratio']:.2f} "
                  f"frac={r['compute_s'] / dom if dom else 0:.3f} "
-                 f"GiB/dev={r['bytes_per_device'] / 2 ** 30:.2f}")
+                 f"GiB/dev={r['bytes_per_device'] / 2 ** 30:.2f} "
+                 f"partition={r.get('partition', '?')}")
 
 
 if __name__ == "__main__":

@@ -1,10 +1,9 @@
-"""Dry-run: count each (arch x shape x mesh) cell's step on meta tensors.
+"""Dry-run: count each (arch x shape x mesh) cell's step.
 
 The reference lowers and compiles every cell on 512 forced host devices
 and reads FLOPs, bytes and collectives out of the partitioned HLO.  A
-torch step has no HLO and the port has no SPMD partitioner, so the port
-counts the step it runs, once, on ``meta`` tensors (shapes without
-storage) at the cell's global shape:
+torch step has no HLO.  The port counts the step it runs, once, under
+its own counters (`StepCounter`):
 
 * the train step (`train.step.build_train_step`, the reference's
   ``TRAIN_ACCUM`` / ``DEFAULT_ACCUM`` microbatches, bf16 Adam moments
@@ -12,15 +11,15 @@ storage) at the cell's global shape:
   decode step against ``init_cache(global_batch, seq_len)``; parameters
   from ``api.init(0, device="meta")``, their fp32 leaves cast to bf16
   for a decode cell under ``--variant opt`` (weight-stationary serving);
-* ``hlo_flops_dev``: ``FlopCounterMode``'s total, the products (``mm``,
-  ``bmm``, ``addmm``, ``baddbmm``, convolutions), as the reference's
-  ``hlo_cost`` counts its ``dot`` ops;
+* ``hlo_flops_dev``: the products' FLOPs (``mm``, ``bmm``, ``addmm``,
+  ``baddbmm``, convolutions), as the reference's ``hlo_cost`` counts its
+  ``dot`` ops;
 * ``hlo_bytes_dev``: for each aten op that materialises an output, its
-  operand bytes plus its output bytes (`StepCounter`; views and reshapes
-  0; an op that writes into an operand counts its other operands and the
-  bytes it writes: the values of an indexed write, else the operand).
-  These are the eager program's bytes, op by op: not XLA's fused bytes,
-  which are fewer;
+  operand bytes plus its output bytes (views and reshapes 0; an op that
+  writes into an operand counts its other operands and the bytes it
+  writes: the values of an indexed write, else the operand).  These are
+  the eager program's bytes, op by op: not XLA's fused bytes, which are
+  fewer;
 * ``memory_analysis``: ``args``, the exact bytes of params, optimizer
   state, batch and cache; ``temp``, the peak of the bytes of the
   storages the step creates and holds at once (the step's outputs
@@ -31,24 +30,38 @@ storage) at the cell's global shape:
 
 The meshes (``--mesh``):
 
-* ``host`` — the port's own program on one card, priced at one H100:
-  every term is the count itself, ``chips`` 1, no collective,
-  ``partition: "exact"``;
-* ``pod`` / ``multipod`` (``single`` / ``multi``; ``both``) — the
-  reference's 16x16 and 2x16x16 meshes as H100 meshes,
-  ``partition: "ideal"``: ``args`` per card is exact (each leaf's local
-  shape under `parallel.axes.resolve_tree` of its specs and
-  `launch.mesh.rules_for`); FLOPs, bytes and ``temp`` per card are the
-  global counts over ``chips``, a lower bound (the reference's
-  partitioner sometimes replicates work, and the port has none).
-  Collectives cover the weights only (``collectives_scope:
+* ``host`` -- the port's own program on one card, priced at one H100,
+  counted on ``meta`` tensors at the cell's global shape: every term
+  is the count itself, ``chips`` 1, no
+  collective, ``partition: "exact"``;
+* ``pod`` / ``multipod`` (``single`` / ``multi``; ``both``) -- the
+  reference's 16x16 and 2x16x16 meshes as H100 meshes.  For the dense
+  and MoE families (``PARTITIONED_FAMILIES``) the step runs as rank 0
+  of the mesh under DTensor over the fake process group
+  (`partitioned_cell`: every arg a DTensor placed by its logical specs
+  under `launch.mesh.rules_for`, its local shard on ``meta``; the
+  models' ``shard`` annotations as in the reference), ``partition:
+  "dtensor"``, ``collectives_scope: "all"``: FLOPs, bytes, ``args``,
+  ``temp`` and ``output`` are rank 0's, counted on its local shards
+  (`StepCounter` with ``local=True``: below DTensor's dispatch, its
+  sharding propagation skipped), and ``collectives`` lists every
+  collective DTensor issues -- the weights' gathers and the gradients'
+  reductions, the activations' all-gathers, all-to-alls and
+  all-reduces of partial sums -- each at its output bytes, as the
+  reference's ``hlo`` counts them.  The train step donates its params
+  and optimizer state, as the reference's jitted step does (AdamW
+  writes each leaf in place).  A dense or MoE cell that DTensor cannot
+  partition fails, naming the op; nothing falls back.  The other four
+  families keep ``partition: "ideal"``: ``args`` per card is exact (each
+  leaf's local shape under `parallel.axes.resolve_tree`); FLOPs, bytes
+  and ``temp`` per card are the global counts over ``chips``, a lower
+  bound; collectives cover the weights only (``collectives_scope:
   "weights"``): each parameter leaf is all-gathered over the mesh axes
-  the rules give its ``fsdp`` / ``embed`` dims, in its stored dtype, once
-  per forward (per microbatch); a train step gathers it once more for
-  the recompute and backward and reduce-scatters its fp32 gradient over
-  the same axes, once per microbatch.  Bytes are each collective's
-  output, as the reference's ``hlo`` counts them.  Under the serving
-  rules no weight moves; activation collectives are not priced.
+  the rules give its ``fsdp`` / ``embed`` dims, in its stored dtype,
+  once per forward (per microbatch); a train step gathers it once more
+  for the recompute and backward and reduce-scatters its fp32 gradient
+  over the same axes, once per microbatch.  Under the serving rules no
+  weight moves.
 
 Each record keeps the reference's keys (so `perfmodel.report` and
 `bench.roofline_bench` read either kind) plus ``partition``,
@@ -56,38 +69,45 @@ Each record keeps the reference's keys (so `perfmodel.report` and
 ``compile_s`` holds the count's wall time.  Records go to
 ``reports/torch/dryrun[_opt]/<mesh>/<arch>__<shape>.json``; a record on
 disk is reused unless ``--force``.  A config with ``use_flash_kernel``
-raises: ``FlopCounterMode`` cannot see the kernel's launch.
+raises: the counter cannot see the kernel's launch.
 
 ``--all`` is slow for xlstm-1.3b's long cells: its sLSTM loop runs over
 time, about 7.5 s per 256 tokens of forward on meta at full width.
 
-Usage:
+Usage (``--arch`` without ``--shape``: the arch's registered cells):
   python -m repro_torch.launch.dryrun --mesh host --arch tinyllama-1.1b \\
+      --shape train_4k
+  python -m repro_torch.launch.dryrun --mesh single --arch tinyllama-1.1b \\
       --shape train_4k
   python -m repro_torch.launch.dryrun --all --mesh both
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
 import math
 import pathlib
+import sys
 import time
 import traceback
 import weakref
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import registry as cfgs
 from repro_torch.configs.shapes import SHAPES, ShapeConfig
-from repro_torch.launch.mesh import make_production_mesh, rules_for
+from repro_torch.launch.mesh import (device_mesh, make_production_mesh,
+                                     rules_for)
 from repro_torch.models.registry import get_model
-from repro_torch.parallel.axes import (local_shape, resolve, resolve_tree,
+from repro_torch.parallel.axes import (distribute_tree, is_dtensor,
+                                       local_shape, resolve, resolve_tree,
                                        serving_mode, sharding_rules)
 from repro_torch.perfmodel import report
 from repro_torch.perfmodel import roofline as roof
@@ -118,9 +138,48 @@ _GATHERED = ("fsdp", "embed")
 _INDEXED_WRITES = ("index_put", "scatter", "index_copy", "index_add",
                    "index_fill", "masked_scatter")
 
+#: the families whose ``pod`` / ``multipod`` cells DTensor partitions
+#: (``partition: "dtensor"``); the others keep the ideal partition
+PARTITIONED_FAMILIES = ("dense", "moe")
+
+#: the collectives DTensor issues, by op, and their `COLLECTIVES` name
+_COLLECTIVE_OPS = {
+    "_c10d_functional::all_gather_into_tensor": "all-gather",
+    "_c10d_functional::all_gather_into_tensor_coalesced": "all-gather",
+    "_c10d_functional::all_reduce": "all-reduce",
+    "_c10d_functional::all_reduce_coalesced": "all-reduce",
+    "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
+    "_c10d_functional::reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "_c10d_functional::all_to_all_single": "all-to-all",
+    "_dtensor::shard_dim_alltoall": "all-to-all",
+}
+
+#: collective bookkeeping that moves no bytes
+_NO_BYTES = ("_c10d_functional::wait_tensor",
+             "_c10d_functional::_wrap_tensor_autograd")
+
+
+def _local(t):
+    """A DTensor's local shard (this rank's), any other tensor itself."""
+    return t._local_tensor if is_dtensor(t) else t
+
 
 def tensor_bytes(t) -> int:
+    t = _local(t)
     return t.numel() * t.element_size()
+
+
+def _in_sharding_prop() -> bool:
+    """True inside DTensor's sharding propagation, which runs ops on meta
+    tensors of the global shapes to infer the outputs' (and prices
+    candidate redistributions): they are not the rank's work."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_globals.get("__name__") == \
+                "torch.distributed.tensor._sharding_prop":
+            return True
+        f = f.f_back
+    return False
 
 
 def tree_bytes(tree) -> int:
@@ -139,16 +198,31 @@ def _mutated(func, args, kwargs) -> list:
 
 
 class StepCounter(TorchDispatchMode):
-    """Counts, for every aten op dispatched inside it, the bytes it moves
-    (``bytes``), and tracks the storages the ops create: the bytes alive
-    at once (``live``) and their peak (``peak``).  A storage counts from
-    the op that creates it until it is freed."""
+    """Counts, for every aten op dispatched inside it, the FLOPs of its
+    product by ``torch.utils.flop_counter``'s formulas (``flops``) and
+    the bytes it moves (``bytes``), and tracks the storages the ops
+    create: the bytes alive at once (``live``) and their peak
+    (``peak``).  A storage counts from the op that creates it until it
+    is freed.
 
-    def __init__(self):
+    With ``local=True`` it counts one rank of a DTensor program: the ops
+    on the local shards (DTensor dispatches each op to them; its sharding
+    propagation, on the global shapes, is skipped), and every collective
+    DTensor issues, its output bytes per `COLLECTIVES` name
+    (``coll_bytes``, ``coll_counts``; ``coll_log`` lists each as
+    ``(name, dtype, bytes)``).  A collective op this counter does not
+    know raises."""
+
+    def __init__(self, local: bool = False):
         super().__init__()
+        self.local = local
         self.bytes = 0
         self.live = 0
         self.peak = 0
+        self.flops = 0
+        self.coll_bytes = {c: 0 for c in COLLECTIVES}
+        self.coll_counts = {c: 0 for c in COLLECTIVES}
+        self.coll_log = []
         self._new = {}             # id(storage) -> nbytes, while alive
 
     def _free(self, key):
@@ -157,18 +231,46 @@ class StepCounter(TorchDispatchMode):
     def created(self, tree) -> int:
         """Bytes of the storages of ``tree``'s tensors that ops inside
         this counter created and that are still alive."""
-        keys = {id(t.untyped_storage()) for t in tree_leaves(tree)
+        keys = {id(_local(t).untyped_storage()) for t in tree_leaves(tree)
                 if isinstance(t, torch.Tensor)}
         return sum(self._new.get(k, 0) for k in keys)
 
+    def _count_collective(self, func, outs) -> bool:
+        """The collective a local op issues, if any; False for an op that
+        moves no bytes."""
+        name = func._schema.name
+        coll = _COLLECTIVE_OPS.get(name)
+        if coll is not None:
+            n = sum(tensor_bytes(t) for t in outs)
+            self.coll_bytes[coll] += n
+            self.coll_counts[coll] += 1
+            self.coll_log.append((coll, outs[0].dtype, n))
+        elif name.startswith(("_c10d_functional::", "_dtensor::")) \
+                and name not in _NO_BYTES:
+            raise RuntimeError(f"{name}: a collective the dry-run does not "
+                               f"count")
+        return bool(outs) and name not in _NO_BYTES
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self.local:
+            if any(is_dtensor(t) for t in tree_leaves((args, kwargs))):
+                # DTensor dispatches it: its ops on the local shards
+                # come back here
+                return NotImplemented
+            if _in_sharding_prop():
+                return func(*args, **kwargs)
         out = func(*args, **kwargs)
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            self.flops += count(*args, **kwargs, out_val=out)
         if func.is_view or func is torch.ops.aten._unsafe_view.default:
             return out
         ins = [t for t in tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if self.local and not self._count_collective(func, outs):
+            return out
         mutated = _mutated(func, args, kwargs)
         if mutated:
             others = [t for t in ins if all(t is not m for m in mutated)]
@@ -185,7 +287,11 @@ class StepCounter(TorchDispatchMode):
             key = id(st)
             if key in seen or key in self._new:
                 continue
-            self._new[key] = st.nbytes()
+            # a local op's output counts its own bytes: the meta kernel
+            # of DTensor's all-to-all returns a chunk of a group-sized
+            # buffer, where the card allocates the chunk alone
+            self._new[key] = (min(st.nbytes(), tensor_bytes(t))
+                              if self.local else st.nbytes())
             self.live += self._new[key]
             self.peak = max(self.peak, self.live)
             weakref.finalize(st, self._free, key)
@@ -220,10 +326,13 @@ def input_batch(api, shape: ShapeConfig, *, for_train: bool, device="meta"):
 
 
 def build_cell(api, shape: ShapeConfig, *, serving: bool = False,
-               accum: int | None = None, device="meta") -> Cell:
+               accum: int | None = None, device="meta",
+               donate: bool = False) -> Cell:
     """The step of ``shape``'s kind on ``device`` (meta: shapes only; the
     card runs the same step in ``chip_smoke.py``).  ``accum`` overrides
-    the arch's train accumulation factor."""
+    the arch's train accumulation factor; ``donate`` has the train step
+    update the params and optimizer state in place (the reference
+    donates both to its jitted step)."""
     cfg = api.cfg
     if cfg.use_flash_kernel:
         raise ValueError(
@@ -242,7 +351,7 @@ def build_cell(api, shape: ShapeConfig, *, serving: bool = False,
             state_dtype=(torch.bfloat16 if cfg.name in BF16_OPT_STATE
                          else torch.float32))
         batch = input_batch(api, shape, for_train=True, device=device)
-        return Cell(build_train_step(api, ocfg, accum=accum),
+        return Cell(build_train_step(api, ocfg, accum=accum, donate=donate),
                     (params, opt.init_state(ocfg, params), batch),
                     (pspecs, opt.state_specs(pspecs), batch_specs(api)),
                     "train", accum)
@@ -259,22 +368,72 @@ def build_cell(api, shape: ShapeConfig, *, serving: bool = False,
                 "decode")
 
 
-def count_step(cell: Cell) -> dict:
-    """Run ``cell``'s step once under the counters: FLOPs, bytes, the
+def count_step(cell: Cell, local: bool = False) -> dict:
+    """Run ``cell``'s step once under `StepCounter`: FLOPs, bytes, the
     peak of the bytes it creates (``temp``), the bytes of its outputs,
-    and the wall time of the count."""
+    and the wall time of the count.  ``local``: the step runs on DTensors
+    (`partitioned_cell`) and the counts are rank 0's, collectives
+    included."""
     grad = torch.enable_grad() if cell.kind == "train" else torch.no_grad()
+    # implicit replication: the tensors a partitioned step makes itself
+    # (the positions, masks and constants) are whole on every rank
+    rep = implicit_replication() if local else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with grad, FlopCounterMode(display=False) as flops, \
-            StepCounter() as counter:
+    with grad, rep, StepCounter(local=local) as counter:
         out = cell.fn(*cell.args)
         output = counter.created(out)
     del out
-    return dict(flops=float(flops.get_total_flops()),
-                bytes=float(counter.bytes), temp=float(counter.peak),
-                output=float(output),
-                args=float(sum(tree_bytes(a) for a in cell.args)),
-                wall_s=time.perf_counter() - t0)
+    rec = dict(flops=float(counter.flops), bytes=float(counter.bytes),
+               temp=float(counter.peak), output=float(output),
+               args=float(sum(tree_bytes(a) for a in cell.args)),
+               wall_s=time.perf_counter() - t0)
+    if local:
+        rec.update(collectives=dict(
+            bytes_by_op=dict(counter.coll_bytes),
+            counts=dict(counter.coll_counts),
+            total_bytes=sum(counter.coll_bytes.values())),
+            coll_log=counter.coll_log)
+    return rec
+
+
+def _splits(cell: Cell, mesh, rules) -> list:
+    """The mesh axes each dim of ``cell``'s args, and of one train
+    microbatch, is split over under ``rules`` (`resolve` of its shape:
+    a microbatch too small for its rule's axes is split over those it
+    divides, and replicated over the others), for
+    `launch.mesh.device_mesh`'s ``splits``."""
+    specs, shapes = list(cell.specs), list(cell.args)
+    if cell.kind == "train":
+        specs.append(cell.specs[2])
+        shapes.append({k: (x.shape[0] // cell.accum, *x.shape[1:])
+                       for k, x in cell.args[2].items()})
+    with sharding_rules(mesh, rules):
+        return [(e,) if isinstance(e, str) else tuple(e)
+                for spec, sh in zip(specs, shapes)
+                for p in leaves(resolve_tree(spec, sh)) for e in p if e]
+
+
+@contextlib.contextmanager
+def partitioned_cell(api, shape: ShapeConfig, mesh, *, serving: bool = False,
+                     accum: int | None = None, device: str = "meta"):
+    """``shape``'s step as rank 0 of the production mesh ``mesh`` (a
+    `launch.mesh.Mesh`) runs it under DTensor, for the enclosed scope:
+    the fake process group and the rules of `launch.mesh.rules_for` are
+    installed, and every arg leaf is a DTensor whose local shard lies on
+    ``device`` (``"meta"``: shapes only; ``"cuda"``: zeros on the card,
+    where the step runs for real while its collectives move no data, so
+    its values mean nothing).  The mesh is a CUDA mesh either way, so
+    that DTensor issues the card's collectives (over a CPU mesh it would
+    replace each all-to-all by an all-gather, gloo having none); a CUDA
+    mesh over the fake group needs no card.  The train step donates its
+    params and optimizer state (`build_cell`'s ``donate``)."""
+    cell = build_cell(api, shape, serving=serving, accum=accum, donate=True)
+    rules = rules_for(mesh, serving=serving)
+    with device_mesh(mesh, "cuda", rules, _splits(cell, mesh, rules)) as dm, \
+            sharding_rules(mesh, rules):
+        args = tuple(distribute_tree(spec, a, dm, device)
+                     for spec, a in zip(cell.specs, cell.args))
+        yield dataclasses.replace(cell, args=args)
 
 
 def _weight_collectives(cell: Cell, mesh) -> dict:
@@ -330,11 +489,78 @@ def _shape(shape) -> ShapeConfig:
 
 
 @functools.lru_cache(maxsize=8)
-def _counted(arch: str, shape: ShapeConfig, serving: bool,
-             accum: int | None):
-    api = get_model(cfgs.get_config(arch))
+def _counted(cfg, shape: ShapeConfig, serving: bool, accum: int | None):
+    api = get_model(cfg)
     cell = build_cell(api, shape, serving=serving, accum=accum)
     return api, cell, count_step(cell)
+
+
+def cell_record(cfg, shape: ShapeConfig, mesh: str, *,
+                variant: str = "baseline", accum: int | None = None,
+                partition: str | None = None) -> dict:
+    """The record of ``shape``'s step of the model ``cfg`` (a full config
+    or one cut in depth) on ``mesh``.  ``partition``: ``"dtensor"`` or
+    ``"ideal"`` for a ``pod`` / ``multipod`` cell; by default
+    ``"dtensor"`` for the families of ``PARTITIONED_FAMILIES``, else
+    ``"ideal"``."""
+    if partition is None:
+        partition = ("dtensor" if cfg.family in PARTITIONED_FAMILIES
+                     else "ideal")
+    serving = variant == "opt" and shape.kind == "decode"
+    if mesh != "host" and partition == "dtensor":
+        api = get_model(cfg)
+        m = make_production_mesh(multi_pod=mesh == "multipod")
+        with partitioned_cell(api, shape, m, serving=serving,
+                              accum=accum) as cell:
+            try:
+                c = count_step(cell, local=True)
+            except Exception as e:
+                raise RuntimeError(
+                    f"{cfg.name} x {shape.name} x {mesh}: DTensor could not "
+                    f"partition the step: {e}") from e
+        chips, args, coll = m.size, c["args"], c["collectives"]
+        cost = {"flops": c["flops"], "bytes accessed": c["bytes"]}
+        temp, output = c["temp"], c["output"]
+        partition, scope = "dtensor", "all"
+    else:
+        api, cell, c = _counted(cfg, shape, serving, accum)
+        if mesh == "host":
+            chips, args = 1, c["args"]
+            coll = dict(bytes_by_op={k: 0 for k in COLLECTIVES},
+                        counts={k: 0 for k in COLLECTIVES}, total_bytes=0)
+            partition, scope = "exact", "none: one card"
+        else:
+            m = make_production_mesh(multi_pod=mesh == "multipod")
+            chips = m.size
+            with sharding_rules(m, rules_for(m, serving=serving)):
+                args = float(_local_args_bytes(cell, m))
+                coll = _weight_collectives(cell, m)
+            partition, scope = "ideal", "weights"
+        cost = {"flops": c["flops"] / chips,
+                "bytes accessed": c["bytes"] / chips}
+        temp, output = c["temp"] / chips, c["output"] / chips
+    params = cell.args[0]
+    n_active = roof.count_active_params(params, cfg.top_k, cfg.n_experts)
+    tokens = (shape.global_batch * shape.seq_len
+              if shape.kind in ("train", "prefill") else shape.global_batch)
+    mflops = roof.model_flops(shape.kind, n_active, tokens)
+    r = roof.make(cfg.name, shape.name, mesh, chips, cost=cost,
+                  collectives=coll, model_flops=mflops,
+                  bytes_per_device=temp + args)
+    record = dict(r.as_dict(), compile_s=c["wall_s"],
+                  collectives=coll,
+                  cost_analysis_raw={"flops": c["flops"],
+                                     "bytes accessed": c["bytes"]},
+                  n_params=roof.count_params_struct(params),
+                  n_active_params=n_active,
+                  memory_analysis=dict(temp=temp, args=args, output=output),
+                  partition=partition, collectives_scope=scope,
+                  peak=dict(PEAK_FLOPS=roof.PEAK_FLOPS, HBM_BW=roof.HBM_BW,
+                            LINK_BW=roof.LINK_BW[mesh]),
+                  kind=shape.kind, global_batch=shape.global_batch,
+                  seq_len=shape.seq_len, accum=cell.accum,
+                  variant=variant)
+    return record
 
 
 def run_cell(arch: str, shape, mesh: str = "host", *,
@@ -353,55 +579,18 @@ def run_cell(arch: str, shape, mesh: str = "host", *,
     if outfile.exists() and not force:
         return json.loads(outfile.read_text())
 
-    serving = variant == "opt" and shape.kind == "decode"
-    api, cell, c = _counted(arch, shape, serving, accum)
-    cfg = api.cfg
-    params = cell.args[0]
-    n_active = roof.count_active_params(params, cfg.top_k, cfg.n_experts)
-    tokens = (shape.global_batch * shape.seq_len
-              if shape.kind in ("train", "prefill") else shape.global_batch)
-    mflops = roof.model_flops(shape.kind, n_active, tokens)
-    if mesh == "host":
-        chips, args = 1, c["args"]
-        coll = dict(bytes_by_op={k: 0 for k in COLLECTIVES},
-                    counts={k: 0 for k in COLLECTIVES}, total_bytes=0)
-        scope = "none: one card"
-    else:
-        m = make_production_mesh(multi_pod=mesh == "multipod")
-        chips = m.size
-        with sharding_rules(m, rules_for(m, serving=serving)):
-            args = float(_local_args_bytes(cell, m))
-            coll = _weight_collectives(cell, m)
-        scope = "weights"
-    temp, output = c["temp"] / chips, c["output"] / chips
-    r = roof.make(arch, shape.name, mesh, chips,
-                  cost={"flops": c["flops"] / chips,
-                        "bytes accessed": c["bytes"] / chips},
-                  collectives=coll, model_flops=mflops,
-                  bytes_per_device=temp + args)
-    record = dict(r.as_dict(), compile_s=c["wall_s"],
-                  collectives=coll,
-                  cost_analysis_raw={"flops": c["flops"],
-                                     "bytes accessed": c["bytes"]},
-                  n_params=roof.count_params_struct(params),
-                  n_active_params=n_active,
-                  memory_analysis=dict(temp=temp, args=args, output=output),
-                  partition="exact" if mesh == "host" else "ideal",
-                  collectives_scope=scope,
-                  peak=dict(PEAK_FLOPS=roof.PEAK_FLOPS, HBM_BW=roof.HBM_BW,
-                            LINK_BW=roof.LINK_BW[mesh]),
-                  kind=shape.kind, global_batch=shape.global_batch,
-                  seq_len=shape.seq_len, accum=cell.accum,
-                  variant=variant)
+    record = cell_record(cfgs.get_config(arch), shape, mesh,
+                         variant=variant, accum=accum)
     outfile.write_text(json.dumps(record, indent=1))
     if verbose:
-        print(f"[dryrun] {arch} x {shape.name} x {mesh}: "
-              f"count {c['wall_s']:.1f}s  "
-              f"mem/dev {r.bytes_per_device / 2**30:.2f} GiB  "
-              f"compute {r.compute_s * 1e3:.2f} ms  "
-              f"memory {r.memory_s * 1e3:.2f} ms  "
-              f"collective {r.collective_s * 1e3:.2f} ms  "
-              f"-> {r.bottleneck}", flush=True)
+        r = record
+        print(f"[dryrun] {arch} x {shape.name} x {mesh} "
+              f"({r['partition']}): count {r['compile_s']:.1f}s  "
+              f"mem/dev {r['bytes_per_device'] / 2**30:.2f} GiB  "
+              f"compute {r['compute_s'] * 1e3:.2f} ms  "
+              f"memory {r['memory_s'] * 1e3:.2f} ms  "
+              f"collective {r['collective_s'] * 1e3:.2f} ms  "
+              f"-> {r['bottleneck']}", flush=True)
     return record
 
 
@@ -418,14 +607,13 @@ def main(argv=None):
                     default="baseline")
     args = ap.parse_args(argv)
 
-    if args.all:
-        cells = cfgs.cells()
-        if args.arch:
-            cells = [c for c in cells if c[0] == args.arch]
-    elif args.arch and args.shape:
+    if args.arch and args.shape:
         cells = [(args.arch, args.shape)]
+    elif args.all or args.arch:     # --arch alone: its registered cells
+        cells = [c for c in cfgs.cells()
+                 if args.arch in (None, c[0])]
     else:
-        ap.error("give --arch and --shape, or --all")
+        ap.error("give --arch [--shape], or --all")
 
     meshes = {"host": ("host",), "single": ("pod",), "multi": ("multipod",),
               "both": ("pod", "multipod")}[args.mesh]

@@ -18,12 +18,21 @@ Conventions
   raises (the reference's flash route drops the softcap silently).
 * A `ShapesOnly` stand-in for the generator builds a parameter tree of
   meta tensors: shapes without storage, how a full config is counted.
-* Projections are plain products: the port runs on one card, so the
-  reference's weight-stationary mesh schedule (``serving_matmul``) and
-  its ``shard`` annotations have no counterpart here.  The logical axis
-  names of each weight are kept as data (``*_specs``: one tuple of names
-  per leaf, one name per dim), which `parallel.axes` resolves to price
-  the production meshes (`launch.dryrun`).
+* The reference's SPMD annotations carry over onto DTensor
+  (`parallel.axes`): `shard` at the reference's call sites (the
+  projections' outputs, the FFN's hidden state, the embedding and the
+  logits), `heads_tp_available` and the sequence-parallel branch of the
+  attention, and `serving_matmul`, the weight-stationary product of the
+  serving rules.  Where the reference leaves the plan to XLA's
+  partitioner, the DTensor path states it: weights gathered over their
+  ZeRO-3 dims before use, partial sums reduced where they arise (and
+  their gradients'), the attention and the embedding lookup run per
+  rank.  On plain tensors, or with no rules installed, all of it is the
+  identity and the products are the plain ones.  The
+  reference's A/B measurement knob ``REPRO_NO_SP`` (turn the
+  sequence-parallel branch off) is not ported.  The logical axis names
+  of each weight are kept as data (``*_specs``: one tuple of names per
+  leaf, one name per dim), which `parallel.axes` resolves.
 * Training recomputes each block's activations in the backward pass
   (`recompute`, the reference's ``jax.checkpoint`` around the same
   blocks); a forward that autograd does not record runs plainly.
@@ -35,10 +44,95 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.parallel.axes import (P, _mesh, _rules, einsum,
+                                       gather_fsdp, is_dtensor, placements,
+                                       reduce_grad_partial, reduce_partial,
+                                       resolve, serving_mode, shard,
+                                       sharding_rules)
 from repro_torch.tree import leaves
+
+
+def _plain_product(eq: str, x, w):
+    """``einsum(eq, x, w)`` for the projections' equations, as the plain
+    products the port runs: x (..., d) @ w (d, *out), or for the
+    attention output x (..., H, D) @ w (H, D, d)."""
+    if eq == "bshk,hkd->bsd":
+        return x.reshape(*x.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+    return _proj(x, w)
+
+
+def _split_contraction(x, w, eq: str):
+    """``(x, w)``, where both leave a mesh dim whole (the K/V projection
+    of KV heads too few to split the ``model`` axis) and the activation
+    is the smaller (a decode step's), split over that dim along w's
+    first dim, which ``eq`` contracts with one of x's: the product's
+    partial sums are then reduced (`reduce_partial`), where DTensor
+    would compute the whole product on every rank of that dim.  A larger
+    activation (a prefill's) is left whole, the product computed on
+    every rank, as the reference's partitioner chooses."""
+    if not (is_dtensor(x) and is_dtensor(w)) or \
+            x.to_local().numel() >= w.to_local().numel():
+        return x, w
+    mesh = w.device_mesh
+    x_labels, w_labels = eq.split("->")[0].split(",")
+    j = x_labels.index(w_labels[0])
+    xp, wp = list(x.placements), list(w.placements)
+    for i, (a, b) in enumerate(zip(xp, wp)):
+        n = mesh.size(i)
+        if (a == b == Replicate() and n > 1 and x.shape[j] % n == 0
+                and Shard(j) not in xp and Shard(0) not in wp):
+            xp[i], wp[i] = Shard(j), Shard(0)
+    if xp == list(x.placements):
+        return x, w
+    return x.redistribute(mesh, xp), w.redistribute(mesh, wp)
+
+
+def serving_matmul(x, w, eq: str, w_logical: tuple):
+    """Weight-stationary projection for serving, the reference's.
+
+    ``x @ w`` where the serving rules shard w's contraction dim(s) (they
+    put ``embed`` / ``mlp`` on the data axis).  Left to itself the
+    partitioner would all-gather the weights every step, the whole model
+    per decode step.  Here x is redistributed to w's layout on the labels
+    they share (decode activations are small), each rank contracts its
+    local x against its resident weight shard, and the partial sums are
+    all-reduced over the contraction axes: one ``Partial`` placement and
+    one redistribute.  Outside serving mode, the plain product; on a mesh
+    of the weight gathered over its ZeRO-3 dims (`gather_fsdp`), its
+    partial sums reduced (`reduce_partial`).
+    """
+    if not is_dtensor(w):
+        return _plain_product(eq, x, w)
+    if not (serving_mode() and _mesh() is not None):
+        x, w = _split_contraction(x, gather_fsdp(w, w_logical), eq)
+        return reduce_partial(einsum(eq, x, w, _plain_product))
+    mesh = w.device_mesh
+    names = list(mesh.mesh_dim_names)
+    w_spec = resolve(w_logical, w.shape)
+    ins, out = eq.split("->")
+    x_dims, w_dims = ins.split(",")
+    w_axes = {dim: (w_spec[i] if i < len(w_spec) else None)
+              for i, dim in enumerate(w_dims)}
+    # contraction = w dims absent from the output -> all-reduce there
+    reduce_axes = [ax for dim in w_dims if dim not in out
+                   for ax in ((w_axes[dim],) if isinstance(w_axes[dim], str)
+                              else w_axes[dim] or ())]
+    x_spec = P(*(w_axes.get(dim) for dim in x_dims))
+    out_place = placements(P(*(w_axes.get(dim) for dim in out)), mesh)
+    for ax in reduce_axes:
+        out_place[names.index(ax)] = Partial()
+    xl = x.redistribute(mesh, placements(x_spec, mesh)).to_local()
+    wl = w.redistribute(mesh, placements(w_spec, mesh)).to_local()
+    y = DTensor.from_local(_plain_product(eq, xl, wl), mesh, out_place,
+                           run_check=False)
+    return y.redistribute(mesh, [Replicate() if isinstance(pl, Partial)
+                                 else pl for pl in out_place])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +213,15 @@ def recompute(fn, params, *args):
     block's activations alive at a time."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in leaves(params)):
-        return checkpoint(fn, *args, use_reentrant=False,
+        # the recompute may run on the autograd engine's device thread:
+        # it re-installs the sharding rules (thread-local) of the forward
+        mesh, rules = _mesh(), _rules()
+
+        def rerun(*a):
+            with sharding_rules(mesh, rules):
+                return fn(*a)
+
+        return checkpoint(rerun, *args, use_reentrant=False,
                           preserve_rng_state=False)
     return fn(*args)
 
@@ -149,6 +251,15 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 
 
+def heads_tp_available(n: int) -> bool:
+    """True if ``n`` heads can shard the ``model`` axis (divisibility)
+    under the installed rules; False with no rules.  The reference's
+    ``REPRO_NO_SP`` knob (force True, an A/B measurement) is not
+    ported."""
+    spec = resolve(("heads",), (n,))
+    return len(spec) > 0 and spec[0] is not None
+
+
 #: the dtype probabilities and V are rounded to before the chunked
 #: route's P·V product (and the mLSTM's decay-weighted scores before
 #: theirs), which accumulate in fp32: bf16, the reference's default (its
@@ -157,7 +268,7 @@ PROBS_DTYPE = torch.bfloat16
 
 
 def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
-                       softcap: float = 0.0):
+                       softcap: float = 0.0, q_start: int | None = None):
     """Query-chunked online attention, fp32 softmax, grouped GQA.
 
     q (B,S,Hq,D); k,v (B,T,Hkv,D), Hq % Hkv == 0.  The GQA group dim is
@@ -165,6 +276,8 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
     Loops over query chunks so peak score memory is (B,Hkv,G,chunk,T).
     Probabilities are rounded to `PROBS_DTYPE` (bf16) before the PV
     product, which accumulates in fp32, as the reference does by default.
+    ``q_start``: the position of q's first row among k's (default
+    ``T - S``: q is the last S rows), for a slice of the rows.
     """
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -177,6 +290,7 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
     kf = k.float()
     vb = v.to(PROBS_DTYPE).float()
     kpos = torch.arange(t, device=q.device)[None, :]
+    q_start = t - s if q_start is None else q_start
     outs = []
     for i in range(nq):
         sc = torch.einsum("bchgd,bthd->bchgt", qc[:, i].float(), kf) * scale
@@ -184,7 +298,7 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
             sc = softcap * torch.tanh(sc / softcap)
         if causal:
             qpos = (i * chunk + torch.arange(chunk, device=q.device)[:, None]
-                    + (t - s))                    # (c,1)
+                    + q_start)                    # (c,1)
             msk = (kpos <= qpos)[None, :, None, None, :]
             sc = torch.where(msk, sc, float("-inf"))
         m = sc.amax(-1, keepdim=True).detach()   # jax.lax.stop_gradient
@@ -197,12 +311,49 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
     return o[:, :s]
 
 
+def _attention_by_rank(fn, q, k, v):
+    """``fn(q, k, v, q_start)`` on each rank's shards of DTensors q
+    (B,S,Hq,D) and k, v (B,T,Hkv,D), as the reference's partitioner
+    splits the attention: over a mesh dim that splits the batch, K/V
+    split alike; one that splits the query heads takes the KV heads they
+    group with (split alike where the KV heads divide, else each rank
+    slices its group's heads from the whole K/V: GQA with fewer KV heads
+    than the dim's ranks); one that splits the query rows (the
+    sequence-parallel branch) takes the whole K/V and its rows'
+    positions.  The output keeps q's placements; the K/V gradients are
+    partial sums over the dims whose ranks share K/V, reduced at once
+    (`reduce_grad_partial`).  Run per rank, no DTensor view of a split
+    dim is needed."""
+    mesh, pl = q.device_mesh, list(q.placements)
+    kv_pl, grad_pl, sliced = [], [], False
+    for i, p in enumerate(pl):
+        if p == Shard(0) or (p == Shard(2) and k.placements[i] == Shard(2)):
+            kv_pl.append(p), grad_pl.append(p)
+        else:
+            sliced |= p == Shard(2)
+            kv_pl.append(Replicate())
+            grad_pl.append(Partial() if isinstance(p, Shard) else p)
+    ql = q.to_local()
+    _, offset = compute_local_shape_and_global_offset(q.shape, mesh, pl)
+    kl, vl = (reduce_grad_partial(x).redistribute(mesh, kv_pl).to_local(
+        grad_placements=grad_pl) for x in (k, v))
+    if sliced:
+        g = q.shape[2] // k.shape[2]
+        k0 = offset[2] // g
+        k1 = (offset[2] + ql.shape[2] - 1) // g + 1
+        kl, vl = kl[:, :, k0:k1], vl[:, :, k0:k1]
+    q_start = offset[1] + k.shape[1] - q.shape[1]
+    return DTensor.from_local(fn(ql, kl, vl, q_start), mesh, pl,
+                              run_check=False)
+
+
 def attention(cfg: ModelConfig, q, k, v, *, causal: bool, chunk: int = 1024):
     """GQA attention dispatch (chunked path or the flash kernel).
 
     q (B,S,Hq,D); k,v (B,T,Hkv,D).  Returns (B,S,Hq,D).  The flash
     kernel takes no logit softcap: with ``cfg.attn_logit_softcap`` set
-    the flash route raises rather than drop it.
+    the flash route raises rather than drop it.  On DTensors the chunked
+    path runs per rank (`_attention_by_rank`).
     """
     if cfg.use_flash_kernel:
         if cfg.attn_logit_softcap > 0.0:
@@ -214,8 +365,31 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool, chunk: int = 1024):
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal)
         return o.transpose(1, 2)
-    return _chunked_attention(q, k, v, causal=causal, chunk=chunk,
-                              softcap=cfg.attn_logit_softcap)
+
+    rows = q.shape[1]
+
+    def chunked(q, k, v, q_start=None):
+        # the reference's chunk of the whole sequence; a rank holding a
+        # share of the query rows (seq-parallel) takes that share of each
+        # chunk, padding nothing the reference does not
+        c = min(chunk, max(-(-rows // 128) * 128, 128)) * q.shape[1] // rows
+        return _chunked_attention(q, k, v, causal=causal, chunk=max(c, 1),
+                                  softcap=cfg.attn_logit_softcap,
+                                  q_start=q_start)
+
+    if not is_dtensor(q):
+        return chunked(q, k, v)
+    if not heads_tp_available(q.shape[2]):
+        # sequence-parallel fallback, the reference's: heads that cannot
+        # split the model axis would replicate the scores across it, so
+        # the query rows split over ``seq`` instead (K/V shared)
+        q = shard(q, "batch", "seq", None, None)
+        # the rows gathered back: the reference's partitioner gathers
+        # them before the output projection, which it then runs on
+        # every model rank
+        return shard(_attention_by_rank(chunked, q, k, v),
+                     "batch", None, None, None)
+    return _attention_by_rank(chunked, q, k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -278,21 +452,29 @@ def _proj(x, w):
 def attn_qkv(cfg: ModelConfig, p, x, positions):
     """Project + rope.  x (B,S,d) -> q (B,S,Hq,D), k/v (B,S,Hkv,D)."""
     dt = cfg.dtype
-    q = _proj(x, p["wq"].to(dt))
-    k = _proj(x, p["wk"].to(dt))
-    v = _proj(x, p["wv"].to(dt))
+    specs = attn_specs(cfg)
+    x = reduce_grad_partial(x)
+    if is_dtensor(x) and not heads_tp_available(cfg.n_heads):
+        # the sequence-parallel fallback, as the reference's partitioner
+        # propagates it back from the attention: the projections run on
+        # each model rank's rows, and the pins below gather q, k and v
+        x = shard(x, "batch", "seq", None)
+    q, k, v = (serving_matmul(x, p[w].to(dt), "bsd,dhk->bshk", specs[w])
+               for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    q = shard(apply_rope(q, cos, sin), "batch", None, "heads", None)
+    k = shard(apply_rope(k, cos, sin), "batch", None, "kv_heads", None)
+    return q, k, shard(v, "batch", None, "kv_heads", None)
 
 
 def attn_out(cfg: ModelConfig, p, o):
     """o (B,S,Hq,D) -> (B,S,d)."""
-    wo = p["wo"].to(cfg.dtype)
-    return o.reshape(*o.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+    return serving_matmul(o, p["wo"].to(cfg.dtype), "bshk,hkd->bsd",
+                          attn_specs(cfg)["wo"])
 
 
 def cross_kv(cfg: ModelConfig, p, ctx):
@@ -340,11 +522,19 @@ def mlp(cfg: ModelConfig, p, x, kind: str = "swiglu"):
     gelu(x Wu + bu) Wd + bd with the tanh approximation, which is
     ``jax.nn.gelu``'s default."""
     dt = cfg.dtype
+    specs = mlp_specs(kind)
+
+    def mm(a, name, eq="bsd,df->bsf"):
+        return serving_matmul(a, p[name].to(dt), eq, specs[name])
+
+    x = reduce_grad_partial(x)
     if kind == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-        return h @ p["w_down"].to(dt)
-    h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
-    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+        h = shard(F.silu(mm(x, "w_gate")) * mm(x, "w_up"),
+                  "batch", None, "mlp")
+        return mm(h, "w_down", "bsf,fd->bsd")
+    h = F.gelu(mm(x, "w_up") + p["b_up"].to(dt), approximate="tanh")
+    h = shard(h, "batch", None, "mlp")
+    return mm(h, "w_down", "bsf,fd->bsd") + p["b_down"].to(dt)
 
 
 def init_embedding(cfg: ModelConfig, gen: torch.Generator):
@@ -363,13 +553,61 @@ def embedding_specs(cfg: ModelConfig):
     return p
 
 
+def _embed_by_rank(tok, ids):
+    """``tok[ids]`` for a DTensor table, each rank on its shards, as the
+    reference's partitioner plans it: over a mesh dim that splits the
+    embed dim every rank takes every id (its slice of each row); over
+    one that splits the vocab, for fewer ids than vocab rows (a decode
+    step), every rank looks every id up in its own slice of the vocab (0
+    outside it) and the rows are partial sums; for more ids the table is
+    gathered whole and the ids are split along the sequence (where it
+    divides), so no rank looks up another's rows; elsewhere the rows
+    follow the ids.  (DTensor's own indexing strategy fails in its
+    backward on some torch versions.)  The table's gradient is partial
+    where the ids were split and the table not."""
+    mesh = tok.device_mesh
+    t_pl, g_pl, i_pl, r_pl = [], [], [], []
+    masked = False
+    for m, (tp, ip) in enumerate(zip(tok.placements, ids.placements)):
+        if tp == Shard(1):
+            t_pl.append(tp), g_pl.append(tp), i_pl.append(Replicate())
+            r_pl.append(Shard(ids.ndim))
+            continue
+        if tp == Shard(0) and ids.numel() < tok.shape[0]:
+            masked = True
+            t_pl.append(tp), g_pl.append(tp), i_pl.append(Replicate())
+            r_pl.append(Partial())
+            continue
+        if tp == Shard(0) and ids.shape[1] % mesh.size(m) == 0:
+            ip = Shard(1)
+        t_pl.append(Replicate()), i_pl.append(ip), r_pl.append(ip)
+        g_pl.append(Partial() if isinstance(ip, Shard) else Replicate())
+    table = tok.redistribute(mesh, t_pl).to_local(grad_placements=g_pl)
+    idx = ids.redistribute(mesh, i_pl).to_local().long()
+    if masked:
+        _, offset = compute_local_shape_and_global_offset(tok.shape, mesh,
+                                                          t_pl)
+        idx = idx - offset[0]
+        inside = (idx >= 0) & (idx < table.shape[0])
+        rows = torch.where(inside[..., None],
+                           table[idx.clamp(0, table.shape[0] - 1)], 0.0)
+    else:
+        rows = table[idx]
+    return DTensor.from_local(rows, mesh, r_pl, run_check=False)
+
+
 def embed(cfg: ModelConfig, p, tokens):
     """tokens (B,S) -> (B,S,d) in the compute dtype (gather, then cast:
     the same values as casting the table first)."""
-    return p["tok"][tokens.long()].to(cfg.dtype)
+    if is_dtensor(p["tok"]):
+        x = _embed_by_rank(p["tok"], tokens)
+    else:
+        x = p["tok"][tokens.long()]
+    return shard(x.to(cfg.dtype), "batch", None, None)
 
 
 def logits(cfg: ModelConfig, p, x):
-    x = rmsnorm(x, p["norm_f"], cfg.norm_eps)
+    x = reduce_grad_partial(rmsnorm(x, p["norm_f"], cfg.norm_eps))
     w = (p["tok"].T if cfg.tie_embeddings else p["head"]).to(cfg.dtype)
-    return x @ w
+    return shard(serving_matmul(x, w, "bsd,dv->bsv", ("embed", "vocab")),
+                 "batch", None, "vocab")

@@ -17,17 +17,30 @@ one-hot dispatch tensor, as in the reference:
 Arctic's "dense residual": a SwiGLU runs beside the experts and both add
 into the residual stream.
 
-The port runs on one card: the reference's weight-stationary expert
-schedule for a serving mesh (``_expert_ffn_weight_stationary``) and its
-``shard`` annotations have no counterpart here.
+On a mesh (DTensor, `parallel.axes`) the reference's ``shard``
+annotations pin the groups to the batch axes and the expert tensors to
+the ``experts`` axis (expert parallelism where the expert count divides
+the ``model`` axis, arctic's 128; else the ``mlp`` dim carries the
+tensor parallelism, grok-1's 8 on 16), the expert weights are gathered
+over their ZeRO-3 dim before use, and under the serving rules the
+experts run weight-stationary (`_expert_ffn_weight_stationary`, the
+reference's).  The routing (argmax, the comparison one-hots, the
+cumulative positions) runs on the DTensors as it does on tensors; the
+einsums run per rank (`parallel.axes.einsum`): torch 2.11's DTensor
+cannot flatten the split experts dim inside them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.axes import (P, _mesh, einsum, gather_fsdp,
+                                       is_dtensor, placements,
+                                       reduce_grad_partial, reduce_partial,
+                                       resolve, serving_mode, shard)
 
 MOE_GROUP = 2048          # dispatch group size (tokens)
 
@@ -109,21 +122,77 @@ def _moe_y(cfg: ModelConfig, p, x):
         raise ValueError(f"sequence {s} is not a multiple of the dispatch "
                          f"group {g}")
     ng = s // g
-    xg = x.reshape(b, ng, g, d)
-    logit = torch.einsum("bngd,de->bnge", xg.float(), p["router"].float())
+    x = reduce_grad_partial(x)
+    xg = shard(x.reshape(b, ng, g, d), "batch", None, None, None)
+    logit = einsum("bngd,de->bnge", xg.float(), p["router"].float())
     gates = torch.softmax(logit, -1)                      # (B,ng,G,E)
     dispatch, combine = route(cfg, gates, capacity(cfg, g))
 
-    # dispatch -> expert FFN -> combine
+    # dispatch -> expert FFN -> combine; on a mesh the one-hots are
+    # split over the experts' axes as the reference's partitioner
+    # propagates its pin of xe back into them: each rank dispatches to,
+    # and combines from, its own experts' slots
     dt = cfg.dtype
-    xe = torch.einsum("bngec,bngd->bnecd", dispatch, xg)
-    h = (F.silu(torch.einsum("bnecd,edf->bnecf", xe, p["we_gate"].to(dt)))
-         * torch.einsum("bnecd,edf->bnecf", xe, p["we_up"].to(dt)))
-    ye = torch.einsum("bnecf,efd->bnecd", h, p["we_down"].to(dt))
-    y = torch.einsum("bngec,bnecd->bngd", combine.to(dt), ye).reshape(b, s, d)
+    dispatch = shard(dispatch, "batch", None, None, "experts", None)
+    xe = einsum("bngec,bngd->bnecd", dispatch, xg)
+    if serving_mode() and _mesh() is not None and is_dtensor(xe):
+        ye = _expert_ffn_weight_stationary(cfg, p, xe)
+    else:
+        specs = moe_specs(cfg)
+
+        def w(name):
+            return gather_fsdp(p[name].to(dt), specs[name])
+
+        xe = shard(xe, "batch", None, "experts", None, None)
+        h = (F.silu(einsum("bnecd,edf->bnecf", xe, w("we_gate")))
+             * einsum("bnecd,edf->bnecf", xe, w("we_up")))
+        h = shard(h, "batch", None, "experts", None, "mlp")
+        ye = reduce_partial(einsum("bnecf,efd->bnecd", h, w("we_down")))
+    combine = shard(combine.to(dt), "batch", None, None, "experts", None)
+    y = reduce_partial(einsum("bngec,bnecd->bngd", combine, ye))
+    y = y.reshape(b, s, d)
     if cfg.dense_residual:
         y = y + cm.mlp(cfg, p["dense"], x)
     return y, gates
+
+
+def _expert_ffn_weight_stationary(cfg: ModelConfig, p, xe):
+    """Serving: the weight-stationary expert FFN, the reference's.
+
+    Left to itself the partitioner would all-gather the expert weights
+    over their ZeRO-3 dim at every decode step.  Here the expert weights
+    stay in their resident (experts -> model, hidden -> data) shards, the
+    small decode activations are brought to the experts' layout, each
+    rank computes its hidden-dim partial, and the down projection's
+    partial sums are all-reduced over the hidden dim's axes: one
+    ``Partial`` placement and one redistribute.
+    """
+    dt = cfg.dtype
+    mesh = xe.device_mesh
+    names = list(mesh.mesh_dim_names)
+    specs = moe_specs(cfg)
+    wg_spec = resolve(specs["we_gate"], p["we_gate"].shape)
+    wd_spec = resolve(specs["we_down"], p["we_down"].shape)
+    e_axes = wg_spec[0] if len(wg_spec) > 0 else None       # experts
+    f_axes = wd_spec[1] if len(wd_spec) > 1 else None       # hidden
+    xe_place = placements(P(None, None, e_axes), mesh)
+    xl = xe.to(dt).redistribute(mesh, xe_place).to_local()
+
+    def local(name, spec):
+        return p[name].redistribute(mesh, placements(spec, mesh)).to_local(
+        ).to(dt)
+
+    h = (F.silu(torch.einsum("bnecd,edf->bnecf", xl,
+                             local("we_gate", wg_spec)))
+         * torch.einsum("bnecd,edf->bnecf", xl, local("we_up", wg_spec)))
+    ye = torch.einsum("bnecf,efd->bnecd", h, local("we_down", wd_spec))
+    out = list(xe_place)
+    for ax in ((f_axes,) if isinstance(f_axes, str) else f_axes or ()):
+        out[next(i for i, n in enumerate(names)
+                 if ax in n.split("_"))] = Partial()
+    y = DTensor.from_local(ye, mesh, out, run_check=False)
+    return y.redistribute(mesh, [Replicate() if isinstance(pl, Partial)
+                                 else pl for pl in out])
 
 
 def moe_mlp(cfg: ModelConfig, p, x):

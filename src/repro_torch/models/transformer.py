@@ -14,9 +14,13 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.axes import is_dtensor, shard
 
 
 def _layer(layers: dict, i: int) -> dict:
@@ -81,7 +85,7 @@ def block_fwd(cfg: ModelConfig, p, x, positions, mlp_fn=None):
     h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
     x = x + cm.self_attention(cfg, p["attn"], h, positions)
     h = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + _mlp_fn(cfg, mlp_fn)(p["mlp"], h)
+    return shard(x + _mlp_fn(cfg, mlp_fn)(p["mlp"], h), "batch", None, None)
 
 
 def forward(cfg: ModelConfig, params, tokens, mlp_fn=None):
@@ -131,8 +135,11 @@ def attention_over_cache(cfg: ModelConfig, q, ck, cv, lengths):
     """Decode attention: q (B,Sq,Hq,D) over cache (B,T,Hkv,D).
 
     Grouped GQA (no repeated KV), fp32 softmax over the first
-    ``lengths[b]`` cache rows of each sequence.
+    ``lengths[b]`` cache rows of each sequence.  On DTensors it runs per
+    rank (`_attention_over_cache_by_rank`).
     """
+    if is_dtensor(ck):
+        return _attention_over_cache_by_rank(cfg, q, ck, cv, lengths)
     b, sq, hq, d = q.shape
     t, hkv = ck.shape[1], ck.shape[2]
     qg = q.reshape(b, sq, hkv, hq // hkv, d)
@@ -150,14 +157,79 @@ def attention_over_cache(cfg: ModelConfig, q, ck, cv, lengths):
     return o.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def _attention_over_cache_by_rank(cfg: ModelConfig, q, ck, cv, lengths):
+    """`attention_over_cache` on DTensors, each rank on its shards, as
+    the reference's partitioner runs it (flash-decoding split-KV): q
+    (one token) is brought to the cache's layout, split where its batch
+    and heads are and whole over the dims that split the cache's
+    sequence; each rank scores its slice of the rows, and the softmax's
+    max, denominator and weighted sum are all-reduced over those dims
+    (two all-reduces of partial sums after one of partial maxima)."""
+    mesh, cpl = ck.device_mesh, list(ck.placements)
+    seq = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    q_pl = [p if p in (Shard(0), Shard(2)) else Replicate() for p in cpl]
+    ql = q.redistribute(mesh, q_pl).to_local()
+    lens = lengths.redistribute(mesh, [
+        p if p == Shard(0) else Replicate() for p in cpl]).to_local()
+    _, offset = compute_local_shape_and_global_offset(ck.shape, mesh, cpl)
+    kl, vl = ck.to_local(), cv.to_local()
+    b, sq, hq, d = ql.shape
+    t, hkv = kl.shape[1], kl.shape[2]
+    qg = ql.reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bthd->bqhgt", qg.float(), kl.float()) \
+        * (1.0 / (d ** 0.5))
+    if cfg.attn_logit_softcap > 0.0:
+        s = cfg.attn_logit_softcap * torch.tanh(s / cfg.attn_logit_softcap)
+    rows = offset[1] + torch.arange(t, device=kl.device)
+    valid = (rows[None, :] < lens[:, None])[:, None, None, None, :]
+    s = torch.where(valid, s, float("-inf"))
+
+    def reduce(x, op):
+        out = [Partial(op) if i in seq else p for i, p in enumerate(q_pl)]
+        return DTensor.from_local(x, mesh, out, run_check=False).redistribute(
+            mesh, q_pl).to_local()
+
+    m = reduce(s.amax(-1, keepdim=True), "max")
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    o = reduce(torch.einsum("bqhgt,bthd->bqhgd", p, vl.float()), "sum")
+    o = o / reduce(p.sum(-1), "sum")[..., None]
+    return DTensor.from_local(o.reshape(b, sq, hq, d).to(ql.dtype), mesh,
+                              q_pl, run_check=False)
+
+
 def write_at(cache, new, lengths):
     """Write ``new`` (B,1,Hkv,D) into ``cache`` (B,T,Hkv,D) in place at
     row ``lengths[b]`` of each sequence.  Like the reference's
     ``dynamic_update_slice``, the row is clamped to ``[0, T-1]``: a full
     sequence overwrites its last row instead of raising."""
+    if is_dtensor(cache):
+        return _write_at_local(cache, new, lengths)
     rows = lengths.long().clamp(0, cache.shape[1] - 1)
     cache[torch.arange(cache.shape[0], device=cache.device), rows] = (
         new[:, 0].to(cache.dtype))
+
+
+def _write_at_local(cache, new, lengths):
+    """`write_at` on a DTensor cache, each rank on its shard, as the
+    reference's partitioner runs a ``dynamic_update_slice`` into a
+    sharded dim: ``new`` and ``lengths`` are brought to the cache's
+    layout on the dims they share, and each rank writes the rows that
+    fall in its slice of T (the others keep their values).  On a mesh
+    of one device this is `write_at`'s write."""
+    mesh, pl = cache.device_mesh, list(cache.placements)
+    new_l = new.redistribute(mesh, [
+        Replicate() if pl_i == Shard(1) else pl_i for pl_i in pl]).to_local()
+    len_l = lengths.redistribute(mesh, [
+        pl_i if pl_i == Shard(0) else Replicate() for pl_i in pl]).to_local()
+    _, offset = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    local = cache.to_local()
+    t = local.shape[1]
+    rows = len_l.long().clamp(0, cache.shape[1] - 1) - offset[1]
+    inside = ((rows >= 0) & (rows < t))[:, None, None]
+    rows = rows.clamp(0, t - 1)
+    b = torch.arange(local.shape[0], device=local.device)
+    local[b, rows] = torch.where(inside, new_l[:, 0].to(local.dtype),
+                                 local[b, rows])
 
 
 def decode_attn(cfg: ModelConfig, p, kv, x, lengths):
@@ -168,6 +240,10 @@ def decode_attn(cfg: ModelConfig, p, kv, x, lengths):
     q, k_new, v_new = cm.attn_qkv(cfg, p["attn"], h, lengths[:, None])
     write_at(kv["k"], k_new, lengths)
     write_at(kv["v"], v_new, lengths)
+    # pin the cache's layout, as the reference does: left free, the
+    # head-sharded attention output's layout would propagate into it
+    kv = {n: shard(c, "batch", "kv_seq", "kv_heads", None)
+          for n, c in kv.items()}
     o = attention_over_cache(cfg, q, kv["k"], kv["v"], lengths + 1)
     return x + cm.attn_out(cfg, p["attn"], o)
 
@@ -211,7 +287,8 @@ def prefill(cfg: ModelConfig, params, tokens, max_seq: int | None = None,
         o = cm.attention(cfg, q, k, v, causal=True)
         x = x + cm.attn_out(cfg, lp["attn"], o)
         h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-        x = x + _mlp_fn(cfg, mlp_fn)(lp["mlp"], h)
+        x = shard(x + _mlp_fn(cfg, mlp_fn)(lp["mlp"], h),
+                  "batch", None, None)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     cache["length"].fill_(s)

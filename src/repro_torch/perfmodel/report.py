@@ -6,6 +6,10 @@ the same columns and formats, the cells in ``ARCH_ORDER`` x
 ``SHAPE_ORDER``.  A record of a cell outside that grid (a cut shape,
 as ``chip_smoke.py`` writes) follows them, by file name.
 
+The table adds a last column, each record's ``partition`` (``exact``
+on the host, ``dtensor`` for the dense and MoE families' ``pod`` /
+``multipod`` cells, ``ideal`` for the others; see `launch.dryrun`).
+
 Usage: ``python -m repro_torch.perfmodel.report [--mesh host] [--dir D]``
 """
 from __future__ import annotations
@@ -38,9 +42,10 @@ def _fmt_s(x: float) -> str:
 
 
 def roofline_table(records: list, *, markdown: bool = True) -> str:
-    """The roofline table: three terms, bottleneck, useful ratio."""
+    """The roofline table: three terms, bottleneck, useful ratio, and the
+    record's partition."""
     hdr = ("arch", "shape", "GiB/dev", "compute", "memory", "collective",
-           "bound", "useful", "frac-of-roof")
+           "bound", "useful", "frac-of-roof", "partition")
     rows = []
     for r in records:
         dom = max(r["compute_s"], r["memory_s"], r["collective_s"])
@@ -51,6 +56,7 @@ def roofline_table(records: list, *, markdown: bool = True) -> str:
             _fmt_s(r["compute_s"]), _fmt_s(r["memory_s"]),
             _fmt_s(r["collective_s"]), r["bottleneck"],
             f"{r['useful_ratio']:5.2f}", f"{frac:5.2f}",
+            r.get("partition", "?"),
         ))
     if markdown:
         lines = ["| " + " | ".join(hdr) + " |",

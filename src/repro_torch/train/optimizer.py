@@ -86,8 +86,17 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params, grads, state):
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
+def apply_updates(cfg: AdamWConfig, params, grads, state, *,
+                  in_place: bool = False):
+    """One AdamW step.  Returns (new_params, new_state, metrics).
+
+    ``in_place``: each leaf's new param and moments are written into its
+    old tensors, leaf by leaf (the returned trees hold the same tensors):
+    the reference's donation of params and optimizer state, one leaf's
+    temporaries alive at a time.  On DTensors every leaf is updated on
+    its local shard, with no redistribute; the norm's sum of squares is
+    the only collective.
+    """
     step = state["step"] + 1
     lr = schedule(cfg, step)
     gnorm = global_norm(grads)
@@ -106,6 +115,8 @@ def apply_updates(cfg: AdamWConfig, params, grads, state):
         if p.ndim >= 2:     # decoupled weight decay on matrices only
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        if in_place:
+            return p.copy_(new_p), m.copy_(m32), v.copy_(v32)
         return new_p, m32.to(cfg.state_dtype), v32.to(cfg.state_dtype)
 
     new_p, new_m, new_v = unzip(

@@ -16,25 +16,65 @@ metrics)``, the reference's ``train/step.py`` on one card:
   (`repro_torch.parallel.compression`), then the AdamW update
   (`repro_torch.train.optimizer`).
 
-The reference's ``shard`` annotations are the identity here, as in the
-port's models; `batch_specs` keeps the batch's logical mesh axes as data
-(`launch.dryrun` prices the production meshes with them).
+On DTensors (`launch.dryrun.partitioned_cell`) the same step is rank
+0's program on a production mesh; `batch_specs` gives the batch's
+logical mesh axes.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 from repro_torch.models.registry import ModelApi
+from repro_torch.parallel.axes import is_dtensor, reduce_partial, shard
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import map_tree
 
 
+def _label_logits(lg, labels):
+    """``lg[..., labels]``: each position's logit of its label.
+
+    On a DTensor whose vocab dim is split, each rank reads the labels
+    that fall in its slice of the vocab (0 for the others) and the
+    partial sums are all-reduced: the vocab-parallel cross-entropy.
+    (DTensor's own masked gather fails on this shape.)"""
+    if not is_dtensor(lg):
+        return torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    mesh, pl = lg.device_mesh, list(lg.placements)
+    split = [isinstance(p, Shard) and p.dim % lg.ndim == lg.ndim - 1
+             for p in pl]
+    if not any(split):
+        return torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    lab = labels.redistribute(mesh, [
+        Replicate() if v else p for v, p in zip(split, pl)]).to_local()
+    _, offset = compute_local_shape_and_global_offset(lg.shape, mesh, pl)
+    local = lg.to_local()
+    idx = lab.long() - offset[-1]
+    inside = (idx >= 0) & (idx < local.shape[-1])
+    gold = torch.gather(local, -1, idx.clamp(0, local.shape[-1] - 1)[
+        ..., None])[..., 0]
+    gold = torch.where(inside, gold, 0.0)
+    return reduce_partial(DTensor.from_local(
+        gold, mesh, [Partial() if v else p for v, p in zip(split, pl)],
+        run_check=False))
+
+
 def cross_entropy(logits, labels, *, z_loss: float = 0.0):
-    """Mean next-token CE.  logits (B,S,V), fp32 math."""
+    """Mean next-token CE.  logits (B,S,V), fp32 math.  On DTensors the
+    max and the sum over a split vocab are all-reduced where they arise
+    (`reduce_partial`), as the reference's partitioner does; DTensor
+    would scatter them over the sequence and move the logits' gradient
+    back and forth.  There the shift ``m`` is taken off the autograd
+    graph (DTensor cannot differentiate the all-reduce of a max); the
+    gradient through it is zero in exact arithmetic."""
     lg = logits.to(torch.float32)
-    m = lg.amax(-1, keepdim=True)
-    z = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]  # logZ
-    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    m = (reduce_partial(lg.detach().amax(-1, keepdim=True))
+         if is_dtensor(lg) else lg.amax(-1, keepdim=True))
+    z = (torch.log(reduce_partial(torch.sum(torch.exp(lg - m), dim=-1)))
+         + m[..., 0])                                     # logZ
+    gold = _label_logits(lg, labels)
     ce = torch.mean(z - gold)
     if z_loss > 0.0:
         ce = ce + z_loss * torch.mean(torch.square(z))
@@ -51,7 +91,11 @@ def build_loss_fn(api: ModelApi, *, z_loss: float = 0.0):
 def value_and_grad(loss_fn, params, batch):
     """``(loss, grads)`` of ``loss_fn(params, batch)`` by autograd: the
     loss detached, the gradient tree congruent with ``params`` (zeros
-    for a leaf the loss does not reach, as ``jax.grad`` gives)."""
+    for a leaf the loss does not reach, as ``jax.grad`` gives).  On
+    DTensors each gradient is laid out as its param (the reference's
+    step has the params' shardings as its outputs'): a replicated leaf's
+    partial sums are all-reduced here, and the update needs no
+    collective."""
     flat = []
 
     def track(p):
@@ -67,31 +111,56 @@ def value_and_grad(loss_fn, params, batch):
 
     def fill(_):
         t, g = next(pairs)          # map_tree walks params as `track` did
-        return torch.zeros_like(t) if g is None else g
+        if g is None:
+            return torch.zeros_like(t)
+        if is_dtensor(g) and g.placements != t.placements:
+            return g.redistribute(t.device_mesh, t.placements)
+        return g
 
     return loss.detach(), map_tree(fill, params)
 
 
+def _strided(x, names, accum: int):
+    """``x``'s ``accum`` strided microbatches, stacked: ``[m]`` holds the
+    rows ``i % accum == m``.  A DTensor ``x`` (logical ``names``) is
+    first placed by `shard` as one microbatch's shape resolves
+    (`resolve`'s divisibility fallback, as the reference's ``shard``
+    calls place the microbatch's activations): where the microbatch's
+    rows do not divide the batch's mesh axes, the rows are gathered over
+    the axes they cannot split."""
+    x = shard(x, *names, shape=(x.shape[0] // accum, *x.shape[1:]))
+    return x.reshape(x.shape[0] // accum, accum, *x.shape[1:]).movedim(1, 0)
+
+
 def build_train_step(api: ModelApi, opt_cfg: opt.AdamWConfig, *,
                      accum: int = 1, z_loss: float = 0.0,
-                     compress_grads=None):
+                     compress_grads=None, donate: bool = False):
     """Returns train_step(params, opt_state, batch) -> (p, s, metrics).
 
     batch leaves have a leading global-batch dim; with ``accum > 1``
     they are split into ``accum`` strided microbatches run one after
     another.  ``compress_grads`` is an optional fn applied to the
     accumulated gradient tree (e.g. int8 compression with error
-    feedback, `repro_torch.parallel.compression`).
+    feedback, `repro_torch.parallel.compression`).  ``donate``: the
+    update writes into the given params and optimizer state
+    (`optimizer.apply_updates`' ``in_place``), as the reference's jitted
+    step donates them.
+
+    The step runs on DTensors as it does on tensors: the strided split's
+    reshape keeps a batch sharded on dim 0 sharded on the outer factor,
+    so each rank's microbatch rows are its own rows, with no collective
+    where a microbatch's rows divide the batch's mesh axes (`_strided`).
     """
     loss_fn = build_loss_fn(api, z_loss=z_loss)
+    names = batch_specs(api)
 
     def train_step(params, opt_state, batch):
         if accum == 1:
             loss, grads = value_and_grad(loss_fn, params, batch)
         else:
             # Strided split: microbatch m = rows {i : i % accum == m}.
-            micro = {k: x.reshape(x.shape[0] // accum, accum, *x.shape[1:])
-                     .movedim(1, 0) for k, x in batch.items()}
+            micro = {k: _strided(x, names[k], accum)
+                     for k, x in batch.items()}
             gsum, lsum = None, None
             for m in range(accum):
                 l, g = value_and_grad(loss_fn, params,
@@ -105,7 +174,7 @@ def build_train_step(api: ModelApi, opt_cfg: opt.AdamWConfig, *,
         if compress_grads is not None:
             grads = compress_grads(grads)
         params, opt_state, metrics = opt.apply_updates(
-            opt_cfg, params, grads, opt_state)
+            opt_cfg, params, grads, opt_state, in_place=donate)
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step

@@ -1,0 +1,150 @@
+"""The JAX package's partitioned compile of toy cells, in a subprocess.
+
+Run as ``python tests/_ref_partition.py '<json list of cells>'`` with
+``src/`` on the path; prints one JSON object: a record per cell.  A cell
+is ``dict(arch, cfg, kind, seq, batch, mesh, accum=1, serving=False)``:
+``arch`` names a smoke config, ``cfg`` overrides its fields, ``mesh`` is
+``pod`` or ``multipod``; or ``dict(arch, shape, mesh)``: the full config
+at a registered shape.
+
+The reference's own dry-run raises under JAX 0.9 (``jax.make_mesh``
+gives Explicit axes, and its first ``shard`` refuses them), so the mesh
+is built here with ``Auto`` axes over forced host devices; everything
+else is the reference's: ``sharding_rules``, ``rules_for``,
+``build_cell``, ``jax.jit(...).lower(...).compile()`` with its
+shardings and donation, and ``hlo_cost.analyze`` of the compiled text.
+No file of ``src/repro/`` is changed.
+"""
+import os
+
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                           + " --xla_force_host_platform_device_count=512")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import re  # noqa: E402
+import sys  # noqa: E402
+
+import jax  # noqa: E402
+from jax.sharding import AxisType  # noqa: E402
+
+from repro.configs.registry import get_config, get_smoke  # noqa: E402
+from repro.configs.shapes import SHAPES, ShapeConfig  # noqa: E402
+from repro.launch import dryrun  # noqa: E402
+from repro.launch.mesh import rules_for  # noqa: E402
+from repro.models.registry import get_model  # noqa: E402
+from repro.parallel.axes import sharding_rules  # noqa: E402
+from repro.perfmodel import hlo_cost  # noqa: E402
+
+MESHES = {"pod": ((16, 16), ("data", "model")),
+          "multipod": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+_COLL = re.compile(r"=\s*(.*?)\s+(all-gather|all-reduce|reduce-scatter|"
+                   r"all-to-all|collective-permute)(-start)?\(")
+
+
+def _scales(text: str):
+    """(blocks, types, scale): ``scale(comp)`` is how many times the
+    computation ``comp`` runs, from the trip counts of the while loops
+    around it (as ``hlo_cost.analyze`` reads them) and, for a fusion or
+    call, around its caller."""
+    hc = hlo_cost
+    blocks, types = hc._split_blocks(text), hc._build_type_map(text)
+    trips, callers = {}, {}
+    for parent, lines in blocks.items():
+        for line in lines:
+            m = hc._WHILE_RE.search(line)
+            if m:
+                trip = max([1] + [int(c.group(1)) for c in (
+                    hc._CONST_RE.search(cl) for cl in blocks.get(
+                        m.group(1), [])) if c])
+                trips[m.group(2)] = (parent, trip)
+            for callee in re.findall(r"calls=%?([\w.\-]+)", line):
+                callers[callee] = parent
+
+    def scale(comp):
+        if comp in trips:
+            parent, trip = trips[comp]
+            return trip * scale(parent)
+        return scale(callers[comp]) if comp in callers else 1
+
+    return blocks, types, trips, scale
+
+
+def fused_dot_flops(text: str) -> float:
+    """FLOPs of the dots that ``hlo_cost.analyze`` does not see: those in
+    computations it does not walk (the bodies of fusions and calls),
+    each with ``analyze``'s own per-dot count, times its runs."""
+    blocks, types, trips, scale = _scales(text)
+    return sum(hlo_cost._dot_flops(line, types) * scale(comp)
+               for comp, lines in blocks.items()
+               if comp != "__entry__" and comp not in trips
+               for line in lines if " dot(" in line)
+
+
+def collective_arrays(text: str) -> list:
+    """Every array each collective outputs, as ``(kind, dtype, dims,
+    runs)``: a tuple output's arrays one by one (``hlo_cost`` reads only
+    the first array of a tuple, and none when the tuple's text carries
+    ``/*index=5*/`` comments, as the all-to-alls of these cells do),
+    ``runs`` the times its computation runs."""
+    blocks, _, _, scale = _scales(text)
+    out = []
+    for comp, lines in blocks.items():
+        for line in lines:
+            m = _COLL.search(line)
+            if m and "-done" not in line:
+                out += [(m.group(2), t, d, scale(comp)) for t, d in
+                        re.findall(r"(\w+)\[([\d,]*)\]", m.group(1))]
+    return out
+
+
+def full_collective_bytes(arrays: list) -> dict:
+    """Each kind's output bytes, times its runs, every array counted."""
+    out = {}
+    for kind, t, d, runs in arrays:
+        n = hlo_cost._first_array_bytes(f"{t}[{d}]") * runs
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def record(cell: dict) -> dict:
+    shape, names = MESHES[cell["mesh"]]
+    n = 1
+    for s in shape:
+        n *= s
+    mesh = jax.make_mesh(shape, names, devices=jax.devices()[:n],
+                         axis_types=(AxisType.Auto,) * len(shape))
+    if "shape" in cell:
+        cfg, shape = get_config(cell["arch"]), SHAPES[cell["shape"]]
+    else:
+        cfg = dataclasses.replace(get_smoke(cell["arch"]), **cell["cfg"])
+        shape = ShapeConfig("toy", cell["kind"], cell["seq"], cell["batch"])
+        dryrun.DEFAULT_ACCUM = cell.get("accum", 1)     # the toy's accum
+    kind = shape.kind
+    serving = cell.get("serving", False)
+    with sharding_rules(mesh, rules_for(mesh, serving=serving)):
+        api = get_model(cfg)
+        fn, structs, in_sh, out_sh = dryrun.build_cell(api, shape,
+                                                       serving=serving)
+        with mesh:
+            donate = {"decode": (1,), "train": (0, 1)}.get(kind, ())
+            compiled = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
+                               donate_argnums=donate).lower(*structs).compile()
+    mem = compiled.memory_analysis()
+    text = compiled.as_text()
+    parsed = hlo_cost.analyze(text)
+    arrays = collective_arrays(text)
+    return dict(flops=parsed["flops"], fused_dot_flops=fused_dot_flops(text),
+                bytes=parsed["bytes"],
+                bytes_by_op=parsed["bytes_by_op"], counts=parsed["counts"],
+                full_bytes_by_op=full_collective_bytes(arrays),
+                arrays=arrays,
+                args=float(mem.argument_size_in_bytes),
+                temp=float(mem.temp_size_in_bytes))
+
+
+if __name__ == "__main__":
+    print(json.dumps([record(c) for c in json.loads(sys.argv[1])]))

@@ -183,10 +183,14 @@ def test_roofline_bench_reads_the_dry_run_records(tmp_path, capsys,
     finally:
         ref.load_records = old
     want = _roofline_rows(capsys.readouterr().out)
-    # the reference's bench reads pod and multipod; the port adds host
-    assert rows[:2] == [w.replace("repro.launch.dryrun",
-                                  "repro_torch.launch.dryrun")
-                        for w in want]
+    # each port row ends with its record's partition; the rest is the
+    # reference's text (the reference's bench reads pod and multipod;
+    # the port adds host)
+    assert rows[0].endswith(" partition=dtensor")
+    assert rows[2].endswith(" partition=exact")
+    assert [r.split(" partition=")[0] for r in rows[:2]] == [
+        w.replace("repro.launch.dryrun", "repro_torch.launch.dryrun")
+        for w in want]
 
 
 def test_kernels_bench_raises_without_a_card(monkeypatch):

@@ -147,3 +147,40 @@ print("ok")
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_partitioned_count_and_fuzz_seed_run_with_jax_blocked():
+    """A ``pod`` count on DTensor over the fake group (a widened smoke
+    prefill) and one seed of the scenario fuzzer, with ``jax`` blocked."""
+    code = """
+import sys
+sys.modules["jax"] = None
+import dataclasses
+import torch.distributed as dist
+from repro_torch.configs.registry import get_smoke
+from repro_torch.configs.shapes import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.registry import get_model
+cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), d_model=256,
+                          n_heads=16, n_kv_heads=16, d_ff=512, vocab=512)
+with dryrun.partitioned_cell(get_model(cfg),
+                             ShapeConfig("toy", "prefill", 128, 32),
+                             make_production_mesh()) as cell:
+    count = dryrun.count_step(cell, local=True)
+assert count["flops"] == 50331648 and count["args"] == 30720
+assert count["collectives"]["counts"]["all-gather"] > 0
+assert not dist.is_initialized()
+from repro_torch.oracle import fuzz
+scn = fuzz.draw_scenario(0)
+stream, rep = fuzz.check(scn, fuzz.run(scn, device="cpu"))
+assert len(stream) > 0 and rep.ok
+leaked = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+assert not leaked, leaked
+print("ok")
+"""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -1,8 +1,9 @@
 """The port's roofline report (`repro_torch.perfmodel.report`) against
 the JAX package's on the same synthetic records: `roofline_table` in
-both forms returns the reference's text, `load_records` the reference's
-records in its order (a cut cell's record after them), `skipped_cells`
-and `main` the reference's."""
+both forms returns the reference's text with one column more, each
+record's partition, last; `load_records` the reference's records in its
+order (a cut cell's record after them), `skipped_cells` and `main` the
+reference's (the table's last column aside)."""
 import json
 import sys
 
@@ -35,12 +36,34 @@ def synthetic_records(seed=0):
     return out
 
 
+def without_partition(text: str, markdown: bool) -> str:
+    """``text`` (the port's table, maybe followed by other lines) with
+    its last column, ``partition``, taken out."""
+    lines = text.split("\n")
+    if markdown:
+        return "\n".join(
+            line[:-len("---|")] if line.startswith("|---") else
+            line.rsplit(" | ", 1)[0] + " |" if line.startswith("| ") else
+            line for line in lines)
+    cut = lines[0].rindex("partition") - 2
+    n = next((i for i, line in enumerate(lines) if not line), len(lines))
+    return "\n".join([line[:cut] for line in lines[:n]] + lines[n:])
+
+
 @pytest.mark.parametrize("markdown", [True, False])
 def test_roofline_table_is_the_references(markdown):
     recs = synthetic_records()
-    assert report.roofline_table(recs, markdown=markdown) == \
+    for i, r in enumerate(recs):
+        r["partition"] = ("exact", "dtensor", "ideal")[i % 3]
+    got = report.roofline_table(recs, markdown=markdown)
+    assert without_partition(got, markdown) == \
         ref.roofline_table(recs, markdown=markdown)
-    assert report.roofline_table([], markdown=markdown) == \
+    rows = got.splitlines()[1 + markdown:]
+    assert len(rows) == len(recs)
+    assert [row.split()[-1 - markdown] for row in rows] == \
+        [r["partition"] for r in recs]
+    assert without_partition(report.roofline_table([], markdown=markdown),
+                             markdown) == \
         ref.roofline_table([], markdown=markdown)
 
 
@@ -73,7 +96,8 @@ def test_load_records_and_main_are_the_references(tmp_path, capsys,
     monkeypatch.setattr(sys, "argv", ["report", "--mesh", "pod", "--dir",
                                       str(tmp_path)])
     ref.main()
-    assert got == capsys.readouterr().out
+    assert got.split("\n")[0].split()[-1] == "partition"
+    assert without_partition(got, markdown=False) == capsys.readouterr().out
 
     # a cut shape's record (as chip_smoke.py writes) follows the grid
     cut = dict(picked[0], shape="train_2k_b4")
