@@ -259,19 +259,28 @@ Phases, each printing one JSON line:
    2048 tokens on the 1 x 1 host ``DeviceMesh`` (one real NCCL rank,
    the training rules installed): every placement ``Replicate`` and
    the logits equal the plain forward's bit for bit; (b) rank 0's local
-   train step of tinyllama-1.1b's ``pod`` record (``train_4k``: 256 x
-   4096 over 16 x 16, accum 4) run with CUDA local shards over the fake
-   group, whose collectives move no data (the values mean nothing): its
-   FLOPs (counted below DTensor on the card), ``args`` and collectives
-   equal the record's; its peak (``max_memory_allocated`` over a second,
-   uncounted run) within ``PARTITION_PEAK_RATIO`` of the record's
-   ``bytes_per_device`` and of the same counter's args + temp on the
-   card; its wall beside the record's ``compute_s`` and ``memory_s``;
-   (c) the ``pod`` and ``multipod`` records of tinyllama-1.1b and of
-   grok-1-314b (cut to 2 of its 64 layers and to accum 8) at
-   ``train_4k`` and ``decode_32k``, partitioned and ideal (counted on
-   meta tensors on the host), each record's per-device FLOPs and
-   collective bytes by op side by side.
+   train step of the ``pod`` records of tinyllama-1.1b and zamba2-2.7b
+   (``train_4k``: 256 x 4096 over 16 x 16, accum 4; no cut) run with
+   CUDA local shards over the fake group, whose collectives move no
+   data (the values mean nothing): its FLOPs (counted below DTensor on
+   the card), ``args`` and collectives equal the record's, the record's
+   FLOPs equal the reference's partitioned compile's
+   (``PARTITION_REF_FLOPS``, pinned: this script imports no JAX) up to
+   the gaps the toy cells reckon, at full size (zamba2's SSD scan: the
+   record equals the reference compiled with the port's factorisation of
+   its three-operand einsums, ``PARTITION_REF_FLOPS_TWO_OPERAND``; an
+   ideal count, 99.8e12, would not); its peak (``max_memory_allocated``
+   over a second, uncounted run) within ``PARTITION_PEAK_RATIO`` of the
+   record's ``bytes_per_device`` and of the same counter's args + temp
+   on the card; its wall beside the record's ``compute_s`` and
+   ``memory_s``; (c) the ``pod`` and ``multipod`` records of
+   tinyllama-1.1b and of grok-1-314b (cut to 2 of its 64 layers and to
+   accum 8) at ``train_4k`` and ``decode_32k``, and of xlstm-1.3b and
+   zamba2-2.7b at ``decode_32k`` (xlstm's ``train_4k`` is left out: its
+   sLSTM loop, counted op by op over 4,096 steps, runs past 30 minutes
+   on the host), partitioned and ideal (counted on meta tensors on the
+   host), each record's per-device FLOPs and collective bytes by op side
+   by side.
 9b. **fuzz** (after ``cmd_oracle``) — the scenario fuzzer's 8 seeds
    (`repro_torch.oracle.fuzz`, the draws of the reference's
    ``tests/test_fuzz_oracle.py``) on the card and on the CPU: every
@@ -492,12 +501,24 @@ ROOFLINE_PEAK_RATIO = (0.95, 1.05)
 PARTITION_ARCH = "tinyllama-1.1b"
 PARTITION_FWD = (2, 2048)        # phase (a): B x S
 PARTITION_PEAK_RATIO = (0.95, 1.05)
-#: (arch, layers, train accum): grok-1 cut to 2 of its 64 layers and to
-#: accum 8 (at its registered 16 a microbatch has 16 rows for the
-#: multipod's 32 batch ranks, which DTensor cannot split: that cell
-#: fails, as `launch.dryrun` says)
-PARTITION_RECORDS = (("tinyllama-1.1b", None, None), ("grok-1-314b", 2, 8))
-PARTITION_SHAPES = ("train_4k", "decode_32k")
+#: (arch, layers, train accum, shapes): grok-1 cut to 2 of its 64
+#: layers and to accum 8; xlstm-1.3b and zamba2-2.7b at decode only
+#: (xlstm's ``train_4k`` counts op by op past 30 minutes on the host)
+PARTITION_RECORDS = (
+    ("tinyllama-1.1b", None, None, ("train_4k", "decode_32k")),
+    ("grok-1-314b", 2, 8, ("train_4k", "decode_32k")),
+    ("xlstm-1.3b", None, None, ("decode_32k",)),
+    ("zamba2-2.7b", None, None, ("decode_32k",)))
+#: phase (b): the ``pod`` ``train_4k`` records whose rank-0 step runs
+PARTITION_STEP_ARCHS = ("tinyllama-1.1b", "zamba2-2.7b")
+#: per-device FLOPs of the reference's partitioned compile of the
+#: ``pod`` ``train_4k`` step (the JAX package's ``build_cell`` compiled on
+#: 512 forced host devices, ``tests/_ref_partition.py``)
+PARTITION_REF_FLOPS = {"tinyllama-1.1b": 51_878_909_968_384,
+                       "zamba2-2.7b": 128_802_361_442_304}
+#: the same compile with the port's two-operand factorisation of the SSD
+#: scan's einsums (``ssd="two_operand"``): the record's FLOPs equal it
+PARTITION_REF_FLOPS_TWO_OPERAND = {"zamba2-2.7b": 128_791_036_821_504}
 
 
 def emit(obj):
@@ -3691,9 +3712,10 @@ def partition_forward(dev):
     return row
 
 
-def partition_local_step(dev, card):
-    """17 (b): rank 0's local train step of the ``pod`` record on the
-    card, against the record."""
+def partition_local_step(dev, card, arch):
+    """17 (b): rank 0's local train step of ``arch``'s ``pod`` record on
+    the card, against the record, and the record against the
+    reference's partitioned compile (`PARTITION_REF_FLOPS`)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs.registry import get_config
@@ -3702,7 +3724,7 @@ def partition_local_step(dev, card):
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.registry import get_model
 
-    cfg = get_config(PARTITION_ARCH)
+    cfg = get_config(arch)
     shape = SHAPES["train_4k"]
     t0 = time.perf_counter()
     rec = dryrun.cell_record(cfg, shape, "pod")
@@ -3755,10 +3777,19 @@ def partition_local_step(dev, card):
            "memory_s": rec["memory_s"],
            "collective_s": rec["collective_s"],
            "wall_over_compute_plus_memory":
-               wall / (rec["compute_s"] + rec["memory_s"])}
+               wall / (rec["compute_s"] + rec["memory_s"]),
+           "partition": rec["partition"],
+           "flops_reference": PARTITION_REF_FLOPS[arch],
+           "flops_reference_two_operand_ssd":
+               PARTITION_REF_FLOPS_TWO_OPERAND.get(arch),
+           "flops_gap_to_reference":
+               rec["hlo_flops_dev"] - PARTITION_REF_FLOPS[arch]}
     emit(row)
     lo, hi = PARTITION_PEAK_RATIO
-    if not (counted["flops"] == rec["hlo_flops_dev"]
+    want = PARTITION_REF_FLOPS_TWO_OPERAND.get(arch) or \
+        PARTITION_REF_FLOPS[arch]
+    if not (rec["partition"] == "dtensor" and rec["hlo_flops_dev"] == want
+            and counted["flops"] == rec["hlo_flops_dev"]
             and args == mem["args"] and row["collectives_equal"]
             and lo <= row["peak_ratio_to_record"] <= hi
             and lo <= row["peak_ratio_to_card_count"] <= hi):
@@ -3773,11 +3804,11 @@ def partition_records():
     from repro_torch.launch import dryrun
 
     rows = []
-    for arch, layers, accum in PARTITION_RECORDS:
+    for arch, layers, accum, shapes in PARTITION_RECORDS:
         cfg = get_config(arch)
         if layers:
             cfg = dataclasses.replace(cfg, n_layers=layers)
-        for name in PARTITION_SHAPES:
+        for name in shapes:
             for mesh in ("pod", "multipod"):
                 t0 = time.perf_counter()
                 got = {p: dryrun.cell_record(cfg, SHAPES[name], mesh,
@@ -3820,12 +3851,13 @@ def partition_phase(dev):
     t0 = time.perf_counter()
     card = card_line()
     fwd = partition_forward(dev)
-    step = partition_local_step(dev, card)
+    steps = [partition_local_step(dev, card, arch)
+             for arch in PARTITION_STEP_ARCHS]
     rows = partition_records()
     emit({"phase": "partition", "part": "summary", "card": card,
           "wall_s": time.perf_counter() - t0,
           "host_forward_bit_equal": fwd["logits_bit_equal"],
-          "pod_step_wall_s": step["step_wall_s"],
+          "pod_step_wall_s": {s["arch"]: s["step_wall_s"] for s in steps},
           "records": len(rows)})
 
 

@@ -35,8 +35,9 @@ The meshes (``--mesh``):
   is the count itself, ``chips`` 1, no
   collective, ``partition: "exact"``;
 * ``pod`` / ``multipod`` (``single`` / ``multi``; ``both``) -- the
-  reference's 16x16 and 2x16x16 meshes as H100 meshes.  For the dense
-  and MoE families (``PARTITIONED_FAMILIES``) the step runs as rank 0
+  reference's 16x16 and 2x16x16 meshes as H100 meshes.  For the dense,
+  MoE, SSM and hybrid families (``PARTITIONED_FAMILIES``) the step runs
+  as rank 0
   of the mesh under DTensor over the fake process group
   (`partitioned_cell`: every arg a DTensor placed by its logical specs
   under `launch.mesh.rules_for`, its local shard on ``meta``; the
@@ -50,9 +51,10 @@ The meshes (``--mesh``):
   all-reduces of partial sums -- each at its output bytes, as the
   reference's ``hlo`` counts them.  The train step donates its params
   and optimizer state, as the reference's jitted step does (AdamW
-  writes each leaf in place).  A dense or MoE cell that DTensor cannot
-  partition fails, naming the op; nothing falls back.  The other four
-  families keep ``partition: "ideal"``: ``args`` per card is exact (each
+  writes each leaf in place).  A cell of these families that DTensor
+  cannot partition fails, naming the op; nothing falls back.  The other
+  two families (audio and vlm) keep ``partition: "ideal"``: ``args`` per
+  card is exact (each
   leaf's local shape under `parallel.axes.resolve_tree`); FLOPs, bytes
   and ``temp`` per card are the global counts over ``chips``, a lower
   bound; collectives cover the weights only (``collectives_scope:
@@ -72,7 +74,9 @@ disk is reused unless ``--force``.  A config with ``use_flash_kernel``
 raises: the counter cannot see the kernel's launch.
 
 ``--all`` is slow for xlstm-1.3b's long cells: its sLSTM loop runs over
-time, about 7.5 s per 256 tokens of forward on meta at full width.
+time, op by op (about 7.5 s per 256 tokens of forward on meta at full
+width, more under DTensor's dispatch): its ``train_4k`` and
+``prefill_32k`` counts run past 30 minutes (``PERF.md``).
 
 Usage (``--arch`` without ``--shape``: the arch's registered cells):
   python -m repro_torch.launch.dryrun --mesh host --arch tinyllama-1.1b \\
@@ -140,7 +144,7 @@ _INDEXED_WRITES = ("index_put", "scatter", "index_copy", "index_add",
 
 #: the families whose ``pod`` / ``multipod`` cells DTensor partitions
 #: (``partition: "dtensor"``); the others keep the ideal partition
-PARTITIONED_FAMILIES = ("dense", "moe")
+PARTITIONED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 #: the collectives DTensor issues, by op, and their `COLLECTIVES` name
 _COLLECTIVE_OPS = {

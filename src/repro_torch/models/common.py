@@ -27,8 +27,13 @@ Conventions
   partitioner, the DTensor path states it: weights gathered over their
   ZeRO-3 dims before use, partial sums reduced where they arise (and
   their gradients'), the attention and the embedding lookup run per
-  rank.  On plain tensors, or with no rules installed, all of it is the
-  identity and the products are the plain ones.  The
+  rank.  Where the reference's partitioner permutes a weight's shard
+  between the pod's two axes (GQA's K/V weights, zamba2's ``w_cat``),
+  the port moves it by one all-to-all (`transposed_product`).  The
+  dense, MoE, SSM and hybrid families run so in the partitioned
+  dry-run; audio and vlm are the only ones left on its ideal
+  partition.  On plain tensors, or with no rules installed, all of it
+  is the identity and the products are the plain ones.  The
   reference's A/B measurement knob ``REPRO_NO_SP`` (turn the
   sequence-parallel branch off) is not ported.  The logical axis names
   of each weight are kept as data (``*_specs``: one tuple of names per
@@ -40,6 +45,7 @@ Conventions
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -50,11 +56,12 @@ from torch.distributed.tensor._utils import \
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.parallel.axes import (P, _mesh, _rules, einsum,
-                                       gather_fsdp, is_dtensor, placements,
-                                       reduce_grad_partial, reduce_partial,
-                                       resolve, serving_mode, shard,
-                                       sharding_rules)
+from repro_torch.parallel.axes import (P, _mesh, _rules, all_to_all,
+                                       einsum, gather_fsdp, is_dtensor,
+                                       placements, reduce_grad_partial,
+                                       reduce_partial, resolve, serving_mode,
+                                       shard, sharding_rules, transpose_local,
+                                       transpose_shard, transposable)
 from repro_torch.tree import leaves
 
 
@@ -93,23 +100,117 @@ def _split_contraction(x, w, eq: str):
     return x.redistribute(mesh, xp), w.redistribute(mesh, wp)
 
 
-def serving_matmul(x, w, eq: str, w_logical: tuple):
+def _model_dim(mesh) -> int:
+    """The index of the ``model`` axis among a DeviceMesh's dims."""
+    return list(mesh.mesh_dim_names).index("model")
+
+
+def transposed_product(x, w, eq: str, product=None):
+    """``einsum(eq, x, w)`` for a weight split over its ZeRO-3 dim on a
+    mesh dim of the ``model`` axis's size and whole over ``model`` (on the
+    pod: the K/V projection of KV heads too few to split it, zamba2's
+    ``w_cat``), as the reference's partitioner runs it: the weight's
+    shard is permuted to the ``model`` axis (`parallel.axes.
+    transpose_shard`, one all-to-all of the shard), so that ``model``
+    splits the contracted dim.  Where the rank's output is smaller than
+    the weight, the activation is split there too and the partial sums
+    reduced (``whole_grad``: the activation's gradient whole); else the
+    weight is gathered over ``model`` and the product runs whole
+    (``whole_forward``).  Either way the weight's gradient runs on each
+    rank's own rows of it, is reduced over the batch ranks and permuted
+    back.  ``None`` where the weight is not so laid out."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return None
+    mesh = w.device_mesh
+    if "model" not in mesh.mesh_dim_names:
+        return None
+    m = _model_dim(mesh)
+    src = [i for i, p in enumerate(w.placements) if p == Shard(0)]
+    if len(src) != 1 or not transposable(w, src[0], m):
+        return None
+    ins, out = eq.split("->")
+    lx, lw = ins.split(",")
+    sizes = dict(zip(lx, x.to_local().shape))
+    sizes.update(zip(lw, w.shape))
+    y = math.prod(sizes[c] for c in out)
+    mode = ("whole_grad" if y < w.numel() else "whole_forward")
+    wt = transpose_shard(w, src[0], m)
+    return reduce_partial(einsum(eq, x, wt, product or _plain_product,
+                                 **{mode: "model"}))
+
+
+def _serving_x_placements(x, w, eq: str, w_logical: tuple):
+    """The placements of the activation ``x`` in the weight-stationary
+    product (`serving_matmul`): split as the weight ``w`` on the labels
+    they share, whole elsewhere."""
+    w_spec = resolve(w_logical, w.shape)
+    x_dims, w_dims = eq.split("->")[0].split(",")
+    w_axes = {dim: (w_spec[i] if i < len(w_spec) else None)
+              for i, dim in enumerate(w_dims)}
+    return placements(P(*(w_axes.get(dim) for dim in x_dims)),
+                      x.device_mesh)
+
+
+def serving_input(x, w, eq: str, w_logical: tuple):
+    """``x`` brought once to the layout `serving_matmul` multiplies it in
+    against ``w``, for products that share it (the q/k/v projections,
+    the FFN's gate and up), as the reference's partitioner moves a
+    shared operand once.  The identity outside serving mode."""
+    if not (is_dtensor(x) and is_dtensor(w) and serving_mode()
+            and _mesh() is not None):
+        return x
+    return _relayout(x, _serving_x_placements(x, w, eq, w_logical))
+
+
+def _relayout(x, want: list):
+    """``x`` redistributed to ``want``.  An activation split on its rows
+    over the data axis and on dim ``k`` over ``model`` (the FFN's hidden
+    state) that must split ``k`` over both, data-major, moves as the
+    reference's partitioner moves it on the pod: an all-to-all over data
+    (its rows for shares of its ``k`` slice), then the shares permuted
+    between the two axes; DTensor would gather it over ``model`` first."""
+    pl = list(x.placements)
+    if pl == want:
+        return x
+    mesh = x.device_mesh
+    k = want[-1].dim if isinstance(want[-1], Shard) else 0
+    if (mesh.mesh_dim_names == ("data", "model") and k > 0
+            and pl == [Shard(0), Shard(k)] and want == [Shard(k)] * 2
+            and mesh.size(0) == mesh.size(1)):
+        n = mesh.size(0)
+        chunks = x.to_local().unflatten(k, (n, -1)).movedim(k, 0)
+        rows = all_to_all(chunks, None, None, mesh.get_group(0)).flatten(0, 1)
+        return DTensor.from_local(transpose_local(rows, mesh, (0, 1)), mesh,
+                                  want, run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    return x.redistribute(mesh, want)
+
+
+def serving_matmul(x, w, eq: str, w_logical: tuple, *,
+                   transpose: bool = False):
     """Weight-stationary projection for serving, the reference's.
 
     ``x @ w`` where the serving rules shard w's contraction dim(s) (they
     put ``embed`` / ``mlp`` on the data axis).  Left to itself the
     partitioner would all-gather the weights every step, the whole model
     per decode step.  Here x is redistributed to w's layout on the labels
-    they share (decode activations are small), each rank contracts its
-    local x against its resident weight shard, and the partial sums are
+    they share (decode activations are small; `serving_input` does it
+    once for products that share ``x``), each rank contracts its local x
+    against its resident weight shard, and the partial sums are
     all-reduced over the contraction axes: one ``Partial`` placement and
     one redistribute.  Outside serving mode, the plain product; on a mesh
     of the weight gathered over its ZeRO-3 dims (`gather_fsdp`), its
-    partial sums reduced (`reduce_partial`).
+    partial sums reduced (`reduce_partial`), or, with ``transpose``, its
+    shard permuted to the ``model`` axis where the reference's
+    partitioner does so (`transposed_product`).
     """
     if not is_dtensor(w):
         return _plain_product(eq, x, w)
     if not (serving_mode() and _mesh() is not None):
+        if transpose:
+            y = transposed_product(x, w, eq)
+            if y is not None:
+                return y
         x, w = _split_contraction(x, gather_fsdp(w, w_logical), eq)
         return reduce_partial(einsum(eq, x, w, _plain_product))
     mesh = w.device_mesh
@@ -123,16 +224,34 @@ def serving_matmul(x, w, eq: str, w_logical: tuple):
     reduce_axes = [ax for dim in w_dims if dim not in out
                    for ax in ((w_axes[dim],) if isinstance(w_axes[dim], str)
                               else w_axes[dim] or ())]
-    x_spec = P(*(w_axes.get(dim) for dim in x_dims))
     out_place = placements(P(*(w_axes.get(dim) for dim in out)), mesh)
     for ax in reduce_axes:
         out_place[names.index(ax)] = Partial()
-    xl = x.redistribute(mesh, placements(x_spec, mesh)).to_local()
+    xl = _relayout(x, _serving_x_placements(x, w, eq, w_logical)).to_local()
     wl = w.redistribute(mesh, placements(w_spec, mesh)).to_local()
     y = DTensor.from_local(_plain_product(eq, xl, wl), mesh, out_place,
                            run_check=False)
     return y.redistribute(mesh, [Replicate() if isinstance(pl, Partial)
                                  else pl for pl in out_place])
+
+
+def local_for(t, like):
+    """``t``'s local shard, for a product per rank against the activation
+    ``like``: over a mesh dim where ``like`` is split and ``t`` whole, its
+    gradient is a partial sum (each rank's rows contribute)."""
+    if not is_dtensor(t):
+        return t
+    grad = [Partial() if q == Replicate() and isinstance(a, Shard) else q
+            for q, a in zip(t.placements, like.placements)]
+    return t.to_local(grad_placements=grad)
+
+
+def partial_over_model(t):
+    """Grad placements of an activation that every ``model`` rank reads
+    whole: a partial sum over ``model``."""
+    names = t.device_mesh.mesh_dim_names
+    return [Partial() if n == "model" else q
+            for n, q in zip(names, t.placements)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,13 +501,10 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool, chunk: int = 1024):
     if not heads_tp_available(q.shape[2]):
         # sequence-parallel fallback, the reference's: heads that cannot
         # split the model axis would replicate the scores across it, so
-        # the query rows split over ``seq`` instead (K/V shared)
+        # the query rows split over ``seq`` instead (K/V shared); the
+        # output's rows stay split for `attn_out`, which gathers them as
+        # the reference's partitioner does before the output projection
         q = shard(q, "batch", "seq", None, None)
-        # the rows gathered back: the reference's partitioner gathers
-        # them before the output projection, which it then runs on
-        # every model rank
-        return shard(_attention_by_rank(chunked, q, k, v),
-                     "batch", None, None, None)
     return _attention_by_rank(chunked, q, k, v)
 
 
@@ -459,7 +575,15 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
         # propagates it back from the attention: the projections run on
         # each model rank's rows, and the pins below gather q, k and v
         x = shard(x, "batch", "seq", None)
-    q, k, v = (serving_matmul(x, p[w].to(dt), "bsd,dhk->bshk", specs[w])
+    eq = "bsd,dhk->bshk"
+    x = serving_input(x, p["wq"], eq, specs["wq"])
+    # GQA's K/V weights, whose heads cannot split the model axis where
+    # the query heads do: the reference's partitioner permutes their
+    # ZeRO-3 shards to the model axis
+    gqa = (heads_tp_available(cfg.n_heads)
+           and not heads_tp_available(cfg.n_kv_heads))
+    q, k, v = (serving_matmul(x, p[w].to(dt), eq, specs[w],
+                              transpose=gqa and w != "wq")
                for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
@@ -472,9 +596,18 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
 
 
 def attn_out(cfg: ModelConfig, p, o):
-    """o (B,S,Hq,D) -> (B,S,d)."""
-    return serving_matmul(o, p["wo"].to(cfg.dtype), "bshk,hkd->bsd",
-                          attn_specs(cfg)["wo"])
+    """o (B,S,Hq,D) -> (B,S,d).  The sequence-parallel fallback's rows
+    (split over ``model``) are gathered and the projection runs whole on
+    every model rank, its backward on each rank's own rows, as the
+    reference's partitioner runs it (``whole_forward``)."""
+    wo, names = p["wo"].to(cfg.dtype), attn_specs(cfg)["wo"]
+    if (is_dtensor(o) and not serving_mode()
+            and "model" in o.device_mesh.mesh_dim_names
+            and o.placements[_model_dim(o.device_mesh)] == Shard(1)):
+        return reduce_partial(einsum("bshk,hkd->bsd", o,
+                                     gather_fsdp(wo, names), _plain_product,
+                                     whole_forward="model"))
+    return serving_matmul(o, wo, "bshk,hkd->bsd", names)
 
 
 def cross_kv(cfg: ModelConfig, p, ctx):
@@ -527,7 +660,8 @@ def mlp(cfg: ModelConfig, p, x, kind: str = "swiglu"):
     def mm(a, name, eq="bsd,df->bsf"):
         return serving_matmul(a, p[name].to(dt), eq, specs[name])
 
-    x = reduce_grad_partial(x)
+    x = serving_input(reduce_grad_partial(x), p["w_up"], "bsd,df->bsf",
+                      specs["w_up"])
     if kind == "swiglu":
         h = shard(F.silu(mm(x, "w_gate")) * mm(x, "w_up"),
                   "batch", None, "mlp")
@@ -609,5 +743,14 @@ def embed(cfg: ModelConfig, p, tokens):
 def logits(cfg: ModelConfig, p, x):
     x = reduce_grad_partial(rmsnorm(x, p["norm_f"], cfg.norm_eps))
     w = (p["tok"].T if cfg.tie_embeddings else p["head"]).to(cfg.dtype)
-    return shard(serving_matmul(x, w, "bsd,dv->bsv", ("embed", "vocab")),
-                 "batch", None, "vocab")
+    if is_dtensor(w) and serving_mode() and _mesh() is not None:
+        # the reference's logits are a plain product, not its
+        # weight-stationary one: under the serving rules its partitioner
+        # gathers the head's embed shards
+        y = einsum("bsd,dv->bsv", x,
+                   gather_fsdp(w, ("embed", "vocab"),
+                               gather_in_serving=True),
+                   _plain_product)
+    else:
+        y = serving_matmul(x, w, "bsd,dv->bsv", ("embed", "vocab"))
+    return shard(y, "batch", None, "vocab")

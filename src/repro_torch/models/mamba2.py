@@ -15,6 +15,14 @@ transformer block applied every ``attn_every`` layers.  The shared block
 reads concat(hidden, embedding) folded to d_model by ``w_cat``, its
 residual lands on the hidden stream, and each *application* keeps its
 own KV cache (params shared, activations not).
+
+On DTensors (the partitioned dry-run) each block runs per rank as the
+reference's partitioner runs it (`_mamba_fwd_sharded`,
+`_mamba_step_sharded`, `_fold`): the in-projection on each ``model``
+rank's columns (``state``), each rank taking the pieces of its output
+it reads (one all-to-all), the conv on the rank's channels, the scan on
+its heads (the reference's ``state`` pin), C.B^T on its share of the
+state dim.
 """
 from __future__ import annotations
 
@@ -23,9 +31,15 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tt
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.axes import (along, contract, einsum,
+                                       even_share, gather_fsdp, is_dtensor,
+                                       reduce_grad_partial, reduce_partial,
+                                       regather)
 
 
 # ---------------------------------------------------------------------------
@@ -74,13 +88,41 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssd_scan(cfg: ModelConfig, xh, dt, a, bmat, cmat):
+def _cb_by_rank(cfg: ModelConfig, mesh, bml, cml):
+    """The SSD scan's C.B^T per chunk, (B, nc, q, q), from B and C (local
+    tensors, whole on every ``model`` rank): each model rank contracts its
+    share of the state dim (`parallel.axes.contract`: a multiply for a
+    share of one), the partial sums all-reduced, as the reference's
+    partitioner splits it; ``None`` where the state dim does not split."""
+    m = mesh.mesh_dim_names.index("model")
+    r, nm = mesh.get_local_rank(m), mesh.size(m)
+    n = bml.shape[-1]
+    if n % nm:
+        return None
+    q = min(cfg.ssm_chunk, bml.shape[1])
+    share = n // nm
+
+    def chunks(tl):
+        s = tl.shape[1]
+        tl = F.pad(tl, (0, 0, 0, -(-s // q) * q - s))
+        return tl.reshape(tl.shape[0], -1, q, n)[..., r * share:
+                                                 (r + 1) * share].float()
+
+    cb = contract("bkin,bkjn->bkij", chunks(cml), chunks(bml))
+    pl = [Partial() if i == m else Replicate() for i in range(mesh.ndim)]
+    cb = DTensor.from_local(cb, mesh, pl, run_check=False)
+    return cb.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=pl)
+
+
+def _ssd_scan(cfg: ModelConfig, xh, dt, a, bmat, cmat, cb=None):
     """SSD chunked scan.
 
     xh   (B,S,H,P)  inputs per head
     dt   (B,S,H)    positive step sizes
     a    (H,)       negative decay rates
     bmat (B,S,N), cmat (B,S,N)  shared across heads (n_groups=1)
+    cb   (B,nc,q,q) C.B^T per chunk, where given (`_cb_by_rank`)
     Returns y (B,S,H,P) fp32.
     """
     b, s, h, p = xh.shape
@@ -106,7 +148,8 @@ def _ssd_scan(cfg: ModelConfig, xh, dt, a, bmat, cmat):
     iq = torch.arange(q, device=xh.device)
     mask = iq[:, None] >= iq[None, :]
     l_mat = torch.where(mask[None, None, :, :, None], rel.exp(), 0.0)
-    cb = torch.einsum("bkin,bkjn->bkij", c_c, b_c)       # (B,nc,q,q)
+    if cb is None:
+        cb = torch.einsum("bkin,bkjn->bkij", c_c, b_c)   # (B,nc,q,q)
     y_diag = torch.einsum("bkijh,bkjhp->bkihp", cb[..., None] * l_mat, xb_c)
 
     # chunk boundary states + across-chunk recurrence
@@ -127,7 +170,140 @@ def _ssd_scan(cfg: ModelConfig, xh, dt, a, bmat, cmat):
     return (y_diag + y_off).reshape(b, s_pad, h, p)[:, :s]
 
 
+def _rms_split(cfg: ModelConfig, y, w):
+    """`common.rmsnorm` of the DTensor ``y`` over its last dim, split over
+    ``model`` (as the weight ``w``): each rank's sum of squares, reduced
+    over ``model``, as the reference's partitioner normalises it."""
+    last = y.ndim - 1
+    yl = y.to_local()
+    yf = yl.float()
+    ss = (yf * yf).sum(-1, keepdim=True)
+    pl = [Partial() if q == Shard(last) else q for q in y.placements]
+    ss = DTensor.from_local(ss, y.device_mesh, pl, run_check=False)
+    ss = ss.redistribute(y.device_mesh, [
+        Replicate() if isinstance(q, Partial) else q for q in pl])
+    ss = ss.to_local(grad_placements=cm.partial_over_model(ss))
+    out = yf * torch.rsqrt(ss / y.shape[-1] + cfg.norm_eps)
+    wl = cm.local_for(along(w, "model", Shard(0)), y)
+    out = (out * wl.float()).to(yl.dtype)
+    return DTensor.from_local(out, y.device_mesh, y.placements,
+                              run_check=False, shape=y.shape,
+                              stride=y.stride())
+
+
+def _share(local, like, width):
+    """The local tensor ``local`` (this model rank's share of a last dim of
+    ``width``) as a DTensor split there over ``model``, placed as
+    ``like`` on the other mesh dims."""
+    mesh = like.device_mesh
+    last = local.ndim - 1
+    pl = [Shard(last) if n == "model" else q
+          for n, q in zip(mesh.mesh_dim_names, like.placements)]
+    shape = (*like.shape[:-1], width)
+    stride = [1]
+    for n in reversed(shape[1:]):
+        stride.insert(0, stride[0] * n)
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+def _pieces(t, ranges_of, widths):
+    """The columns of the DTensor ``t`` (its last dim split over ``model``
+    in equal blocks) that this rank needs, ``ranges_of(r)`` (increasing
+    ranges), moved by one all-to-all (`parallel.axes.regather`), cut by
+    ``widths``; where ``t`` is whole over ``model``, sliced."""
+    mi = t.device_mesh.mesh_dim_names.index("model")
+    if t.placements[mi] == Replicate():
+        tl = t.to_local(grad_placements=cm.partial_over_model(t))
+        r = t.device_mesh.get_local_rank(mi)
+        got = torch.cat([tl[..., a:b] for a, b in ranges_of(r)], dim=-1)
+    else:
+        got = regather(t, "model", ranges_of)
+    return torch.split(got, widths, dim=-1)
+
+
+def _in_proj(cfg: ModelConfig, p, z):
+    """z @ w_in, each model rank on its columns (the ``state`` split of
+    w_in); each rank then takes the pieces it reads (`_pieces`: its share
+    of z, of the conv's input channels (x, B, C) and of dt), as the
+    reference's partitioner moves only the windows each needs.  Returns
+    z, the conv input and dt, each split over ``model``."""
+    eq = "bsd,de->bse" if z.ndim == 3 else "bd,de->be"
+    w = gather_fsdp(p["w_in"].to(cfg.dtype), ("fsdp", "state"))
+    zx = einsum(eq, reduce_grad_partial(z), w, cm._plain_product)
+    d_in, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv = d_in + 2 * n
+    nm = zx.device_mesh.size(zx.device_mesh.mesh_dim_names.index("model"))
+    zs, cs, hs = (even_share(n_, nm, f"{cfg.name}: {what}") for n_, what in
+                  ((d_in, "d_inner"), (conv, "conv channels"),
+                   (h, "SSM heads")))
+
+    def ranges(r):
+        return [(r * zs, (r + 1) * zs), (d_in + r * cs, d_in + (r + 1) * cs),
+                (d_in + conv + r * hs, d_in + conv + (r + 1) * hs)]
+
+    zg, xbc, dtp = _pieces(zx, ranges, [zs, cs, hs])
+    return (_share(zg, zx, d_in), _share(xbc, zx, conv),
+            _share(dtp, zx, h))
+
+
+def _after_conv(cfg: ModelConfig, conv):
+    """The conv's output (its channels split over ``model``): each rank
+    takes its heads' share of x and B, C whole (`_pieces`)."""
+    d_in, n = cfg.d_inner, cfg.ssm_state
+    nm = conv.device_mesh.size(conv.device_mesh.mesh_dim_names.index(
+        "model"))
+    xs_ = even_share(d_in, nm, f"{cfg.name}: d_inner")
+    xs, bml, cml = _pieces(conv, lambda r: [(r * xs_, (r + 1) * xs_),
+                                            (d_in, d_in + 2 * n)],
+                           [xs_, n, n])
+    return _share(xs, conv, d_in), bml, cml
+
+
+def _mamba_fwd_sharded(cfg: ModelConfig, p, x):
+    """`mamba_fwd` on DTensors, each rank on its shards as the reference's
+    partitioner runs it: the in-projection on each model rank's columns;
+    the causal conv on its channels; the SSD scan on its heads (the
+    reference's ``state`` pin of ``xh``), B and C whole; the gated norm
+    over the heads' split width (its sum of squares reduced); the
+    out-projection on its rows of w_out, its partial sums reduced."""
+    dt_ = cfg.dtype
+    h, hp, k = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_kernel
+    z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
+    zg, xbc, dtp = _in_proj(cfg, p, z)
+    xl = xbc.to_local(grad_placements=xbc.placements)
+    s = xl.shape[1]
+    pad = F.pad(xl, (0, 0, k - 1, 0))
+    wl = cm.local_for(p["conv_w"].to(dt_), xbc)
+    bl = cm.local_for(p["conv_b"].to(dt_), xbc)
+    conv = sum(pad[:, i:i + s] * wl[i] for i in range(k)) + bl
+    conv = DTensor.from_local(F.silu(conv), xbc.device_mesh, xbc.placements,
+                              run_check=False, shape=xbc.shape,
+                              stride=xbc.stride())
+    xs, bml, cml = _after_conv(cfg, conv)
+    xsl = xs.to_local(grad_placements=xs.placements)
+    dt_bias = cm.local_for(along(p["dt_bias"], "model", Shard(0)), xs)
+    dtl = _softplus(dtp.to_local(grad_placements=dtp.placements).float()
+                    + dt_bias)
+    a = -cm.local_for(along(p["a_log"], "model", Shard(0)), xs).exp()
+    b_ = xsl.shape[0]
+    xh = xsl.reshape(b_, s, -1, hp)
+    y = _ssd_scan(cfg, xh, dtl, a, bml, cml,
+                  _cb_by_rank(cfg, xs.device_mesh, bml, cml))
+    d_skip = cm.local_for(along(p["d_skip"], "model", Shard(0)), xs)
+    y = y + d_skip[None, None, :, None] * xh.float()
+    y = DTensor.from_local(y.reshape(b_, s, -1).to(dt_), xs.device_mesh,
+                           xs.placements, run_check=False, shape=xs.shape,
+                           stride=xs.stride())
+    y = _rms_split(cfg, y * F.silu(zg), p["norm_y"])
+    w_out = gather_fsdp(p["w_out"].to(dt_), ("state", "fsdp"))
+    return x + reduce_partial(einsum("bsf,fd->bsd", y, w_out,
+                                     cm._plain_product))
+
+
 def mamba_fwd(cfg: ModelConfig, p, x):
+    if is_dtensor(x):
+        return _mamba_fwd_sharded(cfg, p, x)
     dt_ = cfg.dtype
     d_in, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
@@ -153,9 +329,47 @@ def mamba_fwd(cfg: ModelConfig, p, x):
     return x + y @ p["w_out"].to(dt_)
 
 
+def _mamba_step_sharded(cfg: ModelConfig, p, state, x):
+    """`mamba_step` on DTensors, per rank as `_mamba_fwd_sharded`: the
+    conv's history and its product on each model rank's channels, the
+    state update on its heads (the cache's ``state`` split)."""
+    dt_ = cfg.dtype
+    hp = cfg.ssm_head_dim
+    z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
+    zg, xbc, dtp = _in_proj(cfg, p, z)
+    hist = torch.cat([state["conv"], xbc.float()[:, None, :]], dim=1)
+    conv = einsum("bkc,kc->bc", hist, along(p["conv_w"], "model", Shard(1)))
+    conv = F.silu(conv + along(p["conv_b"], "model", Shard(0)))
+    xs, bml, cml = _after_conv(cfg, conv)
+    dt = _softplus(dtp.to_local().float()
+                   + along(p["dt_bias"], "model", Shard(0)).to_local())
+    a = -along(p["a_log"], "model", Shard(0)).to_local().exp()
+    xh = xs.to_local().reshape(xs.to_local().shape[0], -1, hp)
+    dec = (dt * a[None, :]).exp()
+    hl = state["h"].to_local()
+    hs = (hl * dec[..., None, None]
+          + torch.einsum("bn,bhp->bhnp", bml, xh * dt[..., None]))
+    y = torch.einsum("bn,bhnp->bhp", cml, hs)
+    d_skip = along(p["d_skip"], "model", Shard(0)).to_local()
+    y = y + d_skip[None, :, None] * xh
+    y = DTensor.from_local(y.reshape(y.shape[0], -1).to(dt_),
+                           xs.device_mesh, xs.placements, run_check=False,
+                           shape=xs.shape, stride=xs.stride())
+    y = _rms_split(cfg, y * F.silu(zg), p["norm_y"])
+    w_out = gather_fsdp(p["w_out"].to(dt_), ("state", "fsdp"))
+    out = reduce_partial(einsum("bf,fd->bd", y, w_out, cm._plain_product))
+    hs = DTensor.from_local(hs, state["h"].device_mesh,
+                            state["h"].placements, run_check=False,
+                            shape=state["h"].shape,
+                            stride=state["h"].stride())
+    return dict(h=hs, conv=hist[:, 1:]), x + out
+
+
 def mamba_step(cfg: ModelConfig, p, state, x):
     """One-token recurrent update.  x (B, d); state ``h`` (B,H,N,P) and
     ``conv`` (B,k-1,conv_dim), fp32.  Returns (new state, x')."""
+    if is_dtensor(x):
+        return _mamba_step_sharded(cfg, p, state, x)
     dt_ = cfg.dtype
     d_in, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
@@ -211,8 +425,25 @@ def param_specs(cfg: ModelConfig):
     return p
 
 
+def _fold(cfg: ModelConfig, p, x, x0):
+    """concat(x, x0) @ w_cat.  On DTensors as the reference's partitioner
+    runs it: on the pod its ZeRO-3 shard permuted to the ``model`` axis
+    (`common.transposed_product`), elsewhere gathered and the product
+    whole."""
+    xx = torch.cat([x, x0], dim=-1)
+    w = p["w_cat"].to(cfg.dtype)
+    if not is_dtensor(xx):
+        return xx @ w
+    eq = "bse,ed->bsd" if xx.ndim == 3 else "be,ed->bd"
+    y = cm.transposed_product(xx, w, eq)
+    if y is not None:
+        return y
+    return reduce_partial(einsum(eq, xx, gather_fsdp(w, ("fsdp", None)),
+                                 cm._plain_product))
+
+
 def _shared_apply(cfg: ModelConfig, p, x, x0, positions):
-    u = torch.cat([x, x0], dim=-1) @ p["w_cat"].to(cfg.dtype)
+    u = _fold(cfg, p, x, x0)
     return x + tt.block_fwd(cfg, p["block"], u, positions) - u  # on x
 
 
@@ -282,11 +513,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
         st, x = mamba_step(cfg, tt._layer(params["mamba"], i),
                            {k: v[i] for k, v in states.items()}, x)
         for k, v in st.items():
-            states[k][i] = v
+            tt.set_layer(states[k], i, v)
         if cfg.family == "hybrid" and (i + 1) % per == 0:
             p_sh = params["shared"]
-            u = (torch.cat([x, x0], dim=-1)
-                 @ p_sh["w_cat"].to(cfg.dtype))[:, None, :]
+            u = _fold(cfg, p_sh, x, x0)[:, None, :]
             kv = {k: v[i // per] for k, v in cache["shared_kv"].items()}
             _, u_out = tt.decode_block(cfg, p_sh["block"], kv, u, lengths)
             x = x + u_out[:, 0] - u[:, 0]

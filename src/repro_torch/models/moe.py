@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import common as cm
 from repro_torch.models.common import ModelConfig
@@ -124,7 +124,7 @@ def _moe_y(cfg: ModelConfig, p, x):
     ng = s // g
     x = reduce_grad_partial(x)
     xg = shard(x.reshape(b, ng, g, d), "batch", None, None, None)
-    logit = einsum("bngd,de->bnge", xg.float(), p["router"].float())
+    logit = _router_logits(xg.float(), p["router"].float())
     gates = torch.softmax(logit, -1)                      # (B,ng,G,E)
     dispatch, combine = route(cfg, gates, capacity(cfg, g))
 
@@ -154,6 +154,27 @@ def _moe_y(cfg: ModelConfig, p, x):
     if cfg.dense_residual:
         y = y + cm.mlp(cfg, p["dense"], x)
     return y, gates
+
+
+def _router_logits(xg, router):
+    """``xg @ router``.  On a mesh whose experts split the ``model`` axis
+    (arctic-style expert parallelism, training rules) the product runs on
+    each model rank's experts (the router's columns), forward and
+    backward, as the reference's partitioner splits it; the logits are
+    then gathered for the routing, which runs on every rank."""
+    if not (is_dtensor(router) and _mesh() is not None) or serving_mode():
+        return einsum("bngd,de->bnge", xg, router)
+    spec = resolve((None, "experts"), router.shape)
+    if len(spec) < 2:
+        return einsum("bngd,de->bnge", xg, router)
+    mesh = router.device_mesh
+    split = placements(spec, mesh)
+    logit = einsum("bngd,de->bnge", xg,
+                   router.redistribute(mesh, [
+                       q if q == Shard(1) else p
+                       for p, q in zip(router.placements, split)]))
+    return logit.redistribute(mesh, [Replicate() if q == Shard(3) else q
+                                     for q in logit.placements])
 
 
 def _expert_ffn_weight_stationary(cfg: ModelConfig, p, xe):

@@ -29,6 +29,15 @@ def _layer(layers: dict, i: int) -> dict:
             for k, v in layers.items()}
 
 
+def set_layer(stack, i: int, value):
+    """``stack[i] = value`` in place; on DTensors each rank writes its
+    local shard (``value`` laid out as ``stack[i]``)."""
+    if is_dtensor(stack):
+        stack.to_local()[i] = value.to_local().to(stack.dtype)
+    else:
+        stack[i] = value
+
+
 # ---------------------------------------------------------------------------
 # params
 

@@ -16,6 +16,10 @@ product, as the reference's are); decode is the O(1) recurrent update
 sLSTM (scalar memory, recurrent gating) is sequential: a Python loop over
 time takes the place of the reference's ``lax.scan``, one small group of
 kernels per token.
+
+On DTensors (the partitioned dry-run) the blocks run per rank as the
+reference's partitioner runs them (`_mlstm_fwd_sharded`,
+`_slstm_fwd_sharded` and the two steps; see the section below).
 """
 from __future__ import annotations
 
@@ -24,9 +28,15 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tt
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.axes import (along, contract, einsum,
+                                       even_share, gather_fsdp, gather_share,
+                                       is_dtensor, reduce_grad_partial,
+                                       reduce_partial, shard)
 
 M_INIT = -1e30            # the stabiliser's initial value
 
@@ -133,7 +143,188 @@ def _mlstm_proj(cfg: ModelConfig, p, z):
     return q, k, v, zg, logi, logf
 
 
+# ---------------------------------------------------------------------------
+# the blocks on DTensors (the pod / multipod dry-run)
+#
+# xlstm-1.3b's 4 heads cannot split the 16-way ``model`` axis, so the
+# reference's rules put its tensor parallelism on the value dims
+# (``state``) and its mLSTM falls back to splitting each query chunk's
+# rows over ``model``.  Each function below runs the block per rank with
+# the placements the reference's partitioner gives it.
+
+
+def _whole(t, like):
+    """The parameter ``t`` gathered whole (its ZeRO-3 and ``state``
+    splits), as the local tensor of a product per rank against ``like``
+    (its gradient a partial sum where ``like`` is split)."""
+    t = along(gather_fsdp(t, tuple("fsdp" for _ in range(t.ndim))),
+              "model", Replicate())
+    return cm.local_for(t, like)
+
+
+def _require_seq_par(cfg: ModelConfig):
+    if cm.heads_tp_available(cfg.n_heads):
+        raise NotImplementedError(
+            f"{cfg.name}: the partitioned mLSTM takes the reference's "
+            f"sequence-parallel fallback only ({cfg.n_heads} heads split "
+            f"the model axis)")
+
+
+def _mlstm_qkv_sharded(cfg: ModelConfig, p, z):
+    """The up-projection on each model rank's columns (``state``), its
+    output gathered over ``model`` (xh whole), then q/k/v on each rank's
+    share of the value dim (``state``); zg whole."""
+    dt = cfg.dtype
+    _, h, dh = _dims(cfg)
+    lead = "bs" if z.ndim == 3 else "b"
+    up = einsum(f"{lead}d,de->{lead}e", reduce_grad_partial(z),
+                gather_fsdp(p["w_up"].to(dt), ("fsdp", "state")),
+                cm._plain_product)
+    xa, zg = along(up, "model", Replicate()).chunk(2, dim=-1)
+    xh = xa.reshape(*xa.shape[:-1], h, dh)
+    q, k, v = (einsum(f"{lead}hk,hkl->{lead}hl", xh, p[w].to(dt))
+               for w in ("wq", "wk", "wv"))
+    return q, k, v, zg
+
+
+def _chunks(t, s_pad, c, rows=None):
+    """(B, S, ...) -> (B, nq, c, ...) padded to ``s_pad`` rows; with
+    ``rows`` = (rank, share), each chunk's rows of that share."""
+    t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, s_pad - t.shape[1]))
+    t = t.reshape(t.shape[0], s_pad // c, c, *t.shape[2:])
+    if rows is None:
+        return t
+    r, n = rows
+    return t[:, :, r * n:(r + 1) * n]
+
+
+def _mlstm_fwd_sharded(cfg: ModelConfig, p, x, chunk: int = 1024):
+    """`mlstm_fwd` per rank: q/k/v as `_mlstm_qkv_sharded`; the gates on
+    each model rank's rows; the reference's sequence-parallel fallback of
+    `_mlstm_parallel` (each query chunk's rows split over ``model``, q
+    moved there by an all-to-all; k, v (the reference's pin), the gates'
+    cumulative sums whole); the output projection on the rank's rows with
+    w_o gathered whole, the rows gathered back."""
+    dt = cfg.dtype
+    _, h, dh = _dims(cfg)
+    b, s, _ = x.shape
+    _require_seq_par(cfg)
+    mesh = x.device_mesh
+    mi = mesh.mesh_dim_names.index("model")
+    r, nm = mesh.get_local_rank(mi), mesh.size(mi)
+    z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v, zg = _mlstm_qkv_sharded(cfg, p, z)
+    v = shard(v, "batch", None, "heads", None)
+    zr = along(z.float(), "model", Shard(1))
+    gates = einsum("bsd,dhg->bshg", zr,
+                   gather_fsdp(p["wif"].float(), ("fsdp", None, None)))
+    gl = gates.to_local(grad_placements=gates.placements) + \
+        cm.local_for(p["bif"], gates)
+    gates = DTensor.from_local(gl, mesh, gates.placements, run_check=False,
+                               shape=gates.shape, stride=gates.stride())
+
+    def whole(t):
+        t = along(t, "model", Replicate())
+        return t.to_local(grad_placements=cm.partial_over_model(t))
+
+    gw = whole(gates)
+    logi, logf = gw[..., 0], F.logsigmoid(gw[..., 1])
+    c = min(chunk, max(-(-s // 128) * 128, 128))
+    nq = -(-s // c)
+    share = even_share(c, nm, f"{cfg.name}: the mLSTM's chunk rows")
+    # q: its value-dim split moved to each chunk's rows (one all-to-all)
+    ql = q.to_local(grad_placements=q.placements)
+    q5 = DTensor.from_local(_chunks(ql, nq * c, c), mesh,
+                            [Shard(4) if p_ == Shard(3) else p_
+                             for p_ in q.placements], run_check=False)
+    ql = along(q5, "model", Shard(2))
+    ql = ql.to_local(grad_placements=ql.placements)
+    kf, vb = whole(k).float(), whole(v).to(cm.PROBS_DTYPE).float()
+    cumf = logf.cumsum(1)
+    kterm = logi - cumf
+    cumf_r = _chunks(cumf, nq * c, c, (r, share))
+    jpos = torch.arange(s, device=ql.device)[None, None, :, None]
+    scale = 1.0 / (dh ** 0.5)
+    outs = []
+    for i in range(nq):
+        qi, cfi = ql[:, i], cumf_r[:, i]
+        logd = cfi[:, :, None, :] + kterm[:, None, :, :]
+        ipos = (i * c + r * share + torch.arange(share, device=ql.device))[
+            None, :, None, None]
+        logd = torch.where(jpos <= ipos, logd, float("-inf"))
+        m = logd.amax(2, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        dmat = (logd - m).exp()
+        sc = torch.einsum("bchd,bshd->bcsh", qi.float(), kf) * scale
+        sd = sc * dmat
+        norm = torch.maximum(sd.sum(2).abs(), (-m[:, :, 0, :]).exp())
+        out = torch.einsum("bcsh,bshd->bchd",
+                           sd.to(cm.PROBS_DTYPE).float(), vb)
+        outs.append(out / norm[..., None])
+    o = torch.stack(outs, 1)                      # (B, nq, share, H, dh)
+    g = _chunks(F.silu(whole(zg)), nq * c, c, (r, share))
+    o = o.to(dt) * g.reshape(*g.shape[:3], h, -1)
+    wo = _whole(p["wo"].to(dt), zr)
+    y = torch.einsum("bnchk,hkd->bncd", o, wo)
+    pl = [Shard(2) if i == mi else p_ for i, p_ in enumerate(x.placements)]
+    y = DTensor.from_local(y, mesh, pl, run_check=False)
+    y = along(y, "model", Replicate())
+    yl = y.to_local(grad_placements=y.placements)
+    yl = yl.reshape(yl.shape[0], nq * c, -1)[:, :s]
+    return x + DTensor.from_local(yl, mesh, x.placements, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+
+def _mlstm_step_sharded(cfg: ModelConfig, p, state, x):
+    """`mlstm_step` per rank: q/k/v as `_mlstm_qkv_sharded`, q and k
+    gathered whole; the gates with the input gate's weight permuted to
+    the ``model`` axis (`common.transposed_product`); C on each rank's
+    share of its value rows (the cache's ``state``); the output
+    projection on that share, its partial sums reduced."""
+    dt = cfg.dtype
+    _, h, dh = _dims(cfg)
+    mesh = x.device_mesh
+    z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v, zg = _mlstm_qkv_sharded(cfg, p, z)
+    gates = cm.transposed_product(z.float(), p["wif"].float(),
+                                  "bd,dhg->bhg", torch.einsum)
+    if gates is None:
+        gates = reduce_partial(einsum(
+            "bd,dhg->bhg", z.float(),
+            gather_fsdp(p["wif"].float(), ("fsdp", None, None))))
+    gates = gates.to_local() + p["bif"].to_local()
+    logi, logf = gates[..., 0], F.logsigmoid(gates[..., 1])
+    ql = along(q, "model", Replicate()).to_local().float()
+    kl = along(k, "model", Replicate()).to_local().float()
+    vl = v.to_local().float()
+    m_new = torch.maximum(logf + state["m"].to_local(), logi)
+    fp = (logf + state["m"].to_local() - m_new).exp()[..., None]
+    ip = (logi - m_new).exp()[..., None]
+    n = fp * state["n"].to_local() + ip * kl
+    C = (fp[..., None] * state["C"].to_local()
+         + ip[..., None] * vl[..., :, None] * kl[..., None, :])
+    denom = torch.maximum((n * ql).sum(-1).abs(), (-m_new).exp())
+    o = torch.einsum("bhvk,bhk->bhv", C, ql / (dh ** 0.5)) \
+        / denom[..., None]
+    g = along(F.silu(zg).float().reshape(*zg.shape[:-1], h, dh), "model",
+              Shard(2)).to_local()
+    o = DTensor.from_local((o * g).to(dt), mesh, v.placements,
+                           run_check=False, shape=v.shape, stride=v.stride())
+    y = reduce_partial(einsum("bhk,hkd->bd", o,
+                              gather_fsdp(p["wo"].to(dt),
+                                          ("heads", "state", "fsdp"))))
+
+    def like(t, ref):
+        return DTensor.from_local(t, mesh, ref.placements, run_check=False,
+                                  shape=ref.shape, stride=ref.stride())
+
+    return (dict(C=like(C, state["C"]), n=like(n, state["n"]),
+                 m=like(m_new, state["m"])), x + y)
+
+
 def mlstm_fwd(cfg: ModelConfig, p, x):
+    if is_dtensor(x):
+        return _mlstm_fwd_sharded(cfg, p, x)
     dt = cfg.dtype
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
     q, k, v, zg, logi, logf = _mlstm_proj(cfg, p, z)
@@ -145,6 +336,8 @@ def mlstm_fwd(cfg: ModelConfig, p, x):
 
 def mlstm_step(cfg: ModelConfig, p, state, x):
     """x (B,d) one token; recurrent O(1) update of ``C, n, m``."""
+    if is_dtensor(x):
+        return _mlstm_step_sharded(cfg, p, state, x)
     dt = cfg.dtype
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
     q, k, v, zg, logi, logf = _mlstm_proj(cfg, p, z)
@@ -217,8 +410,73 @@ def _slstm_state(cfg: ModelConfig, lead: tuple, device=None):
     return dict(c=full(0.0), n=full(0.0), h=full(0.0), m=full(M_INIT))
 
 
+def _slstm_fwd_sharded(cfg: ModelConfig, p, x):
+    """`slstm_fwd` per rank: the input projection on each model rank's
+    rows (w_x gathered whole), moved by one all-to-all to a split of
+    every gate's width over ``model``, along the recurrent weights'
+    ``state`` split; each step's recurrent product on that share with
+    the previous h whole (gathered every step), the gating on the share;
+    the output projection on the rank's rows of the gathered h, the rows
+    gathered back.  The width's split follows the reference's reshape of
+    the (heads, 4, dh) recurrent product into 4 gates of the width, which
+    is the gates' own layout where there are 4 heads."""
+    b, s, _ = x.shape
+    d_in, h, dh = _sdims(cfg)
+    if h != 4:
+        raise NotImplementedError(
+            f"{cfg.name}: the partitioned sLSTM needs 4 heads (the 4 "
+            f"gates), not {h}")
+    mesh = x.device_mesh
+    mi = mesh.mesh_dim_names.index("model")
+    r, nm = mesh.get_local_rank(mi), mesh.size(mi)
+    share = even_share(s, nm, f"{cfg.name}: the sLSTM's rows")
+    dh_share = even_share(dh, nm, f"{cfg.name}: the sLSTM's head width")
+    z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
+    zr = along(z.float(), "model", Shard(1))
+    xg = einsum("bsd,dgk->sbgk", zr, along(gather_fsdp(
+        p["wx"].float(), ("fsdp", None, "state")), "model", Replicate()))
+    xl = xg.to_local(grad_placements=xg.placements)
+    xg5 = DTensor.from_local(xl.reshape(*xl.shape[:3], h, dh), mesh,
+                             xg.placements, run_check=False)
+    xg5 = along(xg5, "model", Shard(4))
+    xg5 = xg5.to_local(grad_placements=xg5.placements)  # (S,B,4,H,dh/M)
+    rh = cm.local_for(p["rh"].float(), x)                # (H,dh,4,dh/M)
+    bias = along(along(p["b"].float(), "model", Replicate()).reshape(
+        4, h, dh), "model", Shard(2))
+    bias = cm.local_for(bias, x)
+    lead = (xg5.shape[1], h, dh_share)
+    state = {k: torch.full(lead, v, dtype=torch.float32, device=xg5.device)
+             for k, v in dict(c=0.0, n=0.0, m=M_INIT).items()}
+    hw = torch.zeros(xg5.shape[1], h, dh, device=xg5.device)
+    hs = []
+    for t in range(s):
+        rec = contract("bhk,hkgl->bhgl", hw, rh)
+        za, ia, fa, oa = (xg5[t] + rec + bias).unbind(1)
+        zt, ot = torch.tanh(za), torch.sigmoid(oa)
+        logi, logf = ia, F.logsigmoid(fa)
+        m_new = torch.maximum(logf + state["m"], logi)
+        fp = (logf + state["m"] - m_new).exp()
+        ip = (logi - m_new).exp()
+        c = fp * state["c"] + ip * zt
+        n = fp * state["n"] + ip
+        hnew = ot * c / torch.clamp_min(n, 1.0)
+        state = dict(c=c, n=n, m=m_new)
+        hw = gather_share(hnew, 2, mesh, "model")
+        hs.append(hw)
+    hs = torch.stack(hs, 1)[:, r * share:(r + 1) * share]
+    hs = hs.reshape(*hs.shape[:2], d_in).to(cfg.dtype)
+    wo = _whole(p["wo"].to(cfg.dtype), zr)
+    y = DTensor.from_local(hs @ wo, mesh, zr.placements, run_check=False)
+    y = along(y, "model", Replicate())
+    return x + DTensor.from_local(y.to_local(grad_placements=y.placements),
+                                  mesh, x.placements, run_check=False,
+                                  shape=x.shape, stride=x.stride())
+
+
 def slstm_fwd(cfg: ModelConfig, p, x):
     """Sequential over time (inherent to sLSTM).  x (B,S,d)."""
+    if is_dtensor(x):
+        return _slstm_fwd_sharded(cfg, p, x)
     b, s, _ = x.shape
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
     xg = torch.einsum("bsd,dgk->sbgk", z.float(), p["wx"].float())
@@ -232,7 +490,54 @@ def slstm_fwd(cfg: ModelConfig, p, x):
     return x + hs @ p["wo"].to(cfg.dtype)
 
 
+def _slstm_step_sharded(cfg: ModelConfig, p, state, x):
+    """`slstm_step` per rank: the input projection on each model rank's
+    share of the width (w_x's ``state`` split, as the cache's), the
+    recurrent product on the recurrent weights' share with h gathered
+    whole, the product gathered and cut to the width's share for the
+    gating, the output projection on that share, its partial sums
+    reduced."""
+    d_in, h, dh = _sdims(cfg)
+    mesh = x.device_mesh
+    z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
+    xg = einsum("bd,dgk->bgk", reduce_grad_partial(z).float(),
+                gather_fsdp(p["wx"].float(), ("fsdp", None, "state")))
+    hw = along(state["h"], "model", Replicate()).to_local()
+    rec = torch.einsum("bhk,hkgl->bhgl", hw.reshape(-1, h, dh),
+                       p["rh"].float().to_local())
+    pl = [Shard(3) if q == Shard(1) else q for q in state["h"].placements]
+    rec = along(DTensor.from_local(rec, mesh, pl, run_check=False),
+                "model", Replicate()).to_local()
+    rec = DTensor.from_local(rec.reshape(rec.shape[0], 4, -1), mesh,
+                             [q if q != Shard(3) else Replicate()
+                              for q in pl], run_check=False)
+    rec = along(rec, "model", Shard(2)).to_local()
+    local = {k: v.to_local() for k, v in state.items()}
+    xt = xg.to_local()
+    za, ia, fa, oa = (xt + rec + along(p["b"].float(), "model", Shard(1))
+                      .to_local()).unbind(1)
+    zt, ot = torch.tanh(za), torch.sigmoid(oa)
+    logi, logf = ia, F.logsigmoid(fa)
+    m_new = torch.maximum(logf + local["m"], logi)
+    fp = (logf + local["m"] - m_new).exp()
+    ip = (logi - m_new).exp()
+    c = fp * local["c"] + ip * zt
+    n = fp * local["n"] + ip
+    hnew = ot * c / torch.clamp_min(n, 1.0)
+    new = {k: DTensor.from_local(v, mesh, state[k].placements,
+                                 run_check=False, shape=state[k].shape,
+                                 stride=state[k].stride())
+           for k, v in dict(c=c, n=n, h=hnew, m=m_new).items()}
+    y = reduce_partial(einsum("bk,kd->bd", new["h"].to(cfg.dtype),
+                              gather_fsdp(p["wo"].to(cfg.dtype),
+                                          ("state", "fsdp")),
+                              cm._plain_product))
+    return new, x + y
+
+
 def slstm_step(cfg: ModelConfig, p, state, x):
+    if is_dtensor(x):
+        return _slstm_step_sharded(cfg, p, state, x)
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
     xg = torch.einsum("bd,dgk->bgk", z.float(), p["wx"].float())
     state, h = _slstm_cell(cfg, p["rh"].float(), p["b"].float(), state, xg)
@@ -308,7 +613,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
         st, x = fn(cfg, tt._layer(p, i), {k: v[i] for k, v in
                                          states.items()}, x)
         for k, v in st.items():
-            states[k][i] = v
+            tt.set_layer(states[k], i, v)
         return x
 
     for seg in range(n_seg):

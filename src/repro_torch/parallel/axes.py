@@ -39,6 +39,17 @@ rules, or on a plain tensor, `shard` is the identity, as the reference's
 is without a mesh.  The reference's ``named_sharding`` and
 ``spec_tree_to_shardings`` have no counterpart: a DTensor carries its
 placements itself.
+
+The models state their per-rank plans with `einsum` (its
+``whole_forward`` / ``whole_grad`` for the backward products the
+reference's partitioner runs otherwise than the forward),
+`transpose_shard` (its collective-permute of a shard between the pod's
+two axes, as one all-to-all), `gather_share` (a recurrence's state
+gathered every step), `contract` (a product over one element as the
+multiply the reference's compiler makes of it) and `along`.  The
+dense, MoE, SSM and hybrid families are partitioned so
+(`launch.dryrun.PARTITIONED_FAMILIES`); audio and vlm are the only
+ones left on the dry-run's ideal partition.
 """
 from __future__ import annotations
 
@@ -285,7 +296,8 @@ def distribute_tree(spec_tree, tree, mesh, device=None):
 FSDP_NAMES = ("fsdp", "embed")
 
 
-def gather_fsdp(w, names: Sequence[str | None]):
+def gather_fsdp(w, names: Sequence[str | None], *,
+                gather_in_serving: bool = False):
     """ZeRO-3's gather: the DTensor weight ``w`` (logical ``names``)
     redistributed so that its ``fsdp`` / ``embed`` dims are whole, its
     other dims split as the rules say.  The reference's partitioner
@@ -293,8 +305,10 @@ def gather_fsdp(w, names: Sequence[str | None]):
     left to choose per op, may move the activations instead.  Its
     backward brings the gradient back onto the shards.  The identity
     on a plain tensor, with no rules, and under the serving rules, whose
-    weights stay resident (`models.common.serving_matmul`)."""
-    if not is_dtensor(w) or not _rules() or serving_mode():
+    weights stay resident (`models.common.serving_matmul`), unless
+    ``gather_in_serving`` asks for the gather there too."""
+    if not is_dtensor(w) or not _rules() or (serving_mode()
+                                             and not gather_in_serving):
         return w
     spec = resolve(tuple(None if n in FSDP_NAMES else n for n in names),
                    w.shape)
@@ -318,7 +332,8 @@ def reduce_partial(x):
         Replicate() if isinstance(p, Partial) else p for p in x.placements])
 
 
-def einsum(eq: str, a, b, product=None):
+def einsum(eq: str, a, b, product=None, *, whole_forward: str | None = None,
+           whole_grad: str | None = None):
     """``torch.einsum(eq, a, b)`` (or ``product(eq, a, b)``), on DTensors
     computed per rank with the placements stated, not chosen by DTensor:
     over each mesh dim, the label one operand splits is split in the
@@ -328,13 +343,27 @@ def einsum(eq: str, a, b, product=None):
     operands splitting different labels over one mesh dim raise.  The
     same products run whichever torch version plans them, and no
     DTensor view of a split dim is needed.  On plain tensors the plain
-    product."""
+    product.
+
+    Two options name a mesh dim over which one operand splits a label
+    and the other is whole, for the products the reference's partitioner
+    runs otherwise (`_SplitProduct`): ``whole_forward`` gathers the split
+    operand and runs the forward whole on every rank (the output whole),
+    its backward on the rank's share (the split operand's gradient its
+    share's; the other's a partial sum of the share's products, or whole
+    where it keeps the label); ``whole_grad`` runs the forward on the
+    share, as without it, and the whole operand's gradient whole on
+    every rank (the split one gathered for it)."""
     product = product or torch.einsum
     if not is_dtensor(a):
         return product(eq, a, b)
     mesh = a.device_mesh
     ins, out = eq.split("->")
     la, lb = ins.split(",")
+    mode = "whole_forward" if whole_forward else "whole_grad"
+    name = whole_forward or whole_grad
+    whole = None if name is None else mesh.mesh_dim_names.index(name)
+    share = None
 
     def label(x, labels, p):
         if isinstance(p, Partial):
@@ -351,6 +380,20 @@ def einsum(eq: str, a, b, product=None):
             pa.append(xa), pb.append(xb), ga.append(xa), gb.append(xb)
             po.append(Replicate())
             continue
+        if m == whole:
+            if sa and sb:
+                raise ValueError(f"{eq}: both operands split {lab} over "
+                                 f"{name}")
+            for labels, x, pl, gl in ((la, xa, pa, ga), (lb, xb, pb, gb)):
+                pl.append(x)
+                gl.append(x if isinstance(x, Shard) or lab in labels
+                          or mode == "whole_grad" else Partial())
+            if mode == "whole_forward":
+                po.append(Replicate())
+            else:
+                po.append(Shard(out.index(lab)) if lab in out else Partial())
+            share = (lab, bool(sa))
+            continue
         for labels, pl, gl in ((la, pa, ga), (lb, pb, gb)):
             if lab in labels:
                 pl.append(Shard(labels.index(lab)))
@@ -361,7 +404,290 @@ def einsum(eq: str, a, b, product=None):
         po.append(Shard(out.index(lab)) if lab in out else Partial())
     al = a.redistribute(mesh, pa).to_local(grad_placements=ga)
     bl = b.redistribute(mesh, pb).to_local(grad_placements=gb)
-    return DTensor.from_local(product(eq, al, bl), mesh, po, run_check=False)
+    if share is None:
+        y = product(eq, al, bl)
+    else:
+        lab, in_a = share
+        y = _SplitProduct.apply(eq, al, bl, lab, in_a, mesh, whole, product,
+                                mode)
+    return DTensor.from_local(y, mesh, po, run_check=False)
+
+
+def _wait(t):
+    return t.wait() if hasattr(t, "wait") else t
+
+
+def _all_gather(x, dim: int, group):
+    """``x`` all-gathered along ``dim`` over the process group ``group``
+    (the functional collective DTensor issues)."""
+    ops = torch.ops._c10d_functional
+    out = ops.wait_tensor(ops.all_gather_into_tensor(
+        x.movedim(dim, 0).contiguous(), group.size(), group.group_name))
+    return out.movedim(0, dim)
+
+
+def _product(eq: str, a, b):
+    """``torch.einsum(eq, a, b)``, or, where it contracts labels whose
+    sizes multiply to one (a rank's share of one element), the broadcast
+    multiply the reference's compiler rewrites such a dot into (it is
+    then no product)."""
+    ins, out = eq.split("->")
+    la, lb = ins.split(",")
+    sizes = dict(zip(la, a.shape))
+    sizes.update(zip(lb, b.shape))
+    summed = [c for c in sorted(set(la + lb)) if c not in out]
+    if not summed or any(sizes[c] != 1 for c in summed):
+        return torch.einsum(eq, a, b)
+    labels = "".join(dict.fromkeys(la + lb))
+
+    def expand(x, lx):
+        perm = [lx.index(c) for c in labels if c in lx]
+        x = x.permute(perm)
+        for i, c in enumerate(labels):
+            if c not in lx:
+                x = x.unsqueeze(i)
+        return x
+
+    y = expand(a, la) * expand(b, lb)
+    y = y.sum([labels.index(c) for c in summed])
+    kept = [c for c in labels if c not in summed]
+    return y.permute([kept.index(c) for c in out])
+
+
+class _Contract(torch.autograd.Function):
+    """``einsum(eq, a, b)`` whose forward and backward products each
+    follow `_product`: one over a single element is a multiply."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b):
+        ctx.eq = eq
+        ctx.save_for_backward(a, b)
+        return _product(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ins, out = ctx.eq.split("->")
+        la, lb = ins.split(",")
+        return (None, _product(f"{out},{lb}->{la}", g, b),
+                _product(f"{la},{out}->{lb}", a, g))
+
+
+def contract(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` on local tensors, each of its products
+    (forward and backward) a broadcast multiply where it contracts a
+    single element, as the reference's compiler writes it (`_product`):
+    a rank's share of one element, or a batch share of one row."""
+    return _Contract.apply(eq, a, b)
+
+
+class _Regather(torch.autograd.Function):
+    """The all-to-all of `regather`: ``x`` (..., c) a rank's block of a
+    last dim split over a group of ``n`` ranks in equal blocks; each rank
+    sends every other rank the columns of its block that one needs (in
+    the needed ranges' order) and receives its own.  The backward sends
+    the gradients back and sums those of a column several ranks read."""
+
+    @staticmethod
+    def forward(ctx, x, rank, n, ranges, group):
+        c = x.shape[-1]
+        lo = rank * c
+        send = [[i - lo for a, b in ranges(r) for i in range(a, b)
+                 if lo <= i < lo + c] for r in range(n)]
+        recv = [sum(max(0, min(b, (q + 1) * c) - max(a, q * c))
+                    for a, b in ranges(rank)) for q in range(n)]
+        idx = torch.tensor([i for s in send for i in s], dtype=torch.long,
+                           device=x.device)
+        ctx.save_for_backward(idx)
+        ctx.sizes, ctx.c, ctx.group = ([len(s) for s in send], recv), c, \
+            group
+        xt = x.movedim(-1, 0).index_select(0, idx)
+        return all_to_all(xt, recv, ctx.sizes[0], group).movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        send, recv = ctx.sizes
+        back = all_to_all(g.movedim(-1, 0), send, recv, ctx.group)
+        out = back.new_zeros((ctx.c, *back.shape[1:])).index_add_(0, idx,
+                                                                   back)
+        return out.movedim(0, -1), None, None, None, None
+
+
+def all_to_all(x, out_sizes, in_sizes, group):
+    """``x`` split along dim 0 into ``in_sizes`` chunks, one for each rank
+    of the process group ``group``, each rank receiving its chunks
+    (``out_sizes`` of them from each rank; ``None``: equal chunks),
+    concatenated along dim 0 in rank order: one all-to-all."""
+    from torch.distributed import _functional_collectives as funcol
+    return _wait(funcol.all_to_all_single(
+        x.contiguous(), None if out_sizes is None else list(out_sizes),
+        None if in_sizes is None else list(in_sizes), group))
+
+
+def regather(x, mesh_dim: str, ranges):
+    """The DTensor ``x``, its last dim split over the mesh dim
+    ``mesh_dim`` in equal blocks, as this rank's local tensor of the
+    columns it needs, ``ranges(r)``: rank ``r``'s needed ``(start,
+    stop)`` ranges of that dim, in the order wanted.  One all-to-all
+    moves each rank exactly the columns it lacks (and its own), where a
+    gather would move it all: the reference's partitioner moves a
+    split dim's windows so when it is cut into pieces its blocks do not
+    line up with."""
+    mesh = x.device_mesh
+    m = mesh.mesh_dim_names.index(mesh_dim)
+    local = x.to_local(grad_placements=x.placements)
+    return _Regather.apply(local, mesh.get_local_rank(m), mesh.size(m),
+                           ranges, mesh.get_group(m))
+
+
+class _GatherShare(torch.autograd.Function):
+    """A local share all-gathered along ``dim`` over a mesh dim; in the
+    backward each rank's gradient of the whole (a partial sum: every
+    rank reads all of it) is reduce-scattered back onto the shares."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        ops = torch.ops._c10d_functional
+        out = ops.wait_tensor(ops.reduce_scatter_tensor(
+            g.movedim(ctx.dim, 0).contiguous(), "sum", ctx.group.size(),
+            ctx.group.group_name))
+        return out.movedim(0, ctx.dim), None, None
+
+
+def gather_share(x, dim: int, mesh, mesh_dim: str):
+    """The local tensor ``x``, this rank's share of a dim split over the
+    mesh dim ``mesh_dim``, all-gathered along ``dim`` (`_GatherShare`:
+    a recurrence's state, gathered every step)."""
+    group = mesh.get_group(mesh.mesh_dim_names.index(mesh_dim))
+    return _GatherShare.apply(x, dim, group)
+
+
+class _SplitProduct(torch.autograd.Function):
+    """``product(eq, a, b)`` on local shards, where one operand (``x``)
+    holds this rank's share of ``lab`` along mesh dim ``m`` and the other
+    (``o``) holds it whole.
+
+    ``whole_forward``: the forward all-gathers the share and runs whole;
+    the backward computes ``x``'s gradient from its share (the others'
+    rows of ``lab`` are theirs) and ``o``'s from the share too (a partial
+    sum over ``m``), unless ``o`` keeps ``lab``: then whole.
+    ``whole_grad``: the forward runs on the share (``o`` sliced); the
+    backward computes ``o``'s gradient whole (``x`` all-gathered for it)
+    and ``x``'s from the share."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b, lab, in_a, mesh, m, product, mode):
+        ins, out = eq.split("->")
+        la, lb = ins.split(",")
+        x, o, lx, lo = (a, b, la, lb) if in_a else (b, a, lb, la)
+        rank, n = mesh.get_local_rank(m), x.shape[lx.index(lab)]
+
+        def share(t, labels):
+            if lab not in labels:
+                return t
+            return t.narrow(labels.index(lab), rank * n, n)
+
+        ctx.eq, ctx.lab, ctx.in_a, ctx.mode = eq, lab, in_a, mode
+        ctx.mesh, ctx.m, ctx.keep = mesh, m, lab in lo
+        ctx.share = share
+        if mode == "whole_forward":
+            full = _all_gather(x, lx.index(lab), mesh.get_group(m))
+            y = product(eq, full, b) if in_a else product(eq, a, full)
+            ctx.save_for_backward(x, o, full if ctx.keep else None)
+            return y
+        os_ = share(o, lo)
+        y = product(eq, x, os_) if in_a else product(eq, os_, x)
+        ctx.save_for_backward(x, o, None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, o, full = ctx.saved_tensors
+        ins, ly = ctx.eq.split("->")
+        la, lb = ins.split(",")
+        lx, lo = (la, lb) if ctx.in_a else (lb, la)
+        share = ctx.share
+        if ctx.mode == "whole_forward":
+            dx = torch.einsum(f"{ly},{lo}->{lx}", share(dy, ly),
+                              share(o, lo))
+            if ctx.keep:
+                do = torch.einsum(f"{lx},{ly}->{lo}", full, dy)
+            else:
+                do = torch.einsum(f"{lx},{ly}->{lo}", x, share(dy, ly))
+        else:
+            full = _all_gather(x, lx.index(ctx.lab),
+                               ctx.mesh.get_group(ctx.m))
+            do = torch.einsum(f"{ly},{lx}->{lo}", dy, full)
+            dx = torch.einsum(f"{ly},{lo}->{lx}", dy, share(o, lo))
+        grads = (dx, do) if ctx.in_a else (do, dx)
+        return (None, *grads, None, None, None, None, None, None)
+
+
+class _Transpose(torch.autograd.Function):
+    """Each rank's tensor sent to the rank whose coordinates along the
+    two dims of a square mesh are its own swapped (``(i, j) -> (j,
+    i)``), in one all-to-all over the whole group (only the swapped
+    rank's chunk is not empty): the reference's collective-permute of a
+    shard from one mesh axis to the other.  Its own transpose."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return transpose_local(x, mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return transpose_local(g, ctx.mesh, ctx.dims), None, None
+
+
+def transpose_local(x, mesh, dims):
+    """`_Transpose`'s all-to-all on a local tensor, outside autograd.  The
+    two dims must make up the mesh (their flattened group is the whole
+    process group)."""
+    import torch.distributed as dist
+    d0, d1 = dims
+    n = mesh.size(d0)
+    if mesh.ndim != 2 or mesh.size(d1) != n:
+        raise ValueError(f"transpose over {mesh}: needs two dims of one "
+                         f"size making up the mesh")
+    i, j = mesh.get_local_rank(d0), mesh.get_local_rank(d1)
+    sizes = [0] * (n * n)
+    sizes[j * n + i] = x.shape[0]
+    return all_to_all(x, sizes, sizes, dist.group.WORLD)
+
+
+def transposable(x, src: int, dst: int) -> bool:
+    """True if the DTensor ``x`` is split over mesh dim ``src`` and whole
+    over ``dst``, the two dims of a square mesh: `transpose_shard` can
+    then move its split onto ``dst``."""
+    mesh = x.device_mesh
+    pl = list(x.placements)
+    return (mesh.ndim == 2 and src != dst
+            and mesh.size(src) == mesh.size(dst) > 1
+            and isinstance(pl[src], Shard) and pl[dst] == Replicate())
+
+
+def transpose_shard(x, src: int, dst: int):
+    """The DTensor ``x``, split over mesh dim ``src`` and whole over
+    ``dst`` (`transposable`), split the same way over ``dst`` and whole
+    over ``src``: rank ``(i, j)``'s shard moves to rank ``(j, i)``, one
+    all-to-all of the shard's elements, where a gather over ``src`` and
+    a slice over ``dst`` would move the whole.  The reference's
+    partitioner permutes a shard so (DTensor has no collective-permute).
+    Its backward moves the gradient back the same way."""
+    mesh = x.device_mesh
+    pl = list(x.placements)
+    pl[src], pl[dst] = pl[dst], pl[src]
+    local = _Transpose.apply(x.to_local(grad_placements=x.placements), mesh,
+                             (min(src, dst), max(src, dst)))
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 class _ReduceGrad(torch.autograd.Function):
@@ -386,6 +712,31 @@ def reduce_grad_partial(x):
                                  x.requires_grad):
         return x
     return _ReduceGrad.apply(x)
+
+
+def even_share(n: int, parts: int, what: str) -> int:
+    """``n // parts``: one rank's share of a dim of ``n`` (``what``)
+    split over ``parts`` ranks.  Raises where ``parts`` does not divide
+    ``n``: a per-rank plan cut short there would count a truncated
+    share and record it without a word."""
+    if n % parts:
+        raise ValueError(f"{what}: {n} does not split over the {parts} "
+                         f"ranks of the model axis")
+    return n // parts
+
+
+def along(x, mesh_dim: str, placement):
+    """The DTensor ``x`` redistributed so that its placement over the
+    mesh dim named ``mesh_dim`` is ``placement``, its others kept (a
+    slice, a gather, an all-to-all or a reduction over that dim alone).
+    The identity on a plain tensor."""
+    if not is_dtensor(x):
+        return x
+    pl = list(x.placements)
+    pl[x.device_mesh.mesh_dim_names.index(mesh_dim)] = placement
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
 
 
 def shard(x, *names: str | None, shape=None):

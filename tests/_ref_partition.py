@@ -86,17 +86,21 @@ def fused_dot_flops(text: str) -> float:
 
 def collective_arrays(text: str) -> list:
     """Every array each collective outputs, as ``(kind, dtype, dims,
-    runs)``: a tuple output's arrays one by one (``hlo_cost`` reads only
-    the first array of a tuple, and none when the tuple's text carries
-    ``/*index=5*/`` comments, as the all-to-alls of these cells do),
-    ``runs`` the times its computation runs."""
+    runs, op)``: a tuple output's arrays one by one (``hlo_cost`` reads
+    only the first array of a tuple, and none when the tuple's text
+    carries ``/*index=5*/`` comments, as the all-to-alls of these cells
+    do), ``runs`` the times its computation runs, ``op`` the last part
+    of the JAX op it partitions (its ``op_name``: ``split``,
+    ``dot_general``, ...; empty where it has none)."""
     blocks, _, _, scale = _scales(text)
     out = []
     for comp, lines in blocks.items():
         for line in lines:
             m = _COLL.search(line)
             if m and "-done" not in line:
-                out += [(m.group(2), t, d, scale(comp)) for t, d in
+                op = re.search(r'op_name="([^"]*)"', line)
+                op = op.group(1).rsplit("/", 1)[-1] if op else ""
+                out += [(m.group(2), t, d, scale(comp), op) for t, d in
                         re.findall(r"(\w+)\[([\d,]*)\]", m.group(1))]
     return out
 
@@ -104,13 +108,63 @@ def collective_arrays(text: str) -> list:
 def full_collective_bytes(arrays: list) -> dict:
     """Each kind's output bytes, times its runs, every array counted."""
     out = {}
-    for kind, t, d, runs in arrays:
+    for kind, t, d, runs, _ in arrays:
         n = hlo_cost._first_array_bytes(f"{t}[{d}]") * runs
         out[kind] = out.get(kind, 0) + n
     return out
 
 
+def _ssd_two_operand(cfg, xh, dt, a, bmat, cmat):
+    """The reference's SSD scan with its three three-operand einsums
+    written as the port's two-operand ones (and elementwise products),
+    `repro_torch.models.mamba2._ssd_scan`'s factorisation; the same
+    values."""
+    import jax.numpy as jnp
+    b, s, h, p = xh.shape
+    n = bmat.shape[-1]
+    q = min(cfg.ssm_chunk, s)
+    nc = s // q
+    da = dt * a[None, None, :]
+    xb = (xh * dt[..., None]).astype(jnp.float32)
+
+    def resh(t):
+        return t.reshape(b, nc, q, *t.shape[2:])
+    da_c, xb_c = resh(da), resh(xb)
+    b_c = resh(bmat.astype(jnp.float32))
+    c_c = resh(cmat.astype(jnp.float32))
+    cum = jnp.cumsum(da_c, axis=2)
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    iq = jnp.arange(q)
+    mask = iq[:, None] >= iq[None, :]
+    l_mat = jnp.where(mask[None, None, :, :, None], jnp.exp(rel), 0.0)
+    cb = jnp.einsum("bkin,bkjn->bkij", c_c, b_c)
+    y_diag = jnp.einsum("bkijh,bkjhp->bkihp", cb[..., None] * l_mat, xb_c)
+    decay_to_end = jnp.exp(cum[:, :, -1:, :] - cum)
+    states = jnp.einsum("bkjn,bkjhp->bkhnp", b_c,
+                        xb_c * decay_to_end[..., None])
+    chunk_decay = jnp.exp(cum[:, :, -1, :])
+
+    def scanb(h_prev, args):
+        st, dec = args
+        return h_prev * dec[..., None, None] + st, h_prev
+
+    _, h_prevs = jax.lax.scan(
+        scanb, jnp.zeros((b, h, n, p), jnp.float32),
+        (states.transpose(1, 0, 2, 3, 4), chunk_decay.transpose(1, 0, 2)))
+    h_prevs = h_prevs.transpose(1, 0, 2, 3, 4)
+    y_off = (jnp.einsum("bkin,bkhnp->bkihp", c_c, h_prevs)
+             * jnp.exp(cum)[..., None])
+    return (y_diag + y_off).reshape(b, s, h, p)
+
+
 def record(cell: dict) -> dict:
+    if cell.get("ssd") == "two_operand":
+        from repro.models import mamba2
+        three, mamba2._ssd_scan = mamba2._ssd_scan, _ssd_two_operand
+        try:
+            return record(dict(cell, ssd=None))
+        finally:
+            mamba2._ssd_scan = three
     shape, names = MESHES[cell["mesh"]]
     n = 1
     for s in shape:

@@ -1,0 +1,142 @@
+"""One rank of a real multi-rank run of the partitioned recurrent blocks.
+
+Run as ``python tests/_sharded_blocks.py <case json> <rank> <store dir>``
+with ``src/`` on the path, once for each rank of the case's mesh; every
+rank prints one JSON line: for each phase, the largest absolute
+difference between the partitioned run's values and the plain model's on
+the same inputs.
+
+The dry-run counts rank 0's step over the fake process group, which moves
+no data; here every rank of a small ``(data, model)`` mesh runs the step
+over ``gloo`` on the CPU, so each per-rank plan (the pieces' all-to-alls,
+the state's gathers, the sequence-parallel rows, the permuted shards)
+moves real values.  The case is ``dict(arch, cfg, mesh, batch, seq)``:
+``arch`` names a smoke config, ``cfg`` overrides its fields (fp32 compute,
+so that only the order of sums differs), ``mesh`` the (data, model) sizes.
+As in the dry-run's count, a plain tensor meeting a DTensor (the rotary
+tables) is taken as replicated.
+Phases: ``forward`` (the logits), ``decode`` (the logits and every cache
+leaf after two steps from a random cache) and ``grad`` (every parameter's
+gradient of a weighted sum of the logits; the difference relative to the
+largest gradient).
+"""
+import dataclasses
+import json
+import math
+import sys
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.experimental import implicit_replication
+
+from repro_torch.configs.registry import get_smoke
+from repro_torch.launch.mesh import Mesh, rules_for
+from repro_torch.models import common as cm
+from repro_torch.models.registry import get_model
+from repro_torch.parallel.axes import (is_spec_leaf, placements, resolve,
+                                       sharding_rules)
+from repro_torch.tree import leaves
+
+
+def spread(spec, tree, dm):
+    """Each leaf of ``tree`` as a DTensor placed by its spec, every rank's
+    local shard cut from the same whole tensor."""
+    if not is_spec_leaf(spec):
+        return {k: spread(v, tree[k], dm) for k, v in spec.items()}
+    return distribute_tensor(tree, dm,
+                             placements(resolve(spec, tree.shape), dm))
+
+
+def whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def err(a, b):
+    return float((whole(a).double() - b.double()).abs().max())
+
+
+def run(case, rank, store_dir):
+    shape = tuple(case["mesh"])
+    world = math.prod(shape)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(f"{store_dir}/store", world),
+        rank=rank, world_size=world)
+    torch.manual_seed(0)
+    cm.PROBS_DTYPE = torch.float32
+    cfg = dataclasses.replace(get_smoke(case["arch"]), dtype=torch.float32,
+                              **case["cfg"])
+    api = get_model(cfg)
+    mesh = Mesh(("data", "model"), shape)
+    rules = rules_for(mesh)
+    dm = DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                    mesh_dim_names=("data", "model"))
+    dm["data", "model"]._flatten("data_model")
+    gen = torch.Generator().manual_seed(1)
+    b, s = case["batch"], case["seq"]
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+    params = api.init(0, device="cpu")
+    out = {}
+
+    with torch.no_grad():
+        want = api.forward(params, dict(tokens=tokens))
+    with sharding_rules(mesh, rules), implicit_replication(), \
+            torch.no_grad():
+        dp = spread(api.param_specs(), params, dm)
+        got = api.forward(dp, dict(tokens=spread(("batch", None), tokens,
+                                                 dm)))
+    out["forward"] = err(got, want)
+
+    # decode: two steps from a random cache (positive where a leaf must
+    # be: the mLSTM's normaliser state is read through an abs)
+    cache = api.init_cache(b, s, device="cpu")
+    cache = {k: (v if k == "length" else {
+        n: torch.randn(t.shape, generator=gen).abs() * 0.5
+        for n, t in v.items()}) for k, v in cache.items()}
+    step = torch.randint(0, cfg.vocab, (2, b), generator=gen)
+    with torch.no_grad():
+        plain = {k: (v if k == "length" else {n: t.clone()
+                                              for n, t in v.items()})
+                 for k, v in cache.items()}
+        want_logits = []
+        for i in range(2):
+            y, plain = api.decode(params, plain, step[i])
+            want_logits.append(y)
+    with sharding_rules(mesh, rules), implicit_replication(), \
+            torch.no_grad():
+        dc = spread(api.cache_specs(shard_seq=True), cache, dm)
+        e = 0.0
+        for i in range(2):
+            y, dc = api.decode(dp, dc, spread(("batch",), step[i], dm))
+            e = max(e, err(y, want_logits[i]))
+        out["decode_logits"] = e
+        out["decode_cache"] = max(err(g, w) for g, w in zip(
+            leaves(dc), leaves(plain)))
+
+    # grad: every parameter's gradient of sum(logits * weights)
+    wts = torch.randn(want.shape, generator=gen)
+
+    def grads(p, toks, weights):
+        flat = list(leaves(p))
+        for t in flat:
+            t.requires_grad_(True)
+        y = api.forward(p, dict(tokens=toks))
+        (y * weights).sum().backward()
+        return [t.grad for t in flat]
+
+    plain_params = api.init(0, device="cpu")
+    want_g = grads(plain_params, tokens, wts)
+    with sharding_rules(mesh, rules), implicit_replication():
+        dp = spread(api.param_specs(), api.init(0, device="cpu"), dm)
+        got_g = grads(dp, spread(("batch", None), tokens, dm),
+                      spread(("batch", None, "vocab"), wts, dm))
+    out["grad"] = max(err(g, w) for g, w in zip(got_g, want_g)) / max(
+        float(w.abs().max()) for w in want_g)
+    dist.destroy_process_group()
+    return out
+
+
+if __name__ == "__main__":
+    print(json.dumps(run(json.loads(sys.argv[1]), int(sys.argv[2]),
+                         sys.argv[3])))

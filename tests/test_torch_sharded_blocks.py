@@ -1,0 +1,82 @@
+"""The partitioned recurrent blocks' values against the plain model's.
+
+`tests/test_torch_partition.py` holds the partitioned dry-run's FLOPs,
+args and collectives against the reference; the fake process group it
+counts over moves no data, so a wrong slice offset or gate order that
+keeps every op's shape would pass there.  Here each rank of a small
+``(data, model)`` mesh runs xlstm's and zamba2's partitioned forward,
+decode and backward over ``gloo`` on the CPU (`tests/_sharded_blocks.py`,
+one process a rank), so every per-rank plan of `models.xlstm` and
+`models.mamba2` (the in-projection's pieces moved by one all-to-all, the
+conv's channels, C.B^T on the state's share, the mLSTM's
+sequence-parallel rows, the sLSTM's state gathered every step, the
+shared block's ``w_cat`` permuted between the mesh's axes) moves real
+values.  fp32 compute: the values differ from the plain model's only by
+the order of sums.
+
+xlstm runs on a 1 x 8 mesh: its 4 heads cannot split 8 model ranks (the
+sequence-parallel fallback, as on the pod's 16), and the chunk's 128
+rows and the sLSTM's head width split 8 ways.  zamba2 runs on a 2 x 2
+mesh: data and model ranks both, and a square mesh for the permuted
+shard.
+"""
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+HERE = pathlib.Path(__file__).resolve().parent
+CASES = {
+    "xlstm": dict(arch="xlstm-1.3b", mesh=(1, 8), batch=2, seq=16,
+                  cfg=dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=0,
+                           vocab=128, n_layers=2, slstm_every=2)),
+    "zamba2": dict(arch="zamba2-2.7b", mesh=(2, 2), batch=2, seq=16,
+                   cfg=dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
+                            vocab=128, n_layers=2, attn_every=2,
+                            ssm_state=16, ssm_head_dim=16, d_head=16)),
+}
+#: the largest difference allowed (fp32, sums in another order): absolute
+#: for the logits and the cache, relative to the largest gradient for the
+#: gradients
+TOL = dict(forward=2e-6, decode_logits=2e-6, decode_cache=2e-6, grad=2e-6)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Each case's ranks, started together (one case at a time, so that
+    at most 8 processes run at once); every rank's differences."""
+    env = dict(os.environ, PYTHONPATH=str(HERE.parent / "src"),
+               OMP_NUM_THREADS="1")
+    out = {}
+    for name, case in CASES.items():
+        store = tmp_path_factory.mktemp(name)
+        ps = [subprocess.Popen(
+            [sys.executable, str(HERE / "_sharded_blocks.py"),
+             json.dumps(case), str(r), str(store)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env) for r in range(math.prod(case["mesh"]))]
+        try:
+            res = [p.communicate(timeout=300) for p in ps]
+        finally:    # a rank that failed leaves the others waiting
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for p, (_, err) in zip(ps, res):
+            assert p.returncode == 0, (name, err[-4000:])
+        out[name] = [json.loads(o.splitlines()[-1]) for o, _ in res]
+    return out
+
+
+@pytest.mark.parametrize("phase", list(TOL))
+@pytest.mark.parametrize("name", list(CASES))
+def test_partitioned_blocks_equal_plain(runs, name, phase):
+    """On every rank, the partitioned run's values (whole) equal the
+    plain model's within `TOL`: the logits of a forward and of two
+    decode steps, the cache after them, and every parameter's gradient."""
+    for r, got in enumerate(runs[name]):
+        assert got[phase] <= TOL[phase], (name, phase, r, got)
