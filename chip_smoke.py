@@ -259,28 +259,35 @@ Phases, each printing one JSON line:
    2048 tokens on the 1 x 1 host ``DeviceMesh`` (one real NCCL rank,
    the training rules installed): every placement ``Replicate`` and
    the logits equal the plain forward's bit for bit; (b) rank 0's local
-   train step of the ``pod`` records of tinyllama-1.1b and zamba2-2.7b
-   (``train_4k``: 256 x 4096 over 16 x 16, accum 4; no cut) run with
+   step of the ``pod`` records of tinyllama-1.1b, zamba2-2.7b and
+   whisper-large-v3 at ``train_4k`` (256 x 4096 over 16 x 16, accum 4;
+   no cut) and of llama-3.2-vision-11b at ``decode_32k`` (128 rows
+   against a 32,768-token cache; no cut) (``PARTITION_STEPS``) run with
    CUDA local shards over the fake group, whose collectives move no
    data (the values mean nothing): its FLOPs (counted below DTensor on
    the card), ``args`` and collectives equal the record's, the record's
    FLOPs equal the reference's partitioned compile's
-   (``PARTITION_REF_FLOPS``, pinned: this script imports no JAX) up to
-   the gaps the toy cells reckon, at full size (zamba2's SSD scan: the
-   record equals the reference compiled with the port's factorisation of
-   its three-operand einsums, ``PARTITION_REF_FLOPS_TWO_OPERAND``; an
-   ideal count, 99.8e12, would not); its peak (``max_memory_allocated``
-   over a second, uncounted run) within ``PARTITION_PEAK_RATIO`` of the
-   record's ``bytes_per_device`` and of the same counter's args + temp
-   on the card; its wall beside the record's ``compute_s`` and
-   ``memory_s``; (c) the ``pod`` and ``multipod`` records of
-   tinyllama-1.1b and of grok-1-314b (cut to 2 of its 64 layers and to
-   accum 8) at ``train_4k`` and ``decode_32k``, and of xlstm-1.3b and
-   zamba2-2.7b at ``decode_32k`` (xlstm's ``train_4k`` is left out: its
-   sLSTM loop, counted op by op over 4,096 steps, runs past 30 minutes
-   on the host), partitioned and ideal (counted on meta tensors on the
-   host), each record's per-device FLOPs and collective bytes by op side
-   by side.
+   (``PARTITION_REF_FLOPS``, keyed by (arch, shape), pinned: this script
+   imports no JAX) up to the gaps the toy cells reckon, at full size
+   (zamba2's SSD scan: the record equals the reference compiled with the
+   port's factorisation of its three-operand einsums,
+   ``PARTITION_REF_FLOPS_TWO_OPERAND``; an ideal count, 99.8e12, would
+   not); its peak (``max_memory_allocated`` over a second, uncounted run)
+   within ``PARTITION_PEAK_RATIO`` of the record's ``bytes_per_device``
+   and of the same counter's args + temp on the card; its wall beside
+   the record's ``compute_s`` and ``memory_s``; (c) the ``pod`` and
+   ``multipod`` records of tinyllama-1.1b and of grok-1-314b (cut to 2
+   of its 64 layers and to accum 8) at ``train_4k`` and ``decode_32k``,
+   of xlstm-1.3b and zamba2-2.7b at ``decode_32k`` (xlstm's ``train_4k``
+   is left out: its sLSTM loop, counted op by op over 4,096 steps, runs
+   past 30 minutes on the host), of whisper-large-v3 at ``train_4k`` and
+   ``decode_32k``, and of llama-3.2-vision-11b at ``decode_32k`` and at
+   ``train_4k`` cut to 10 of its 40 layers (two segments), partitioned
+   and ideal (counted on meta tensors on the host), each record's
+   per-device FLOPs and collective bytes by op side by side.  The host
+   counts of (b)'s records and of (c) run in ``PARTITION_WORKERS`` spawned
+   processes while the card runs (a) and (b); the pool is shut down
+   before the phase ends.
 9b. **fuzz** (after ``cmd_oracle``) — the scenario fuzzer's 8 seeds
    (`repro_torch.oracle.fuzz`, the draws of the reference's
    ``tests/test_fuzz_oracle.py``) on the card and on the CPU: every
@@ -503,22 +510,36 @@ PARTITION_FWD = (2, 2048)        # phase (a): B x S
 PARTITION_PEAK_RATIO = (0.95, 1.05)
 #: (arch, layers, train accum, shapes): grok-1 cut to 2 of its 64
 #: layers and to accum 8; xlstm-1.3b and zamba2-2.7b at decode only
-#: (xlstm's ``train_4k`` counts op by op past 30 minutes on the host)
+#: (xlstm's ``train_4k`` counts op by op past 30 minutes on the host);
+#: llama-3.2-vision-11b's ``train_4k`` cut to 10 of its 40 layers (two
+#: segments)
 PARTITION_RECORDS = (
     ("tinyllama-1.1b", None, None, ("train_4k", "decode_32k")),
     ("grok-1-314b", 2, 8, ("train_4k", "decode_32k")),
     ("xlstm-1.3b", None, None, ("decode_32k",)),
-    ("zamba2-2.7b", None, None, ("decode_32k",)))
-#: phase (b): the ``pod`` ``train_4k`` records whose rank-0 step runs
-PARTITION_STEP_ARCHS = ("tinyllama-1.1b", "zamba2-2.7b")
-#: per-device FLOPs of the reference's partitioned compile of the
-#: ``pod`` ``train_4k`` step (the JAX package's ``build_cell`` compiled on
+    ("zamba2-2.7b", None, None, ("decode_32k",)),
+    ("whisper-large-v3", None, None, ("train_4k", "decode_32k")),
+    ("llama-3.2-vision-11b", None, None, ("decode_32k",)),
+    ("llama-3.2-vision-11b", 10, None, ("train_4k",)))
+#: phase (b): the ``pod`` records whose rank-0 step runs, (arch, shape)
+PARTITION_STEPS = (("tinyllama-1.1b", "train_4k"), ("zamba2-2.7b", "train_4k"),
+                   ("whisper-large-v3", "train_4k"),
+                   ("llama-3.2-vision-11b", "decode_32k"))
+#: per-device FLOPs of the reference's partitioned compile of each
+#: ``pod`` step of phase (b) (the JAX package's ``build_cell`` compiled on
 #: 512 forced host devices, ``tests/_ref_partition.py``)
-PARTITION_REF_FLOPS = {"tinyllama-1.1b": 51_878_909_968_384,
-                       "zamba2-2.7b": 128_802_361_442_304}
+PARTITION_REF_FLOPS = {
+    ("tinyllama-1.1b", "train_4k"): 51_878_909_968_384,
+    ("zamba2-2.7b", "train_4k"): 128_802_361_442_304,
+    ("whisper-large-v3", "train_4k"): 223_926_277_898_240,
+    ("llama-3.2-vision-11b", "decode_32k"): 31_194_087_424}
 #: the same compile with the port's two-operand factorisation of the SSD
 #: scan's einsums (``ssd="two_operand"``): the record's FLOPs equal it
-PARTITION_REF_FLOPS_TWO_OPERAND = {"zamba2-2.7b": 128_791_036_821_504}
+PARTITION_REF_FLOPS_TWO_OPERAND = {
+    ("zamba2-2.7b", "train_4k"): 128_791_036_821_504}
+#: host processes that count phase (c)'s records (and (b)'s) while the
+#: card runs (b)'s steps
+PARTITION_WORKERS = 5
 
 
 def emit(obj):
@@ -3712,10 +3733,12 @@ def partition_forward(dev):
     return row
 
 
-def partition_local_step(dev, card, arch):
-    """17 (b): rank 0's local train step of ``arch``'s ``pod`` record on
-    the card, against the record, and the record against the
-    reference's partitioned compile (`PARTITION_REF_FLOPS`)."""
+def partition_local_step(dev, card, arch, shape_name, record):
+    """17 (b): rank 0's local step of ``arch``'s ``pod`` record at
+    ``shape_name`` on the card, against the record (``record()``: it and
+    its count's wall time, counted on meta tensors on the host), and the
+    record against the reference's partitioned compile
+    (`PARTITION_REF_FLOPS`)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs.registry import get_config
@@ -3725,10 +3748,9 @@ def partition_local_step(dev, card, arch):
     from repro_torch.models.registry import get_model
 
     cfg = get_config(arch)
-    shape = SHAPES["train_4k"]
-    t0 = time.perf_counter()
-    rec = dryrun.cell_record(cfg, shape, "pod")
-    record_s = time.perf_counter() - t0
+    shape = SHAPES[shape_name]
+    key = (arch, shape_name)
+    rec, record_s = record()
     mesh = make_production_mesh()
     torch.cuda.empty_cache()
     with dryrun.partitioned_cell(get_model(cfg), shape, mesh,
@@ -3745,7 +3767,9 @@ def partition_local_step(dev, card, arch):
         before = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         t2 = time.perf_counter()
-        with torch.enable_grad(), implicit_replication():
+        grad = (torch.enable_grad() if cell.kind == "train"
+                else torch.no_grad())
+        with grad, implicit_replication():
             out = cell.fn(*cell.args)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t2
@@ -3779,15 +3803,15 @@ def partition_local_step(dev, card, arch):
            "wall_over_compute_plus_memory":
                wall / (rec["compute_s"] + rec["memory_s"]),
            "partition": rec["partition"],
-           "flops_reference": PARTITION_REF_FLOPS[arch],
+           "flops_reference": PARTITION_REF_FLOPS[key],
            "flops_reference_two_operand_ssd":
-               PARTITION_REF_FLOPS_TWO_OPERAND.get(arch),
+               PARTITION_REF_FLOPS_TWO_OPERAND.get(key),
            "flops_gap_to_reference":
-               rec["hlo_flops_dev"] - PARTITION_REF_FLOPS[arch]}
+               rec["hlo_flops_dev"] - PARTITION_REF_FLOPS[key]}
     emit(row)
     lo, hi = PARTITION_PEAK_RATIO
-    want = PARTITION_REF_FLOPS_TWO_OPERAND.get(arch) or \
-        PARTITION_REF_FLOPS[arch]
+    want = PARTITION_REF_FLOPS_TWO_OPERAND.get(key) or \
+        PARTITION_REF_FLOPS[key]
     if not (rec["partition"] == "dtensor" and rec["hlo_flops_dev"] == want
             and counted["flops"] == rec["hlo_flops_dev"]
             and args == mem["args"] and row["collectives_equal"]
@@ -3797,26 +3821,64 @@ def partition_local_step(dev, card, arch):
     return row
 
 
-def partition_records():
-    """17 (c): the pod / multipod records, partitioned and ideal."""
+def _partition_count(job):
+    """One host count of phase 17, in a worker process: ``job`` is
+    ``(arch, layers, accum, shape, meshes, partition)``; the records of
+    ``shape``'s step on each of ``meshes`` (ideal records of one cell share
+    one count), each with its wall time."""
+    arch, layers, accum, name, meshes, partition = job
+    torch.set_num_threads(1)
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.launch import dryrun
 
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    out = {}
+    for mesh in meshes:
+        t0 = time.perf_counter()
+        out[mesh] = (dryrun.cell_record(cfg, SHAPES[name], mesh,
+                                        partition=partition, accum=accum),
+                     time.perf_counter() - t0)
+    return out
+
+
+def _partition_jobs():
+    """Phase 17's host counts: (b)'s ``pod`` records, and (c)'s
+    partitioned record on each mesh and ideal records (one count for
+    both meshes), keyed by ``(arch, layers, shape, partition, meshes)``."""
+    jobs = {(arch, None, name, "dtensor", ("pod",)):
+            (arch, None, None, name, ("pod",), "dtensor")
+            for arch, name in PARTITION_STEPS}
+    for arch, layers, accum, shapes in PARTITION_RECORDS:
+        for name in shapes:
+            for meshes, part in ((("pod",), "dtensor"),
+                                 (("multipod",), "dtensor"),
+                                 (("pod", "multipod"), "ideal")):
+                jobs[(arch, layers, name, part, meshes)] = (
+                    arch, layers, accum, name, meshes, part)
+    return jobs
+
+
+def partition_records(counts):
+    """17 (c): the pod / multipod records, partitioned and ideal, from
+    the host counts (`_partition_jobs`; ``counts[key]()`` waits for one)."""
+    from repro_torch.configs.registry import get_config
+
     rows = []
     for arch, layers, accum, shapes in PARTITION_RECORDS:
-        cfg = get_config(arch)
-        if layers:
-            cfg = dataclasses.replace(cfg, n_layers=layers)
         for name in shapes:
+            ideal = counts[(arch, layers, name, "ideal",
+                            ("pod", "multipod"))]()
             for mesh in ("pod", "multipod"):
-                t0 = time.perf_counter()
-                got = {p: dryrun.cell_record(cfg, SHAPES[name], mesh,
-                                             partition=p, accum=accum)
-                       for p in ("dtensor", "ideal")}
-                d, i = got["dtensor"], got["ideal"]
+                d, d_s = counts[(arch, layers, name, "dtensor",
+                                 (mesh,))]()[mesh]
+                i, i_s = ideal[mesh]
+                got = {"dtensor": d, "ideal": i}
                 row = {"phase": "partition", "part": "records",
-                       "arch": arch, "layers": cfg.n_layers,
+                       "arch": arch,
+                       "layers": layers or get_config(arch).n_layers,
                        "accum": d["accum"],
                        "shape": name, "mesh": mesh,
                        "flops_dev": {p: r["hlo_flops_dev"]
@@ -3834,7 +3896,7 @@ def partition_records():
                                             for p, r in got.items()},
                        "bound": {p: r["bottleneck"]
                                  for p, r in got.items()},
-                       "count_s": time.perf_counter() - t0}
+                       "count_s": {"dtensor": d_s, "ideal": i_s}}
                 emit(row)
                 rows.append(row)
                 if ((d["partition"], i["partition"]) != ("dtensor", "ideal")
@@ -3847,17 +3909,34 @@ def partition_records():
 
 def partition_phase(dev):
     """17. The partitioned dry-run on the card (see the module
-    docstring)."""
+    docstring).  The host counts of (b)'s records and of (c) run in
+    `PARTITION_WORKERS` processes while the card runs (a) and (b)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
     t0 = time.perf_counter()
     card = card_line()
-    fwd = partition_forward(dev)
-    steps = [partition_local_step(dev, card, arch)
-             for arch in PARTITION_STEP_ARCHS]
-    rows = partition_records()
+    jobs = _partition_jobs()
+    pool = cf.ProcessPoolExecutor(PARTITION_WORKERS,
+                                  mp_context=mp.get_context("spawn"))
+    try:
+        futures = {k: pool.submit(_partition_count, j)
+                   for k, j in jobs.items()}
+        counts = {k: (lambda f=f: f.result()) for k, f in futures.items()}
+        fwd = partition_forward(dev)
+        steps = [partition_local_step(
+            dev, card, arch, name,
+            lambda k=(arch, None, name, "dtensor", ("pod",)):
+            counts[k]()["pod"])
+            for arch, name in PARTITION_STEPS]
+        rows = partition_records(counts)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
     emit({"phase": "partition", "part": "summary", "card": card,
           "wall_s": time.perf_counter() - t0,
           "host_forward_bit_equal": fwd["logits_bit_equal"],
-          "pod_step_wall_s": {s["arch"]: s["step_wall_s"] for s in steps},
+          "pod_step_wall_s": {f"{s['arch']} {s['shape']}": s["step_wall_s"]
+                              for s in steps},
           "records": len(rows)})
 
 

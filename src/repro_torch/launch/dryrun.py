@@ -11,6 +11,9 @@ its own counters (`StepCounter`):
   decode step against ``init_cache(global_batch, seq_len)``; parameters
   from ``api.init(0, device="meta")``, their fp32 leaves cast to bf16
   for a decode cell under ``--variant opt`` (weight-stationary serving);
+  a decode cell takes no parameter its step never reads
+  (``api.decode_unread``: the context families' encoder and cross K/V
+  weights), as the reference's jit leaves such arguments out;
 * ``hlo_flops_dev``: the products' FLOPs (``mm``, ``bmm``, ``addmm``,
   ``baddbmm``, convolutions), as the reference's ``hlo_cost`` counts its
   ``dot`` ops;
@@ -35,9 +38,9 @@ The meshes (``--mesh``):
   is the count itself, ``chips`` 1, no
   collective, ``partition: "exact"``;
 * ``pod`` / ``multipod`` (``single`` / ``multi``; ``both``) -- the
-  reference's 16x16 and 2x16x16 meshes as H100 meshes.  For the dense,
-  MoE, SSM and hybrid families (``PARTITIONED_FAMILIES``) the step runs
-  as rank 0
+  reference's 16x16 and 2x16x16 meshes as H100 meshes.  For every family
+  (``PARTITIONED_FAMILIES``: dense, MoE, SSM, hybrid, audio, vlm) the
+  step runs as rank 0
   of the mesh under DTensor over the fake process group
   (`partitioned_cell`: every arg a DTensor placed by its logical specs
   under `launch.mesh.rules_for`, its local shard on ``meta``; the
@@ -51,10 +54,10 @@ The meshes (``--mesh``):
   all-reduces of partial sums -- each at its output bytes, as the
   reference's ``hlo`` counts them.  The train step donates its params
   and optimizer state, as the reference's jitted step does (AdamW
-  writes each leaf in place).  A cell of these families that DTensor
-  cannot partition fails, naming the op; nothing falls back.  The other
-  two families (audio and vlm) keep ``partition: "ideal"``: ``args`` per
-  card is exact (each
+  writes each leaf in place).  A cell that DTensor cannot partition
+  fails, naming the op; nothing falls back.  ``cell_record(...,
+  partition="ideal")`` still gives the ideal partition, to compare
+  against: ``args`` per card is exact (each
   leaf's local shape under `parallel.axes.resolve_tree`); FLOPs, bytes
   and ``temp`` per card are the global counts over ``chips``, a lower
   bound; collectives cover the weights only (``collectives_scope:
@@ -143,8 +146,8 @@ _INDEXED_WRITES = ("index_put", "scatter", "index_copy", "index_add",
                    "index_fill", "masked_scatter")
 
 #: the families whose ``pod`` / ``multipod`` cells DTensor partitions
-#: (``partition: "dtensor"``); the others keep the ideal partition
-PARTITIONED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: (``partition: "dtensor"``): all six
+PARTITIONED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 #: the collectives DTensor issues, by op, and their `COLLECTIVES` name
 _COLLECTIVE_OPS = {
@@ -329,6 +332,13 @@ def input_batch(api, shape: ShapeConfig, *, for_train: bool, device="meta"):
     return batch
 
 
+def _without(tree: dict, paths: tuple, prefix: str = "") -> dict:
+    """``tree`` without the subtrees at the "/"-joined ``paths``."""
+    return {k: (_without(v, paths, f"{prefix}{k}/")
+                if isinstance(v, dict) else v)
+            for k, v in tree.items() if prefix + k not in paths}
+
+
 def build_cell(api, shape: ShapeConfig, *, serving: bool = False,
                accum: int | None = None, device="meta",
                donate: bool = False) -> Cell:
@@ -364,6 +374,10 @@ def build_cell(api, shape: ShapeConfig, *, serving: bool = False,
         bspecs = {k: v for k, v in batch_specs(api).items() if k in batch}
         return Cell(api.forward, (params, batch), (pspecs, bspecs),
                     "prefill")
+    # the reference's jit leaves the arguments its step never reads out
+    # of the executable (``keep_unused=False``), and so does the cell
+    params, pspecs = (_without(t, api.decode_unread)
+                      for t in (params, pspecs))
     gb = shape.global_batch
     cache = api.init_cache(gb, shape.seq_len, device=device)
     tokens = torch.zeros((gb,), dtype=torch.int32, device=device)

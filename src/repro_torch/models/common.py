@@ -29,11 +29,15 @@ Conventions
   their gradients'), the attention and the embedding lookup run per
   rank.  Where the reference's partitioner permutes a weight's shard
   between the pod's two axes (GQA's K/V weights, zamba2's ``w_cat``),
-  the port moves it by one all-to-all (`transposed_product`).  The
-  dense, MoE, SSM and hybrid families run so in the partitioned
-  dry-run; audio and vlm are the only ones left on its ideal
-  partition.  On plain tensors, or with no rules installed, all of it
-  is the identity and the products are the plain ones.  The
+  the port moves it by one all-to-all (`transposed_product`).  Every
+  family runs so in the partitioned dry-run; the cross-attention's
+  products (`cross_q`, `cross_kv`, `cross_attention`) state theirs too.
+  Around the sequence-parallel attention the plan follows what the code
+  sees: rows longer than one attention chunk are projected whole
+  (`_rows_whole`), and the weights' gradients come from the gathered
+  rows where the batch splits over two mesh axes (`_gathered_grad`).
+  On plain tensors, or with no rules installed, all of it is the
+  identity and the products are the plain ones.  The
   reference's A/B measurement knob ``REPRO_NO_SP`` (turn the
   sequence-parallel branch off) is not ported.  The logical axis names
   of each weight are kept as data (``*_specs``: one tuple of names per
@@ -57,7 +61,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.parallel.axes import (P, _mesh, _rules, all_to_all,
-                                       einsum, gather_fsdp, is_dtensor,
+                                       axis_sizes, einsum, gather_fsdp,
+                                       gather_share, is_dtensor,
                                        placements, reduce_grad_partial,
                                        reduce_partial, resolve, serving_mode,
                                        shard, sharding_rules, transpose_local,
@@ -72,6 +77,62 @@ def _plain_product(eq: str, x, w):
     if eq == "bshk,hkd->bsd":
         return x.reshape(*x.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
     return _proj(x, w)
+
+
+#: the attention's query chunk (`attention`'s default ``chunk``)
+ATTN_CHUNK = 1024
+
+
+def _rows_whole(rows: int) -> bool:
+    """True where ``rows`` of the sequence-parallel fallback are more than
+    one attention chunk and split over more than one rank: the
+    reference's partitioner splits each chunk's query rows (its pin
+    inside the chunk loop), a split that does not reach back through the
+    chunking, so the projections around the attention run on the whole
+    rows (`_whole_product`).  Measured on the decoder-only toy (8 heads
+    on the 16-way ``model`` axis) and on whisper's, both at 2,048 rows."""
+    return rows > ATTN_CHUNK and _seq_ranks() > 1
+
+
+def _gathered_grad(x) -> dict:
+    """`einsum`'s ``gathered_grad`` for a ``whole_forward`` product of the
+    rows ``x`` split over ``model``: where the batch's rows split over
+    two mesh axes (the multipod's ``pod`` and ``data``), the reference's
+    partitioner computes the weight's gradient from the gathered rows
+    (whole on every model rank); where they split over one (the pod's
+    ``data``), from each rank's share (a partial sum), whatever the rows
+    a rank.  Measured on the decoder-only and whisper toys at one and two
+    rows a rank on both meshes."""
+    if not is_dtensor(x):
+        return {"gathered_grad": False}
+    spec = resolve(("batch",), (x.shape[0],))
+    return {"gathered_grad": bool(spec) and isinstance(spec[0], tuple)}
+
+
+def _whole_product(x, w, eq: str, w_logical: tuple):
+    """``einsum(eq, x, w)`` with ``x`` whole over ``model`` (its rows
+    gathered) and the weight gathered over its ZeRO-3 dims: the product
+    and the activation's gradient whole on every model rank, the weight's
+    gradient on each rank's share (``share_grad``), as the reference's
+    partitioner runs the projections around a chunked attention
+    (`_rows_whole`)."""
+    x = shard(x, "batch", *(None,) * (x.ndim - 1))
+    return reduce_partial(einsum(eq, x, gather_fsdp(w, w_logical),
+                                 _plain_product, share_grad="model"))
+
+
+def splits_contraction(cfg) -> bool:
+    """Whether a decode step's attention projections and logits split a
+    small activation's contraction (`_split_contraction`).  Not where the
+    step runs the sequence-parallel chunked attention: a cross attention
+    (an encoder's or a vision context's) whose heads are too few to split
+    ``model``.  The reference pins that attention's padded query chunk
+    over ``seq`` (its ``_chunked_attention``), and from that pin its
+    partitioner runs every projection of the step whole; a decoder-only
+    step of the same widths, which reads its cache and pins no ``seq``,
+    splits them (both measured on the toys)."""
+    cross = cfg.n_encoder_layers > 0 or cfg.cross_attn_every > 0
+    return not cross or heads_tp_available(cfg.n_heads)
 
 
 def _split_contraction(x, w, eq: str):
@@ -187,7 +248,7 @@ def _relayout(x, want: list):
 
 
 def serving_matmul(x, w, eq: str, w_logical: tuple, *,
-                   transpose: bool = False):
+                   transpose: bool = False, split: bool = True):
     """Weight-stationary projection for serving, the reference's.
 
     ``x @ w`` where the serving rules shard w's contraction dim(s) (they
@@ -202,7 +263,9 @@ def serving_matmul(x, w, eq: str, w_logical: tuple, *,
     of the weight gathered over its ZeRO-3 dims (`gather_fsdp`), its
     partial sums reduced (`reduce_partial`), or, with ``transpose``, its
     shard permuted to the ``model`` axis where the reference's
-    partitioner does so (`transposed_product`).
+    partitioner does so (`transposed_product`), and with ``split`` a small
+    activation's contraction split (`_split_contraction`; `splits_contraction`
+    says where the reference's partitioner does not).
     """
     if not is_dtensor(w):
         return _plain_product(eq, x, w)
@@ -211,7 +274,9 @@ def serving_matmul(x, w, eq: str, w_logical: tuple, *,
             y = transposed_product(x, w, eq)
             if y is not None:
                 return y
-        x, w = _split_contraction(x, gather_fsdp(w, w_logical), eq)
+        w = gather_fsdp(w, w_logical)
+        if split:
+            x, w = _split_contraction(x, w, eq)
         return reduce_partial(einsum(eq, x, w, _plain_product))
     mesh = w.device_mesh
     names = list(mesh.mesh_dim_names)
@@ -466,7 +531,8 @@ def _attention_by_rank(fn, q, k, v):
                               run_check=False)
 
 
-def attention(cfg: ModelConfig, q, k, v, *, causal: bool, chunk: int = 1024):
+def attention(cfg: ModelConfig, q, k, v, *, causal: bool,
+              chunk: int = ATTN_CHUNK):
     """GQA attention dispatch (chunked path or the flash kernel).
 
     q (B,S,Hq,D); k,v (B,T,Hkv,D).  Returns (B,S,Hq,D).  The flash
@@ -498,14 +564,66 @@ def attention(cfg: ModelConfig, q, k, v, *, causal: bool, chunk: int = 1024):
 
     if not is_dtensor(q):
         return chunked(q, k, v)
-    if not heads_tp_available(q.shape[2]):
-        # sequence-parallel fallback, the reference's: heads that cannot
-        # split the model axis would replicate the scores across it, so
-        # the query rows split over ``seq`` instead (K/V shared); the
-        # output's rows stay split for `attn_out`, which gathers them as
-        # the reference's partitioner does before the output projection
-        q = shard(q, "batch", "seq", None, None)
-    return _attention_by_rank(chunked, q, k, v)
+    if heads_tp_available(q.shape[2]):
+        return _attention_by_rank(chunked, q, k, v)
+    # sequence-parallel fallback, the reference's: heads that cannot
+    # split the model axis would replicate the scores across it, so the
+    # query rows split over ``seq`` instead (K/V shared); the output's
+    # rows stay split for `attn_out`, which gathers them as the
+    # reference's partitioner does before the output projection.  Rows
+    # too few to split (a decode step's one): the reference splits the
+    # chunk it pads them to (``chunked`` reads ``rows`` when it runs),
+    # and the real rows' output is reduced from the ranks that hold them
+    s = q.shape[1]
+    if s % _seq_ranks():
+        c = min(chunk, max(-(-s // 128) * 128, 128))
+        rows = -(-s // c) * c
+        q = _pad_rows(q, rows)
+    o = _attention_by_rank(chunked, shard(q, "batch", "seq", None, None),
+                           k, v)
+    return o if rows == s else _leading_rows(o, s)
+
+
+def _pad_rows(q, n: int):
+    """The DTensor ``q`` (B,S,...), its rows whole on every rank, padded
+    with zero rows to ``n``, each rank on its shard (DTensor's own pad
+    plans a redistribution some torch versions cannot build)."""
+    if Shard(1) in q.placements:
+        raise ValueError("the rows to pad are split")
+    pad = [0, 0] * (q.ndim - 2) + [0, n - q.shape[1]]
+    shape = (q.shape[0], n, *q.shape[2:])
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(F.pad(q.to_local(), pad), q.device_mesh,
+                              q.placements, run_check=False, shape=shape,
+                              stride=stride)
+
+
+def _seq_ranks() -> int:
+    """The ranks the ``seq`` axis splits a dim over, under the installed
+    rules and mesh."""
+    spec = resolve(("seq",))
+    if not spec or _mesh() is None:
+        return 1
+    sizes = axis_sizes(_mesh())
+    axes = (spec[0],) if isinstance(spec[0], str) else spec[0]
+    return math.prod(sizes[a] for a in axes)
+
+
+def _leading_rows(o, n: int):
+    """The first ``n`` rows (dim 1) of the DTensor ``o``, whose rows are
+    split: each rank keeps those of its slice and the ranks' shares are
+    summed (one all-reduce of the ``n`` rows), the dims ``o`` splits
+    otherwise kept."""
+    mesh, pl = o.device_mesh, list(o.placements)
+    _, offset = compute_local_shape_and_global_offset(o.shape, mesh, pl)
+    local = o.to_local()
+    out = local.new_zeros((local.shape[0], n, *local.shape[2:]))
+    lo, hi = offset[1], min(offset[1] + local.shape[1], n)
+    if hi > lo:
+        out[:, lo:hi] = local[:, :hi - lo]
+    return reduce_partial(DTensor.from_local(
+        out, mesh, [Partial() if p == Shard(1) else p for p in pl],
+        run_check=False))
 
 
 # ---------------------------------------------------------------------------
@@ -570,12 +688,16 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
     dt = cfg.dtype
     specs = attn_specs(cfg)
     x = reduce_grad_partial(x)
+    eq = "bsd,dhk->bshk"
     if is_dtensor(x) and not heads_tp_available(cfg.n_heads):
+        if _rows_whole(x.shape[1]):
+            q, k, v = (_whole_product(x, p[w].to(dt), eq, specs[w])
+                       for w in ("wq", "wk", "wv"))
+            return _qkv_rotated(cfg, p, q, k, v, positions)
         # the sequence-parallel fallback, as the reference's partitioner
         # propagates it back from the attention: the projections run on
         # each model rank's rows, and the pins below gather q, k and v
         x = shard(x, "batch", "seq", None)
-    eq = "bsd,dhk->bshk"
     x = serving_input(x, p["wq"], eq, specs["wq"])
     # GQA's K/V weights, whose heads cannot split the model axis where
     # the query heads do: the reference's partitioner permutes their
@@ -583,8 +705,15 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
     gqa = (heads_tp_available(cfg.n_heads)
            and not heads_tp_available(cfg.n_kv_heads))
     q, k, v = (serving_matmul(x, p[w].to(dt), eq, specs[w],
-                              transpose=gqa and w != "wq")
+                              transpose=gqa and w != "wq",
+                              split=splits_contraction(cfg))
                for w in ("wq", "wk", "wv"))
+    return _qkv_rotated(cfg, p, q, k, v, positions)
+
+
+def _qkv_rotated(cfg: ModelConfig, p, q, k, v, positions):
+    """`attn_qkv`'s biases, rotation and layout pins."""
+    dt = cfg.dtype
     if cfg.qkv_bias:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -601,19 +730,121 @@ def attn_out(cfg: ModelConfig, p, o):
     every model rank, its backward on each rank's own rows, as the
     reference's partitioner runs it (``whole_forward``)."""
     wo, names = p["wo"].to(cfg.dtype), attn_specs(cfg)["wo"]
-    if (is_dtensor(o) and not serving_mode()
-            and "model" in o.device_mesh.mesh_dim_names
-            and o.placements[_model_dim(o.device_mesh)] == Shard(1)):
+    if (is_dtensor(o) and not serving_mode() and _rows_whole(o.shape[1])
+            and not heads_tp_available(cfg.n_heads)):
+        return _whole_product(o, wo, "bshk,hkd->bsd", names)
+    if not serving_mode() and _rows_split(o):
         return reduce_partial(einsum("bshk,hkd->bsd", o,
                                      gather_fsdp(wo, names), _plain_product,
-                                     whole_forward="model"))
-    return serving_matmul(o, wo, "bshk,hkd->bsd", names)
+                                     whole_forward="model",
+                                     **_gathered_grad(o)))
+    return serving_matmul(o, wo, "bshk,hkd->bsd", names,
+                          split=splits_contraction(cfg))
+
+
+def _rows_split(t) -> bool:
+    """Whether the DTensor ``t``'s rows (dim 1) split over ``model``."""
+    return (is_dtensor(t) and "model" in t.device_mesh.mesh_dim_names
+            and t.placements[_model_dim(t.device_mesh)] == Shard(1))
+
+
+def add_attn_out(cfg: ModelConfig, p, x, o):
+    """The residual ``x`` (B,S,d) plus `attn_out` of ``o``.  Where both
+    split their rows over ``model`` (the sequence-parallel fallback's
+    output into a residual whose rows stay split), the projection runs on
+    each rank's rows and the sum stays split, as the reference's
+    partitioner runs it; otherwise as `attn_out`."""
+    if (not serving_mode() and _rows_split(o) and _rows_split(x)
+            and not _rows_whole(o.shape[1])):
+        wo, names = p["wo"].to(cfg.dtype), attn_specs(cfg)["wo"]
+        return x + reduce_partial(einsum("bshk,hkd->bsd", o,
+                                         gather_fsdp(wo, names),
+                                         _plain_product))
+    return x + attn_out(cfg, p, o)
+
+
+def cross_q(cfg: ModelConfig, p, h):
+    """The query (B,S,Hq,D) of a cross-attention from the states h
+    (B,S,d): the attention's ``wq`` projection, no bias and no rotation.
+    States whose rows are split over ``model`` (whisper's decoder, the
+    sequence-parallel fallback) are gathered and the projection runs
+    whole on every model rank, its backward on each rank's rows, as the
+    reference's partitioner runs it (``whole_forward``)."""
+    wq, names = p["wq"].to(cfg.dtype), attn_specs(cfg)["wq"]
+    h = reduce_grad_partial(h)
+    if (is_dtensor(h) and not serving_mode() and _rows_whole(h.shape[1])
+            and not heads_tp_available(cfg.n_heads)):
+        return _whole_product(h, wq, "bsd,dhk->bshk", names)
+    if not serving_mode() and _rows_split(h):
+        return reduce_partial(einsum("bsd,dhk->bshk", h,
+                                     gather_fsdp(wq, names), _plain_product,
+                                     whole_forward="model",
+                                     **_gathered_grad(h)))
+    return serving_matmul(h, wq, "bsd,dhk->bshk", names,
+                          split=splits_contraction(cfg))
 
 
 def cross_kv(cfg: ModelConfig, p, ctx):
     """K/V of a cross-attention over context states ctx (B,T,d): the
-    attention's ``wk``/``wv`` projections, no bias and no rotation."""
-    return _proj(ctx, p["wk"].to(cfg.dtype)), _proj(ctx, p["wv"].to(cfg.dtype))
+    attention's ``wk``/``wv`` projections, no bias and no rotation.  On
+    DTensors, with heads too few to split the ``model`` axis, the
+    context's rows split over it, as the reference's partitioner
+    propagates the sequence-parallel fallback back from the attention
+    (which then gathers the K/V)."""
+    specs = attn_specs(cfg)
+    ctx = reduce_grad_partial(ctx)
+    if is_dtensor(ctx) and not heads_tp_available(cfg.n_heads):
+        if not serving_mode() and _rows_whole(ctx.shape[1]):
+            return tuple(_whole_product(ctx, p[w].to(cfg.dtype),
+                                        "btd,dhk->bthk", specs[w])
+                         for w in ("wk", "wv"))
+        ctx = shard(ctx, "batch", "seq", None)
+    return tuple(serving_matmul(ctx, p[w].to(cfg.dtype), "btd,dhk->bthk",
+                                specs[w]) for w in ("wk", "wv"))
+
+
+def cross_attention(cfg: ModelConfig, p, q, ctx):
+    """q's attention (B,S,Hq,D) over the K/V of the context states ctx
+    (B,T,d), not causal.  On DTensors, with query heads that split the
+    ``model`` axis over KV heads too few to (GQA), each rank projects
+    only the KV heads its query heads group with (`_grouped_cross`), as
+    the reference's partitioner splits that product."""
+    if (is_dtensor(q) and not cfg.use_flash_kernel
+            and heads_tp_available(cfg.n_heads)
+            and not heads_tp_available(cfg.n_kv_heads)):
+        return _grouped_cross(cfg, p, q, ctx)
+    return attention(cfg, q, *cross_kv(cfg, p, ctx), causal=False)
+
+
+def _grouped_cross(cfg: ModelConfig, p, q, ctx):
+    """`cross_attention` per rank for GQA: each rank slices the KV heads
+    its query heads group with from its ZeRO-3 shard of the K/V weights
+    (whole over ``model``) and gathers that slice over the batch ranks,
+    and projects its batch share of the context's rows.  The weights'
+    gradients are partial sums over ``model`` (each rank's slice)."""
+    mesh, pl = q.device_mesh, list(q.placements)
+    ql = q.to_local()
+    _, offset = compute_local_shape_and_global_offset(q.shape, mesh, pl)
+    g = cfg.n_heads // cfg.n_kv_heads
+    k0, k1 = offset[2] // g, (offset[2] + ql.shape[2] - 1) // g + 1
+    ctx_l = reduce_grad_partial(ctx).redistribute(mesh, [
+        x if x == Shard(0) else Replicate() for x in pl])
+    ctx_l = local_for(ctx_l, q)
+
+    def heads(w):
+        grad = [Partial() if x == Replicate() else x for x in w.placements]
+        out = w.to_local(grad_placements=grad)[:, k0:k1]
+        for i, x in enumerate(w.placements):
+            if x == Shard(0):
+                out = gather_share(out, 0, mesh, mesh.mesh_dim_names[i])
+        return out
+
+    k, v = (_proj(ctx_l, heads(p[w].to(cfg.dtype))) for w in ("wk", "wv"))
+    rows = q.shape[1]
+    chunk = min(1024, max(-(-rows // 128) * 128, 128))
+    o = _chunked_attention(ql, k, v, causal=False, chunk=chunk,
+                           softcap=cfg.attn_logit_softcap)
+    return DTensor.from_local(o, mesh, pl, run_check=False)
 
 
 def self_attention(cfg: ModelConfig, p, x, positions, *, causal=True):
@@ -741,9 +972,24 @@ def embed(cfg: ModelConfig, p, tokens):
 
 
 def logits(cfg: ModelConfig, p, x):
+    """x (B,S,d) -> (B,S,V).  On DTensors, a vocab too small for the
+    ``model`` axis (whisper's 51,866: the head whole over it) makes the
+    product whole on every model rank, whose backward, as the
+    reference's partitioner runs it, takes each rank's share of the rows
+    (``whole_forward``; rows that do not split run whole)."""
     x = reduce_grad_partial(rmsnorm(x, p["norm_f"], cfg.norm_eps))
     w = (p["tok"].T if cfg.tie_embeddings else p["head"]).to(cfg.dtype)
-    if is_dtensor(w) and serving_mode() and _mesh() is not None:
+    if (is_dtensor(w) and not serving_mode() and _rows_whole(x.shape[1])
+            and resolve(("vocab",), (w.shape[1],)) == P()):
+        y = _whole_product(x, w, "bsd,dv->bsv", ("embed", "vocab"))
+    elif (is_dtensor(w) and not serving_mode()
+            and "model" in w.device_mesh.mesh_dim_names
+            and resolve(("vocab",), (w.shape[1],)) == P()
+            and x.shape[1] % _seq_ranks() == 0 and _seq_ranks() > 1):
+        x = shard(x, "batch", "seq", None)
+        y = einsum("bsd,dv->bsv", x, gather_fsdp(w, ("embed", "vocab")),
+                   _plain_product, whole_forward="model", **_gathered_grad(x))
+    elif is_dtensor(w) and serving_mode() and _mesh() is not None:
         # the reference's logits are a plain product, not its
         # weight-stationary one: under the serving rules its partitioner
         # gathers the head's embed shards
@@ -752,5 +998,6 @@ def logits(cfg: ModelConfig, p, x):
                                gather_in_serving=True),
                    _plain_product)
     else:
-        y = serving_matmul(x, w, "bsd,dv->bsv", ("embed", "vocab"))
+        y = serving_matmul(x, w, "bsd,dv->bsv", ("embed", "vocab"),
+                           split=splits_contraction(cfg))
     return shard(y, "batch", None, "vocab")

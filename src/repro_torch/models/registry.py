@@ -13,6 +13,9 @@ and audio (frame embeddings), (B, n_ctx_tokens, d_model).
 resets a slot along it), ``None`` for the cross K/V a slot keeps.
 ``api.init(seed, device="meta")`` gives the parameter tree's shapes
 without allocating it (`count_params` of a full config).
+``api.decode_unread`` names the parameter subtrees ``decode`` never
+reads (the context families' encoder and cross K/V weights: the cache
+holds their products).
 ``api.param_specs()`` / ``api.cache_specs(shard_seq=True)`` give the
 logical axis names of every parameter and cache leaf, one tuple per
 leaf, one name per dim (`parallel.axes` resolves them on a mesh).
@@ -47,6 +50,8 @@ class ModelApi:
     cache_specs: Callable[..., Any]        # (shard_seq=...) -> spec tree
     fill_ctx: Callable[..., Any] | None = None   # (params, cache, ctx)
     needs_ctx: bool = False
+    #: "/"-joined paths of the parameter subtrees ``decode`` never reads
+    decode_unread: tuple = ()
 
 
 def _generator(seed, device):
@@ -110,7 +115,8 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         cache_specs=lambda **kw: m.cache_specs(cfg, **kw),
         fill_ctx=(lambda p, c, ctx: m.fill_cross_cache(cfg, p, c, ctx))
         if needs_ctx else None,
-        needs_ctx=needs_ctx)
+        needs_ctx=needs_ctx,
+        decode_unread=getattr(m, "DECODE_UNREAD", ()))
 
 
 def params_from_numpy(cfg: ModelConfig, tree, device=None):

@@ -25,6 +25,12 @@ import torch
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tt
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.axes import shard
+
+
+#: the parameters `decode_step` never reads: the cross blocks' K/V
+#: weights (the cache holds their products)
+DECODE_UNREAD = ("cross/attn/wk", "cross/attn/wv")
 
 
 def _segments(cfg: ModelConfig):
@@ -52,11 +58,12 @@ def param_specs(cfg: ModelConfig):
                 cross=tt.stacked_specs(cross))
 
 
-def _cross_apply(cfg: ModelConfig, p, x, ck, cv):
-    """Gated cross-attention block; ck/cv the image K/V."""
+def _cross_apply(cfg: ModelConfig, p, x, attend):
+    """Gated cross-attention block; ``attend(q)`` the attention over the
+    image K/V."""
     h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
-    q = cm._proj(h, p["attn"]["wq"].to(cfg.dtype))
-    o = cm.attention(cfg, q, ck, cv, causal=False)
+    o = attend(shard(cm.cross_q(cfg, p["attn"], h), "batch", None, "heads",
+                     None))
     x = x + torch.tanh(p["gate_attn"]) * cm.attn_out(cfg, p["attn"], o)
     h = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
     return x + torch.tanh(p["gate_mlp"]) * cm.mlp(cfg, p["mlp"], h)
@@ -66,7 +73,7 @@ def forward(cfg: ModelConfig, params, tokens, ctx):
     """tokens (B,S); ctx (B, n_ctx, d) precomputed patch embeddings."""
     n_seg, n_self = _segments(cfg)
     x = cm.embed(cfg, params["embed"], tokens)
-    ctx = ctx.to(cfg.dtype)
+    ctx = shard(ctx.to(cfg.dtype), "batch", None, None)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     layers = cm.cast_params(cfg, params["layers"])
     for seg in range(n_seg):
@@ -75,7 +82,8 @@ def forward(cfg: ModelConfig, params, tokens, ctx):
             x = cm.recompute(functools.partial(
                 tt.block_fwd, cfg, lp, positions=positions), lp, x)
         pc = tt._layer(params["cross"], seg)
-        x = _cross_apply(cfg, pc, x, *cm.cross_kv(cfg, pc["attn"], ctx))
+        x = _cross_apply(cfg, pc, x, functools.partial(
+            cm.cross_attention, cfg, pc["attn"], ctx=ctx))
     return cm.logits(cfg, params["embed"], x)
 
 
@@ -127,6 +135,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
             _, x = tt.decode_block(cfg, tt._layer(params["layers"], i), kv,
                                    x, lengths)
         x = _cross_apply(cfg, tt._layer(params["cross"], seg), x,
-                         cache["xk"][seg], cache["xv"][seg])
+                         functools.partial(cm.attention, cfg,
+                                           k=cache["xk"][seg],
+                                           v=cache["xv"][seg], causal=False))
     out = cm.logits(cfg, params["embed"], x)[:, 0]
     return out, dict(cache, length=lengths + 1)

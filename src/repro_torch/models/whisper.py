@@ -19,6 +19,12 @@ import torch
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tt
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.axes import shard
+
+
+#: the parameters `decode_step` never reads: the encoder, and every
+#: decoder layer's cross K/V weights (the cache holds their products)
+DECODE_UNREAD = ("enc", "enc_norm", "dec/xattn/wk", "dec/xattn/wv")
 
 
 def _gelu_mlp(cfg: ModelConfig):
@@ -55,7 +61,7 @@ def param_specs(cfg: ModelConfig):
 
 def encode(cfg: ModelConfig, params, frames):
     """frames (B, T_enc, d) stub embeddings -> encoder states."""
-    x = frames.to(cfg.dtype)
+    x = shard(frames.to(cfg.dtype), "batch", None, None)
     positions = torch.arange(frames.shape[1], device=x.device)[None, :]
     enc = cm.cast_params(cfg, params["enc"])
     for i in range(cfg.n_encoder_layers):
@@ -69,15 +75,16 @@ def _enc_block(cfg: ModelConfig, lp, positions, x):
     h = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
     x = x + cm.self_attention(cfg, lp["attn"], h, positions, causal=False)
     h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-    return x + cm.mlp(cfg, lp["mlp"], h, kind="gelu")
+    return shard(x + cm.mlp(cfg, lp["mlp"], h, kind="gelu"),
+                 "batch", None, None)
 
 
-def _cross(cfg: ModelConfig, lp, x, xk, xv):
-    """The decoder block's cross-attention sub-layer, residual added."""
+def _cross(cfg: ModelConfig, lp, x, attend):
+    """The decoder block's cross-attention sub-layer, residual added;
+    ``attend(q)`` the attention over the encoder states' K/V."""
     h = cm.rmsnorm(x, lp["norm_x"], cfg.norm_eps)
-    q = cm._proj(h, lp["xattn"]["wq"].to(cfg.dtype))
-    o = cm.attention(cfg, q, xk, xv, causal=False)
-    return x + cm.attn_out(cfg, lp["xattn"], o)
+    o = attend(cm.cross_q(cfg, lp["xattn"], h))
+    return cm.add_attn_out(cfg, lp["xattn"], x, o)
 
 
 def forward(cfg: ModelConfig, params, tokens, frames):
@@ -94,12 +101,26 @@ def forward(cfg: ModelConfig, params, tokens, frames):
 
 
 def _dec_block(cfg: ModelConfig, lp, positions, x, enc):
-    """A decoder block over the encoder states ``enc`` (teacher-forced)."""
+    """A decoder block over the encoder states ``enc`` (teacher-forced).
+    With heads too few to split the ``model`` axis (the sequence-parallel
+    attention) over rows of one attention chunk, the residual's rows
+    split over ``model`` from the block's start to its FFN, which gathers
+    them: the reference pins nothing between the residual and the cross
+    query's chunked attention (its ``seq`` pin), so its partitioner
+    carries that split back onto the residual (`common.add_attn_out`
+    then projects each rank's rows)."""
+    if not cm.heads_tp_available(cfg.n_heads) and \
+            not cm._rows_whole(x.shape[1]):
+        x = shard(x, "batch", "seq", None)
     h = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    x = x + cm.self_attention(cfg, lp["attn"], h, positions)
-    x = _cross(cfg, lp, x, *cm.cross_kv(cfg, lp["xattn"], enc))
-    h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
-    return x + cm.mlp(cfg, lp["mlp"], h, kind="gelu")
+    q, k, v = cm.attn_qkv(cfg, lp["attn"], h, positions)
+    x = cm.add_attn_out(cfg, lp["attn"], x,
+                        cm.attention(cfg, q, k, v, causal=True))
+    x = _cross(cfg, lp, x, functools.partial(
+        cm.cross_attention, cfg, lp["xattn"], ctx=enc))
+    h = shard(cm.rmsnorm(x, lp["norm2"], cfg.norm_eps), "batch", None, None)
+    return shard(x + cm.mlp(cfg, lp["mlp"], h, kind="gelu"),
+                 "batch", None, None)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
@@ -143,7 +164,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens):
         lp = tt._layer(params["dec"], i)
         x = tt.decode_attn(cfg, lp, dict(k=cache["k"][i], v=cache["v"][i]),
                            x, lengths)
-        x = _cross(cfg, lp, x, cache["xk"][i], cache["xv"][i])
+        x = _cross(cfg, lp, x, functools.partial(
+            cm.attention, cfg, k=cache["xk"][i], v=cache["xv"][i],
+            causal=False))
         h = cm.rmsnorm(x, lp["norm2"], cfg.norm_eps)
         x = x + cm.mlp(cfg, lp["mlp"], h, kind="gelu")
     out = cm.logits(cfg, params["embed"], x)[:, 0]

@@ -46,10 +46,8 @@ reference's partitioner runs otherwise than the forward),
 `transpose_shard` (its collective-permute of a shard between the pod's
 two axes, as one all-to-all), `gather_share` (a recurrence's state
 gathered every step), `contract` (a product over one element as the
-multiply the reference's compiler makes of it) and `along`.  The
-dense, MoE, SSM and hybrid families are partitioned so
-(`launch.dryrun.PARTITIONED_FAMILIES`); audio and vlm are the only
-ones left on the dry-run's ideal partition.
+multiply the reference's compiler makes of it) and `along`.  All six
+families are partitioned so (`launch.dryrun.PARTITIONED_FAMILIES`).
 """
 from __future__ import annotations
 
@@ -333,7 +331,8 @@ def reduce_partial(x):
 
 
 def einsum(eq: str, a, b, product=None, *, whole_forward: str | None = None,
-           whole_grad: str | None = None):
+           whole_grad: str | None = None, share_grad: str | None = None,
+           gathered_grad: bool = False):
     """``torch.einsum(eq, a, b)`` (or ``product(eq, a, b)``), on DTensors
     computed per rank with the placements stated, not chosen by DTensor:
     over each mesh dim, the label one operand splits is split in the
@@ -353,7 +352,13 @@ def einsum(eq: str, a, b, product=None, *, whole_forward: str | None = None,
     share's; the other's a partial sum of the share's products, or whole
     where it keeps the label); ``whole_grad`` runs the forward on the
     share, as without it, and the whole operand's gradient whole on
-    every rank (the split one gathered for it)."""
+    every rank (the split one gathered for it).  With ``whole_forward``,
+    ``gathered_grad`` computes the whole operand's gradient from the
+    gathered one, whole on every rank.  ``share_grad`` names a
+    mesh dim over which both operands are whole: the forward and ``a``'s
+    gradient run whole on every rank, and ``b``'s (the weight's) on the
+    rank's share of its first dim the dim's ranks divide (`_ShareGrad`:
+    zero elsewhere, a partial sum)."""
     product = product or torch.einsum
     if not is_dtensor(a):
         return product(eq, a, b)
@@ -387,7 +392,8 @@ def einsum(eq: str, a, b, product=None, *, whole_forward: str | None = None,
             for labels, x, pl, gl in ((la, xa, pa, ga), (lb, xb, pb, gb)):
                 pl.append(x)
                 gl.append(x if isinstance(x, Shard) or lab in labels
-                          or mode == "whole_grad" else Partial())
+                          or mode == "whole_grad" or gathered_grad
+                          else Partial())
             if mode == "whole_forward":
                 po.append(Replicate())
             else:
@@ -402,14 +408,19 @@ def einsum(eq: str, a, b, product=None, *, whole_forward: str | None = None,
                 pl.append(Replicate())
                 gl.append(Partial())
         po.append(Shard(out.index(lab)) if lab in out else Partial())
+    if share_grad is not None:
+        gb[mesh.mesh_dim_names.index(share_grad)] = Partial()
     al = a.redistribute(mesh, pa).to_local(grad_placements=ga)
     bl = b.redistribute(mesh, pb).to_local(grad_placements=gb)
-    if share is None:
+    if share_grad is not None:
+        y = _ShareGrad.apply(eq, al, bl, mesh,
+                             mesh.mesh_dim_names.index(share_grad), product)
+    elif share is None:
         y = product(eq, al, bl)
     else:
         lab, in_a = share
         y = _SplitProduct.apply(eq, al, bl, lab, in_a, mesh, whole, product,
-                                mode)
+                                mode, gathered_grad)
     return DTensor.from_local(y, mesh, po, run_check=False)
 
 
@@ -576,13 +587,15 @@ class _SplitProduct(torch.autograd.Function):
     ``whole_forward``: the forward all-gathers the share and runs whole;
     the backward computes ``x``'s gradient from its share (the others'
     rows of ``lab`` are theirs) and ``o``'s from the share too (a partial
-    sum over ``m``), unless ``o`` keeps ``lab``: then whole.
+    sum over ``m``), unless ``o`` keeps ``lab`` or ``gathered_grad``
+    asks: then whole, from the gathered operand.
     ``whole_grad``: the forward runs on the share (``o`` sliced); the
     backward computes ``o``'s gradient whole (``x`` all-gathered for it)
     and ``x``'s from the share."""
 
     @staticmethod
-    def forward(ctx, eq, a, b, lab, in_a, mesh, m, product, mode):
+    def forward(ctx, eq, a, b, lab, in_a, mesh, m, product, mode,
+                gathered_grad=False):
         ins, out = eq.split("->")
         la, lb = ins.split(",")
         x, o, lx, lo = (a, b, la, lb) if in_a else (b, a, lb, la)
@@ -594,7 +607,7 @@ class _SplitProduct(torch.autograd.Function):
             return t.narrow(labels.index(lab), rank * n, n)
 
         ctx.eq, ctx.lab, ctx.in_a, ctx.mode = eq, lab, in_a, mode
-        ctx.mesh, ctx.m, ctx.keep = mesh, m, lab in lo
+        ctx.mesh, ctx.m, ctx.keep = mesh, m, lab in lo or gathered_grad
         ctx.share = share
         if mode == "whole_forward":
             full = _all_gather(x, lx.index(lab), mesh.get_group(m))
@@ -626,7 +639,40 @@ class _SplitProduct(torch.autograd.Function):
             do = torch.einsum(f"{ly},{lx}->{lo}", dy, full)
             dx = torch.einsum(f"{ly},{lo}->{lx}", dy, share(o, lo))
         grads = (dx, do) if ctx.in_a else (do, dx)
-        return (None, *grads, None, None, None, None, None, None)
+        return (None, *grads, None, None, None, None, None, None, None)
+
+
+class _ShareGrad(torch.autograd.Function):
+    """``product(eq, a, b)`` on local tensors whole over mesh dim ``m``,
+    run whole; its backward computes ``a``'s gradient whole and ``b``'s on
+    this rank's share of the first of b's dims that the dim's ranks
+    divide, zero elsewhere (the ranks' shares sum to the whole)."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b, mesh, m, product):
+        ctx.eq, ctx.mesh, ctx.m = eq, mesh, m
+        ctx.save_for_backward(a, b)
+        return product(eq, a, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        ins, ly = ctx.eq.split("->")
+        la, lb = ins.split(",")
+        n, r = ctx.mesh.size(ctx.m), ctx.mesh.get_local_rank(ctx.m)
+        i = next(i for i, size in enumerate(b.shape) if size % n == 0)
+        lab, w = lb[i], b.shape[i] // n
+
+        def share(t, labels):
+            if lab not in labels:
+                return t
+            return t.narrow(labels.index(lab), r * w, w)
+
+        da = torch.einsum(f"{ly},{lb}->{la}", dy, b)
+        db = b.new_zeros(b.shape)
+        db.narrow(i, r * w, w).copy_(torch.einsum(
+            f"{la},{ly}->{lb}", share(a, la), share(dy, ly)))
+        return None, da, db, None, None, None
 
 
 class _Transpose(torch.autograd.Function):

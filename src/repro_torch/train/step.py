@@ -61,6 +61,43 @@ def _label_logits(lg, labels):
         run_check=False))
 
 
+class _WholeVocabCE(torch.autograd.Function):
+    """Each position's ``logZ - lg[label]`` of the fp32 logits ``lg``
+    (..., V), computed as `cross_entropy` computes it, whose backward
+    writes ``(softmax(lg) - onehot(label)) * g`` into one buffer, where
+    autograd would add the label gather's gradient to the softmax's,
+    out of place under a dispatch mode (the dry-run's count) and in
+    place without one: the count then over-states the step's peak by a
+    logits-sized buffer."""
+
+    @staticmethod
+    def forward(ctx, lg, labels):
+        m = lg.amax(-1, keepdim=True)
+        z = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
+        ctx.save_for_backward(lg, labels, z)
+        return z - torch.gather(lg, -1, labels[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, labels, z = ctx.saved_tensors
+        d = torch.exp(lg - z[..., None])
+        d.scatter_add_(-1, labels[..., None],
+                       torch.full_like(labels[..., None], -1.0,
+                                       dtype=d.dtype))
+        return d.mul_(g[..., None]), None
+
+
+def _ce_by_rank(logits, labels):
+    """Each position's CE of DTensor logits whose vocab is whole (every
+    rank holds whole rows: whisper's), on each rank's own positions
+    (`_WholeVocabCE`)."""
+    lg = logits.to(torch.float32)
+    mesh, pl = lg.device_mesh, list(lg.placements)
+    lab = labels.redistribute(mesh, pl).to_local().long()
+    return DTensor.from_local(_WholeVocabCE.apply(lg.to_local(), lab), mesh,
+                              pl, run_check=False)
+
+
 def cross_entropy(logits, labels, *, z_loss: float = 0.0):
     """Mean next-token CE.  logits (B,S,V), fp32 math.  On DTensors the
     max and the sum over a split vocab are all-reduced where they arise
@@ -68,7 +105,12 @@ def cross_entropy(logits, labels, *, z_loss: float = 0.0):
     would scatter them over the sequence and move the logits' gradient
     back and forth.  There the shift ``m`` is taken off the autograd
     graph (DTensor cannot differentiate the all-reduce of a max); the
-    gradient through it is zero in exact arithmetic."""
+    gradient through it is zero in exact arithmetic.  A vocab whole on
+    every rank runs per rank (`_ce_by_rank`)."""
+    if (z_loss == 0.0 and is_dtensor(logits) and not any(
+            isinstance(p, Shard) and p.dim % logits.ndim == logits.ndim - 1
+            for p in logits.placements)):
+        return torch.mean(_ce_by_rank(logits, labels))
     lg = logits.to(torch.float32)
     m = (reduce_partial(lg.detach().amax(-1, keepdim=True))
          if is_dtensor(lg) else lg.amax(-1, keepdim=True))

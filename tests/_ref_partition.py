@@ -22,6 +22,7 @@ os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import dataclasses  # noqa: E402
+import functools  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
 import sys  # noqa: E402
@@ -36,6 +37,10 @@ from repro.launch.mesh import rules_for  # noqa: E402
 from repro.models.registry import get_model  # noqa: E402
 from repro.parallel.axes import sharding_rules  # noqa: E402
 from repro.perfmodel import hlo_cost  # noqa: E402
+
+#: the reference's train accumulation for a full config's cell (a toy
+#: cell sets its own, `record`)
+FULL_ACCUM = dryrun.DEFAULT_ACCUM
 
 MESHES = {"pod": ((16, 16), ("data", "model")),
           "multipod": ((2, 16, 16), ("pod", "data", "model"))}
@@ -157,12 +162,87 @@ def _ssd_two_operand(cfg, xh, dt, a, bmat, cmat):
     return (y_diag + y_off).reshape(b, s, h, p)
 
 
-def record(cell: dict) -> dict:
+@functools.lru_cache(maxsize=None)
+def split_relayout(mesh_name: str, rows: tuple, d_in: int, n: int, h: int,
+                   grad: bool = False) -> tuple:
+    """XLA's collective-permutes for the bare re-layouts of zamba2's
+    Mamba2 block at the cell's dims: an array of ``rows + (cols,)`` (the
+    in-projection's output, its first dim split as the cell's rules split
+    ``batch`` and its last over ``model``) cut into z, x, B and C, dt,
+    x concatenated with B and C and scaled per channel (the conv's
+    ``state``-split weights), cut again into x, B, C, every piece laid out
+    by the ``state`` split, compiled on the mesh ``mesh_name``: the forward's
+    permutes, or with ``grad`` those of its gradient (the forward again
+    and the pieces' gradients put back), each as its elements.  XLA moves
+    the windows where a piece's blocks and the source's overlap by
+    collective-permutes (its compact halo exchange); compiled so, their
+    grouping into permutes is XLA's own."""
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    shape, names = MESHES[mesh_name]
+    m = 1
+    for x in shape:
+        m *= x
+    mesh = jax.make_mesh(shape, names, devices=jax.devices()[:m],
+                         axis_types=(AxisType.Auto,) * len(shape))
+    batch = ("pod", "data") if mesh_name == "multipod" else "data"
+    lead = (batch,) + (None,) * (len(rows) - 1)
+    sh = NamedSharding(mesh, PartitionSpec(*lead, "model"))
+    cols, conv = 2 * d_in + 2 * n + h, d_in + 2 * n
+    x = jax.ShapeDtypeStruct(rows + (cols,), jnp.float32, sharding=sh)
+    w = jax.ShapeDtypeStruct((conv,), jnp.float32, sharding=NamedSharding(
+        mesh, PartitionSpec("model")))
+
+    def pieces(a, cw):
+        z, xs, bc, dt = jnp.split(a, [d_in, 2 * d_in, 2 * d_in + 2 * n],
+                                  axis=-1)
+        xbc = jnp.concatenate([xs, bc], axis=-1) * cw
+        return tuple(jax.lax.with_sharding_constraint(p, sh) for p in
+                     (z, dt, *jnp.split(xbc, [d_in, d_in + n], axis=-1)))
+
+    fn = (jax.grad(lambda a, cw: sum((p * p).sum() for p in pieces(a, cw)))
+          if grad else pieces)
+    text = jax.jit(fn).lower(x, w).compile().as_text()
+    out = []
+    for kind, t, d, runs, _ in collective_arrays(text):
+        if kind == "collective-permute":
+            size = 1
+            for v in (d.split(",") if d else ()):
+                size *= int(v)
+            out += [size] * runs
+    return tuple(out)
+
+
+def relayouts(cell: dict) -> dict:
+    """`split_relayout` at a zamba2 cell's dims: its forward's and, for a
+    train cell, its gradient's permutes; empty for other families."""
+    if "shape" in cell:
+        cfg, shape = get_config(cell["arch"]), SHAPES[cell["shape"]]
+        b, t, kind = shape.global_batch, shape.seq_len, shape.kind
+        accum = (dryrun.TRAIN_ACCUM.get(cfg.name, FULL_ACCUM)
+                 if kind == "train" else 1)
+    else:
+        cfg = dataclasses.replace(get_smoke(cell["arch"]), **cell["cfg"])
+        b, t, kind = cell["batch"], cell["seq"], cell["kind"]
+        accum = cell.get("accum", 1)
+    if cfg.family != "hybrid":
+        return {}
+    rows = (b // accum,) if kind == "decode" else (b // accum, t)
+    dims = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads)
+    return {("grad" if grad else "forward"): list(split_relayout(
+        cell["mesh"], rows, *dims, grad))
+        for grad in ((False, True) if kind == "train" else (False,))}
+
+
+def lower(cell: dict):
+    """The cell's step lowered (traced: one cell at a time, since the
+    toy's accumulation and the SSD factorisation are module state)."""
     if cell.get("ssd") == "two_operand":
         from repro.models import mamba2
         three, mamba2._ssd_scan = mamba2._ssd_scan, _ssd_two_operand
         try:
-            return record(dict(cell, ssd=None))
+            return lower(dict(cell, ssd=None))
         finally:
             mamba2._ssd_scan = three
     shape, names = MESHES[cell["mesh"]]
@@ -173,6 +253,7 @@ def record(cell: dict) -> dict:
                          axis_types=(AxisType.Auto,) * len(shape))
     if "shape" in cell:
         cfg, shape = get_config(cell["arch"]), SHAPES[cell["shape"]]
+        dryrun.DEFAULT_ACCUM = FULL_ACCUM
     else:
         cfg = dataclasses.replace(get_smoke(cell["arch"]), **cell["cfg"])
         shape = ShapeConfig("toy", cell["kind"], cell["seq"], cell["batch"])
@@ -185,13 +266,18 @@ def record(cell: dict) -> dict:
                                                        serving=serving)
         with mesh:
             donate = {"decode": (1,), "train": (0, 1)}.get(kind, ())
-            compiled = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
-                               donate_argnums=donate).lower(*structs).compile()
+            return jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh,
+                           donate_argnums=donate).lower(*structs)
+
+
+def record(cell: dict, compiled) -> dict:
+    """The cell's record from its compiled step."""
     mem = compiled.memory_analysis()
     text = compiled.as_text()
     parsed = hlo_cost.analyze(text)
     arrays = collective_arrays(text)
-    return dict(flops=parsed["flops"], fused_dot_flops=fused_dot_flops(text),
+    return dict(relayout={} if cell.get("ssd") else relayouts(cell),
+                flops=parsed["flops"], fused_dot_flops=fused_dot_flops(text),
                 bytes=parsed["bytes"],
                 bytes_by_op=parsed["bytes_by_op"], counts=parsed["counts"],
                 full_bytes_by_op=full_collective_bytes(arrays),
@@ -200,5 +286,16 @@ def record(cell: dict) -> dict:
                 temp=float(mem.temp_size_in_bytes))
 
 
+def records(cells: list, workers: int = 6) -> list:
+    """Each cell's record: lowered one after another, each compiled in
+    one of ``workers`` threads as soon as it is lowered (XLA's compile
+    runs outside the interpreter's lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as pool:
+        compiled = [pool.submit(lo.compile) for lo in map(lower, cells)]
+        return [record(c, x.result()) for c, x in zip(cells, compiled)]
+
+
 if __name__ == "__main__":
-    print(json.dumps([record(c) for c in json.loads(sys.argv[1])]))
+    print(json.dumps(records(json.loads(sys.argv[1]))))

@@ -1,4 +1,5 @@
-"""One rank of a real multi-rank run of the partitioned recurrent blocks.
+"""One rank of a real multi-rank run of a partitioned model (the
+recurrent and cross-attention families).
 
 Run as ``python tests/_sharded_blocks.py <case json> <rank> <store dir>``
 with ``src/`` on the path, once for each rank of the case's mesh; every
@@ -14,7 +15,9 @@ moves real values.  The case is ``dict(arch, cfg, mesh, batch, seq)``:
 ``arch`` names a smoke config, ``cfg`` overrides its fields (fp32 compute,
 so that only the order of sums differs), ``mesh`` the (data, model) sizes.
 As in the dry-run's count, a plain tensor meeting a DTensor (the rotary
-tables) is taken as replicated.
+tables) is taken as replicated.  The context families get random frames
+or patch embeddings (``ctx``, split over the batch) from the same
+generator, and a random cache's cross K/V.
 Phases: ``forward`` (the logits), ``decode`` (the logits and every cache
 leaf after two steps from a random cache) and ``grad`` (every parameter's
 gradient of a weighted sum of the logits; the difference relative to the
@@ -37,7 +40,7 @@ from repro_torch.models import common as cm
 from repro_torch.models.registry import get_model
 from repro_torch.parallel.axes import (is_spec_leaf, placements, resolve,
                                        sharding_rules)
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, map_tree
 
 
 def spread(spec, tree, dm):
@@ -76,28 +79,42 @@ def run(case, rank, store_dir):
     gen = torch.Generator().manual_seed(1)
     b, s = case["batch"], case["seq"]
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+    # the context families' frames / patch embeddings
+    ctx = (torch.randn((b, cfg.n_ctx_tokens, cfg.d_model), generator=gen)
+           if api.needs_ctx else None)
     params = api.init(0, device="cpu")
     out = {}
 
+    def batch(toks, dist_):
+        out = dict(tokens=dist_(("batch", None), toks))
+        if ctx is not None:
+            out["ctx"] = dist_(("batch", None, None), ctx)
+        return out
+
+    def plain_(spec, t):
+        return t
+
+    def spread_(spec, t):
+        return spread(spec, t, dm)
+
     with torch.no_grad():
-        want = api.forward(params, dict(tokens=tokens))
+        want = api.forward(params, batch(tokens, plain_))
     with sharding_rules(mesh, rules), implicit_replication(), \
             torch.no_grad():
         dp = spread(api.param_specs(), params, dm)
-        got = api.forward(dp, dict(tokens=spread(("batch", None), tokens,
-                                                 dm)))
+        got = api.forward(dp, batch(tokens, spread_))
     out["forward"] = err(got, want)
 
     # decode: two steps from a random cache (positive where a leaf must
-    # be: the mLSTM's normaliser state is read through an abs)
+    # be: the mLSTM's normaliser state is read through an abs; the
+    # context families' cross K/V are random too)
     cache = api.init_cache(b, s, device="cpu")
-    cache = {k: (v if k == "length" else {
-        n: torch.randn(t.shape, generator=gen).abs() * 0.5
-        for n, t in v.items()}) for k, v in cache.items()}
+    cache = {k: (v if k == "length" else map_tree(
+        lambda t: torch.randn(t.shape, generator=gen).abs() * 0.5, v))
+        for k, v in cache.items()}
     step = torch.randint(0, cfg.vocab, (2, b), generator=gen)
     with torch.no_grad():
-        plain = {k: (v if k == "length" else {n: t.clone()
-                                              for n, t in v.items()})
+        plain = {k: (v if k == "length" else map_tree(torch.clone, v))
                  for k, v in cache.items()}
         want_logits = []
         for i in range(2):
@@ -117,19 +134,19 @@ def run(case, rank, store_dir):
     # grad: every parameter's gradient of sum(logits * weights)
     wts = torch.randn(want.shape, generator=gen)
 
-    def grads(p, toks, weights):
+    def grads(p, b_, weights):
         flat = list(leaves(p))
         for t in flat:
             t.requires_grad_(True)
-        y = api.forward(p, dict(tokens=toks))
+        y = api.forward(p, b_)
         (y * weights).sum().backward()
         return [t.grad for t in flat]
 
     plain_params = api.init(0, device="cpu")
-    want_g = grads(plain_params, tokens, wts)
+    want_g = grads(plain_params, batch(tokens, plain_), wts)
     with sharding_rules(mesh, rules), implicit_replication():
         dp = spread(api.param_specs(), api.init(0, device="cpu"), dm)
-        got_g = grads(dp, spread(("batch", None), tokens, dm),
+        got_g = grads(dp, batch(tokens, spread_),
                       spread(("batch", None, "vocab"), wts, dm))
     out["grad"] = max(err(g, w) for g, w in zip(got_g, want_g)) / max(
         float(w.abs().max()) for w in want_g)

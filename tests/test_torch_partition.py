@@ -5,9 +5,11 @@ The reference side runs once for the module, in one subprocess with
 512 forced host devices and meshes of ``Auto`` axes
 (``tests/_ref_partition.py``: the reference's own ``rules_for``,
 ``build_cell``, ``jit(...).lower(...).compile()`` and
-``hlo_cost.analyze``).  The port's side is `launch.dryrun.partitioned_cell`
-counted by `count_step(..., local=True)`: rank 0's local step on meta
-shards, each cell in its own fake group, none left behind.
+``hlo_cost.analyze``; for zamba2 also the bare Mamba2 block's re-layouts
+at the cell's dims, ``relayouts``).  The port's side is
+`launch.dryrun.partitioned_cell` counted by `count_step(...,
+local=True)`: rank 0's local step on meta shards, each cell in its own
+fake group, none left behind.
 
 The toy is tinyllama's smoke config widened to d 256, 16 heads (16 KV
 heads), d_ff 512, vocab 512, two layers, B 32 x S 128 (B 64 for one
@@ -15,21 +17,35 @@ multipod accum-2 cell, so that each microbatch's rows divide its 32
 batch ranks; B 32 for another, whose 16 microbatch rows the reference
 splits over ``pod`` alone); four GQA cells take 32 query heads and 4
 KV heads, fewer than the ``model`` axis, as the production configs do,
-and two take 8 heads, too few to split it (the attention's
-sequence-parallel fallback, arctic-480b's 56 heads).  The recurrent
+and six take 8 heads, too few to split it (the attention's
+sequence-parallel fallback, arctic-480b's 56 heads): prefill and train
+on the pod, train at one row a rank on each mesh, and prefill and train
+over 2,048 rows (B 16), longer than one attention chunk; and arctic's
+own shape over those rows (8 heads over 4 KV heads, 16 experts split
+over the model axis), prefill and train.  The recurrent
 families: xlstm-1.3b's smoke config at d 256, 4 heads, vocab 512, one
 mLSTM and one sLSTM layer (its 4 heads cannot split the model axis:
 the mLSTM's sequence-parallel fallback, the ``state`` split of the
 value dims), and zamba2-2.7b's at d 256, 16 heads of 16, d_ff 512,
 vocab 512, state 16, two Mamba2 layers and one shared-block
 application; each at prefill, train and decode on the pod and a train
-step on the multipod, and each family's train step once more at four
-layers (two sLSTM segments; zamba2 also at d 512 with two shared-block
-applications), so that a term counted per layer, segment or
-application is told from one counted once.  The full configs are held
-at the pod:
-tinyllama-1.1b's prefill_32k, decode_32k and train_4k, xlstm-1.3b's and
-zamba2-2.7b's decode_32k.  Per cell:
+step on the multipod, and each family's train step once more deeper
+(xlstm at two and three sLSTM segments; zamba2 at d 512 with two
+shared-block applications), so that a term counted per layer, segment
+or application is told from one counted once.  The cross-attention
+families: whisper-large-v3's smoke config at d 320, 20 heads of 16 (20
+does not divide the model axis: the sequence-parallel fallback), d_ff
+640, vocab 518 (does not divide 16, as 51,866 does not), two encoder
+and two decoder layers over 64 frames, and once more at three decoder
+layers over one encoder layer, and its prefill and train step over
+2,048 tokens and 1,500 frames (B 16); llama-3.2-vision-11b's at the toy widths
+with 32 query heads over 4 KV heads and a gated cross block every
+second of 4 layers (two segments) over 64 patches, and its train step
+once more at 6 layers (three segments); each at prefill, train and
+decode on the pod and a train step on the multipod.  The full configs
+are held at the pod: tinyllama-1.1b's prefill_32k, decode_32k and
+train_4k, and the decode_32k of xlstm-1.3b, zamba2-2.7b,
+whisper-large-v3 and llama-3.2-vision-11b.  Per cell:
 
 * per-device FLOPs equal the reference's, counting the dots its cost
   model misses (``fused_dot_flops``: XLA puts the one-row products of
@@ -40,10 +56,12 @@ zamba2-2.7b's decode_32k.  Per cell:
   zamba2's train step, equal to the reference compiled with the port's
   factorisation of the SSD scan's three-operand einsums.  The backward
   products XLA splits over the model axis run so in the port
-  (`parallel.axes.einsum`'s ``whole_forward`` / ``whole_grad``: GQA's
-  K/V weight gradients, the sequence-parallel output projection,
-  zamba2's ``w_cat``; arctic's router on each rank's experts);
-* ``args`` per device exact;
+  (`parallel.axes.einsum`'s ``whole_forward`` / ``whole_grad`` /
+  ``share_grad``: GQA's K/V weight gradients, the sequence-parallel
+  projections, zamba2's ``w_cat``; arctic's router on each rank's
+  experts);
+* ``args`` per device exact (a decode cell takes no parameter its step
+  never reads, as the reference's jit leaves them out);
 * every collective kind the reference issues, the port issues.  DTensor
   has no collective-permute: the reference permutes the int32 token ids
   for its embedding gather (at least one rank's ids); the port moves its
@@ -58,13 +76,12 @@ zamba2-2.7b's decode_32k.  Per cell:
   gradients; the sequence-parallel fallback's row gathers; serving's
   norm scales; arctic's routing over the split experts; the recurrent
   families' re-layouts, weight-gather orders and per-step recurrence
-  arrays), and for the recurrent families the reference's arrays of
-  `RELAYOUT_OPS` (its windowed re-layout of a projection's output cut
-  into pieces its blocks do not line up with), which are not held here:
-  ``tests/_relayout_gap.py`` measures them against the port's at full
-  size.  No cell is held by a band; the cells of `COLLECTIVES_OPEN`
-  (one: the two-segment xlstm train step, whose backward XLA partitions
-  otherwise than `_xlstm_terms` states) are held in FLOPs and args only.
+  arrays, the sLSTM's for any number of segments, and XLA's windowed
+  re-layouts of their projections' outputs (`relayout_windows`); the
+  cross-attention families' query, context and gate arrays).  No
+  reference array is left out and no cell is held by a band;
+  ``tests/_relayout_gap.py`` sets XLA's re-layouts against the port's at
+  full size.
 """
 import dataclasses
 import json
@@ -94,8 +111,8 @@ TOY = dict(d_model=256, n_heads=16, n_kv_heads=16, d_ff=512, vocab=512)
 
 
 def _cell(arch="tinyllama-1.1b", kind="train", mesh="pod", accum=1,
-          batch=32, serving=False, **cfg):
-    return dict(arch=arch, cfg=dict(TOY, **cfg), kind=kind, seq=128,
+          batch=32, serving=False, seq=128, **cfg):
+    return dict(arch=arch, cfg=dict(TOY, **cfg), kind=kind, seq=seq,
                 batch=batch, mesh=mesh, accum=accum, serving=serving)
 
 
@@ -119,6 +136,22 @@ CELLS = {
     # sequence-parallel fallback (arctic-480b's 56 heads)
     **{f"seqpar-{k}-pod": _cell(kind=k, n_heads=8, n_kv_heads=8)
        for k in ("prefill", "train")},
+    # the same at one row a rank on either mesh (the weights' gradients
+    # from each rank's share of the rows on the pod, from the gathered
+    # rows on the multipod: `models.common._gathered_grad`), and over
+    # rows longer than one attention chunk (the projections on the whole
+    # rows: `models.common._rows_whole`, arctic-480b's train_4k and
+    # prefill_32k)
+    "seqpar-train-pod-b16": _cell(n_heads=8, n_kv_heads=8, batch=16),
+    # arctic-style over those rows: its sequence-parallel attention (8
+    # heads over 4 KV heads) before experts that split the model axis
+    **{f"moe-ep-seqpar-{k}-pod-s2048": _cell(
+        arch="arctic-480b", kind=k, n_heads=8, n_kv_heads=4, n_experts=16,
+        batch=16, seq=2048) for k in ("prefill", "train")},
+    "seqpar-train-multipod": _cell(mesh="multipod", n_heads=8, n_kv_heads=8),
+    **{f"seqpar-{k}-pod-s2048": _cell(kind=k, n_heads=8, n_kv_heads=8,
+                                      batch=16, seq=2048)
+       for k in ("prefill", "train")},
     # the recurrent families: xlstm's 4 heads (too few for the model
     # axis: the mLSTM's sequence-parallel fallback, the value pin), and
     # zamba2's Mamba2 blocks under one shared attention block
@@ -135,26 +168,55 @@ CELLS = {
     # two sLSTM segments, two shared-block applications, so that a term
     # counted per layer, per segment or per application is told from one
     # counted once
-    "xlstm-train-pod-4l": _cell(arch="xlstm-1.3b", n_heads=4, n_kv_heads=4,
-                                d_ff=0, n_layers=4, slstm_every=2),
+    **{f"xlstm-train-pod-{n}l": _cell(arch="xlstm-1.3b", n_heads=4,
+                                      n_kv_heads=4, d_ff=0, n_layers=n,
+                                      slstm_every=2) for n in (4, 6)},
     "zamba2-train-pod-d512-4l": _cell(arch="zamba2-2.7b", d_model=512,
                                       d_head=32, n_layers=4, attn_every=2,
                                       ssm_state=16, ssm_head_dim=16),
-}
-#: cells whose collectives `reckoned` does not hold yet, each with why
-#: (ROADMAP item 17): their FLOPs and args are held as every cell's
-COLLECTIVES_OPEN = {
-    "xlstm-train-pod-4l": "with two sLSTM segments XLA keeps its layer "
-    "loop and partitions the sLSTM's backward otherwise than in the "
-    "one-segment toy `_xlstm_terms` was read from (per step it gathers "
-    "the gates' b*4*ds and reduces h's gradient once, not twice)",
+    # the cross-attention families: whisper's 20 heads of 16 (20 does not
+    # divide the model axis: the sequence-parallel fallback, K/V of the
+    # encoder states whole) and its vocab 518 (does not divide 16, as
+    # 51,866 does not), two encoder and two decoder layers; the vision
+    # model's 32 query heads over 4 KV heads with a gated cross block
+    # every second of its 4 layers (two segments); 64 context rows each
+    **{f"{fam}-{k}-{m}": _cell(arch=arch, kind=k, mesh=m, n_ctx_tokens=64,
+                               **over)
+       for fam, arch, over in (
+           ("whisper", "whisper-large-v3", dict(
+               d_model=320, n_heads=20, n_kv_heads=20, d_ff=640, vocab=518,
+               n_layers=2, n_encoder_layers=2)),
+           ("vlm", "llama-3.2-vision-11b", dict(
+               n_heads=32, n_kv_heads=4, n_layers=4, cross_attn_every=2)))
+       for k, m in (("prefill", "pod"), ("train", "pod"), ("decode", "pod"),
+                    ("train", "multipod"))},
+    # the vision model's train step at three segments, so that a term
+    # counted per segment is told from one counted once or twice
+    "vlm-train-pod-6l": _cell(arch="llama-3.2-vision-11b", n_ctx_tokens=64,
+                              n_heads=32, n_kv_heads=4, n_layers=6,
+                              cross_attn_every=2),
+    # whisper's train step at three decoder layers over one encoder
+    # layer, so that a term counted per decoder layer is told from one
+    # counted per encoder layer
+    "whisper-train-pod-3d1e": _cell(
+        arch="whisper-large-v3", n_ctx_tokens=64, d_model=320, n_heads=20,
+        n_kv_heads=20, d_ff=640, vocab=518, n_layers=3, n_encoder_layers=1),
+    # whisper over 2,048 tokens and 1,500 frames (the published frames,
+    # which do not divide 16), both longer than one attention chunk: the
+    # plan of its production train and prefill cells
+    **{f"whisper-{k}-pod-s2048": _cell(
+        arch="whisper-large-v3", kind=k, batch=16, seq=2048,
+        n_ctx_tokens=1500, d_model=320, n_heads=20, n_kv_heads=20, d_ff=640,
+        vocab=518, n_layers=2, n_encoder_layers=2)
+       for k in ("prefill", "train")},
 }
 #: the full configs at registered shapes on the pod
 FULL = {**{f"full-{s}": dict(arch="tinyllama-1.1b", shape=s, mesh="pod")
            for s in ("prefill_32k", "decode_32k", "train_4k")},
         **{f"full-{a.split('-')[0]}-decode_32k":
            dict(arch=a, shape="decode_32k", mesh="pod")
-           for a in ("xlstm-1.3b", "zamba2-2.7b")}}
+           for a in ("xlstm-1.3b", "zamba2-2.7b", "whisper-large-v3",
+                     "llama-3.2-vision-11b")}}
 #: the zamba2 train cells, compiled once more with the port's
 #: factorisation of the SSD scan's einsums (the FLOP gap's cause)
 SSD_TWO_OPERAND = {f"{n}+ssd2": dict(c, ssd="two_operand")
@@ -222,7 +284,7 @@ def weighted(rec):
 
 
 def router_gap(name):
-    """arctic-style, per layer on one rank's (B 2, G 128) tokens: the
+    """arctic-style, per layer on one rank's (B b, G S) tokens: the
     combine einsum that ``torch.utils.checkpoint`` recomputes (it
     recomputes a block in program order up to the last tensor the
     backward needs, the dense residual's operands, where XLA's
@@ -233,8 +295,9 @@ def router_gap(name):
     recomputes what its own checkpointing policy keeps.  The router's
     other three products (forward and the two of its backward) run on
     each rank's experts in both (`models.moe._router_logits`)."""
-    c = CELLS[name]["cfg"]
-    b, g, d, e, layers = 2, 128, c["d_model"], c["n_experts"], 2
+    D = _dims(name)
+    b, g, d, layers = D["b"], D["S"], D["d"], D["L"]
+    e = CELLS[name]["cfg"]["n_experts"]
     router = 2 * b * g * d * e
     cap = max(int(g * 2 * 1.25 / e), 2)
     combine = 2 * b * g * (e // 16) * cap * d
@@ -255,7 +318,7 @@ def test_flops_and_args_equal_reference(ref, port, name):
     into the zero initial state, so the host count's gap is not there."""
     r, p = ref[name], port[name]
     want = r["flops"] + r["fused_dot_flops"]
-    if name == "moe-ep-pod":
+    if CELLS[name]["arch"] == "arctic-480b" and CELLS[name]["kind"] == "train":
         want += router_gap(name)
     if f"{name}+ssd2" in ref:
         two = ref[f"{name}+ssd2"]
@@ -284,11 +347,12 @@ def _cell_info(name):
 def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
     """The full configs at full width and depth: the per-device FLOPs and
     args of tinyllama-1.1b's pod prefill, decode and train step and of
-    xlstm-1.3b's and zamba2-2.7b's pod decode equal the reference's
-    partitioned compile's; tinyllama's prefill all-reduces too (bf16
-    counting twice), and the recurrent decodes' collectives array by
-    array (`_hold_collectives`: what tells them from the ideal
-    partition, whose FLOPs and args are the same)."""
+    xlstm-1.3b's, zamba2-2.7b's, whisper-large-v3's and
+    llama-3.2-vision-11b's pod decode equal the reference's partitioned
+    compile's; tinyllama's prefill all-reduces too (bf16 counting
+    twice), and the other families' decodes' collectives array by array
+    (`_hold_collectives`: what tells them from the ideal partition,
+    whose FLOPs and args are the same)."""
     c = FULL[name]
     cfg, shape = cfgs.get_config(c["arch"]), SHAPES[c["shape"]]
     rec = dryrun.cell_record(cfg, shape, "pod")
@@ -299,7 +363,7 @@ def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
     if name == "full-prefill_32k":
         assert 2 * rec["collectives"]["bytes_by_op"]["all-reduce"] == \
             r["full_bytes_by_op"]["all-reduce"]
-    if c["arch"] in RECURRENT:
+    if c["arch"] != "tinyllama-1.1b":
         with dryrun.partitioned_cell(get_model(cfg), shape,
                                      make_production_mesh()) as cell:
             count = dryrun.count_step(cell, local=True)
@@ -318,12 +382,15 @@ def _dims(name):
     R = 32 if c["mesh"] == "multipod" else 16
     B = c["batch"] // c["accum"]
     H = cfg["n_heads"]
+    L = cfg["n_layers"]
+    # the vision model's cross blocks (one a segment) and its self blocks
+    Lx = L // cfg["cross_attn_every"] if cfg["cross_attn_every"] else 0
     return dict(a=c["accum"], B=B, b=B // R if B % R == 0 else B // 2,
                 S=c["seq"], T=1 if c["kind"] == "decode" else c["seq"],
                 d=cfg["d_model"], V=cfg["vocab"],
-                F=cfg["d_ff"], L=cfg["n_layers"], H=H,
+                F=cfg["d_ff"], L=L, Ls=L - Lx, Lx=Lx, H=H,
                 KV=cfg["n_kv_heads"], hd=cfg["d_head"] or cfg["d_model"] // H,
-                M=16, R=R,
+                M=16, R=R, C=cfg["n_ctx_tokens"], E=cfg["n_encoder_layers"],
                 square=c["mesh"] == "pod", kind=c["kind"])
 
 
@@ -331,8 +398,53 @@ def _dims(name):
 RECURRENT = ("xlstm-1.3b", "zamba2-2.7b")
 
 
-def _zamba2_terms(D, cfg, train, ref, port):
-    """zamba2's arrays (see `reckoned`)."""
+def relayout_windows(D, cfg, train, relayout) -> dict:
+    """XLA's windowed re-layouts of zamba2's Mamba2 blocks (its ops
+    ``split`` and ``concatenate``), the arrays by kind for the cell of
+    dims ``D`` (`_dims`); ``relayout``: XLA's permutes for the bare
+    block at the cell's dims (``tests/_ref_partition.py``'s
+    ``relayouts``: its forward's, and its gradient's).
+
+    Each layer's in-projection output (blocks of ``cols/M``) is cut into
+    z, x, B and C, dt, x is concatenated with B and C (the conv's
+    channels, blocks of ``conv/M``) and the conv's output cut into x, B,
+    C, each piece laid out by the ``state`` split: XLA moves the windows
+    where a piece's blocks and its source's overlap by collective-
+    permutes, in the forward and, in a train step, again with the pieces'
+    gradients put back (the recompute and the backward); their grouping
+    into permutes is XLA's compact halo exchange, read off the bare
+    block's compile (not reduced here to a closed form).  The
+    concatenation XLA makes by gathering x and B, C at a decode step
+    (``b*d_in``, ``b*2n``), and otherwise by all-to-alls of the rows'
+    share (``b*T/M`` rows of x, of B and C, and of the conv's channels, a
+    pass); the backward's re-lay B's and C's gradients, B and C's
+    together, dt's, x's thrice, the conv input's and the in-projection
+    output's."""
+    b, T, d, L, M = (D[k] for k in ("b", "T", "d", "L", "M"))
+    n = cfg["ssm_state"]
+    d_in = cfg["ssm_expand"] * d
+    h = d_in // cfg["ssm_head_dim"]
+    conv, cols = d_in + 2 * n, 2 * d_in + 2 * n + h
+    out = {"collective-permute": [], "all-gather": [], "all-to-all": []}
+    for phase in ("forward", "grad") if train else ("forward",):
+        out["collective-permute"] += relayout[phase] * L
+    if D["kind"] == "decode":
+        out["all-gather"] += [b * 2 * n, b * d_in] * L
+        return out
+    rows = b * T // M
+    out["all-to-all"] += [rows * 2 * n, rows * d_in, rows * conv] * L * (
+        2 if train else 1)
+    if train:
+        out["all-to-all"] += [rows * n] * 2 * L + \
+            [rows * 2 * n, rows * h] * L + [rows * d_in] * 3 * L + \
+            [rows * conv, rows * cols] * L
+    return out
+
+
+def _zamba2_terms(D, cfg, train, ref, port, relayout):
+    """zamba2's arrays (see `reckoned`); ``relayout``: XLA's arrays for
+    the bare splits of the Mamba2 block at the cell's dims
+    (``tests/_ref_partition.py``'s ``relayouts``)."""
     b, T, d, L, M, R = (D[k] for k in ("b", "T", "d", "L", "M", "R"))
     n, hp, k = cfg["ssm_state"], cfg["ssm_head_dim"], 4
     d_in = 2 * d
@@ -340,6 +452,8 @@ def _zamba2_terms(D, cfg, train, ref, port):
     conv = d_in + 2 * n
     cols = 2 * d_in + 2 * n + h
     passes = 2 if train else 1
+    for kind, sizes in relayout_windows(D, cfg, train, relayout).items():
+        ref[kind] += sizes
     # B and C gathered by XLA for the scan; the port's re-layouts of the
     # in-projection's and the conv's outputs (`models.mamba2._pieces`:
     # each rank's share of z, of the conv's channels and of dt, then
@@ -381,6 +495,15 @@ def _xlstm_terms(D, cfg, kind, ref, port):
     n_m = L - n_s
     decode = kind == "decode"
     passes = 2 if kind == "train" else 1
+    # XLA's windowed re-layout (``split``) of each mLSTM's up-projection
+    # output into its two halves (blocks of 2*d_in/M against pieces of
+    # d_in/M): in the forward only, by collective-permutes of one piece
+    # (three at a decode step) and of two, and, but at a decode step, an
+    # all-to-all of the rows
+    w = b * (1 if decode else T) * d_in // M
+    ref["collective-permute"] += ([w] * (3 if decode else 1) + [2 * w]) * n_m
+    if not decode:
+        ref["all-to-all"] += [2 * w] * n_m
     # the mLSTM's up-projection output re-laid for q/k/v (and z)
     port["all-gather"] += [b * T * 2 * d_in] * n_m * passes
     ref["all-gather"] += ([b * d_in, b * dh] if decode else
@@ -418,16 +541,24 @@ def _xlstm_terms(D, cfg, kind, ref, port):
         ref["all-to-all"] += [T * b * 4 * ds // M] * n_s
         port["all-gather"] += [4 * ds] * n_s
     if kind == "train":
+        # with one sLSTM segment XLA unrolls the step's layers; with more
+        # it keeps its layer loop over the segments and partitions the
+        # sLSTM's backward and w_x's gradient otherwise (``single``)
+        single = n_s == 1
         # the sLSTM's backward, per step: XLA's mirrors the forward's
         # gathers and re-layout, reduces the h gradient's partial sums
-        # twice and the recurrent weights' and the bias's gradient shares
-        # every step; the port reduce-scatters the h gradient onto its
-        # share, and reduces the stacked recurrent weights' gradient
-        # once and each layer's bias gradient once
+        # (twice in one segment, once in the loop, where it gathers the
+        # gates' pre-activations too) and the recurrent weights' and the
+        # bias's gradient shares every step; the port reduce-scatters the
+        # h gradient onto its share, and reduces the stacked recurrent
+        # weights' gradient once and each layer's bias gradient once
         rh = h * dhs * 4 * dhs // M
         ref["all-gather"] += [b * dhs, b * ds] * T * n_s
         ref["collective-permute"] += [b * 4 * ds // M] * T * n_s
-        ref["all-reduce"] += [b * ds, b * ds, rh, 4 * ds // M] * T * n_s
+        ref["all-reduce"] += ([b * ds] * (2 if single else 1) +
+                              [rh, 4 * ds // M]) * T * n_s
+        if not single:
+            ref["all-gather"] += [b * 4 * ds] * T * n_s
         port["reduce-scatter"] += [b * ds // M] * T * n_s
         port["all-reduce"] += [n_s * rh] + [4 * ds] * n_s
         port["all-gather"] += [4 * ds] * n_s
@@ -435,24 +566,30 @@ def _xlstm_terms(D, cfg, kind, ref, port):
         # (over ``model``, then the data axes) and q/k/v's whole, but not
         # w_o over ``model``, the port w_o as in its forward and the
         # up-projection's over the data axes; in the backward XLA
-        # regathers w_x's and w_o's first shares and the head
+        # regathers w_o's first share and the head, and in one segment
+        # w_x's first share and the rows for w_x's gradient
         ref["all-gather"] += [h * dh * d // M] * n_m + \
-            [d * 4 * ds // M] * n_s + \
+            [d * 4 * ds // M, b * T * d] * single * n_s + \
             [d * 2 * d_in // R, d * 2 * d_in] * n_m + \
             [h * dh * dh] * 3 * n_m + [d * D["V"] // M]
         port["all-gather"] += [h * dh * d // R, h * dh * d] * n_m + \
             [d * 2 * d_in // M] * n_m
-        # and it gathers the gates' cumulative sums thrice more, the rows
-        # once more, xh in its layout twice (forward and recompute) and
-        # k once more in the backward
-        ref["all-gather"] += [b * T * h] * 3 * n_m + [b * T * d] + \
+        # and it gathers the gates' cumulative sums thrice more, xh in its
+        # layout twice (forward and recompute) and k once more in the
+        # backward; the rows of each layer's input the port gathers in its
+        # forward and their gradient's in its backward (2 a layer), XLA's
+        # layer loop once a layer and once more in each
+        ref["all-gather"] += [b * T * h] * 3 * n_m + \
             [b * T * d_in] * 3 * n_m
+        port["all-gather"] += [b * T * d] * 2 * (n_m - 1)
         # re-layouts in the backward: XLA moves the input contributions'
         # slices (``T*b*ds/M``) and k's and v's gradients by all-to-alls,
         # the port reduce-scatters k's and v's onto the value split; the
         # port's recompute moves q to the rows again
-        ref["all-to-all"] += [T * b * ds // M] * n_s + \
+        ref["all-to-all"] += [T * b * ds // M] * (2 - single) * n_s + \
             [b * T * h * dh // M] * 2 * n_m
+        # (and in the loop pads them across the model ranks once)
+        ref["collective-permute"] += [T * b * ds // M] * (1 - single) * n_s
         port["all-to-all"] += [b * T * h * dh // M] * n_m
         port["reduce-scatter"] += [b * T * h * dh // M] * 2 * n_m
         # the weights' gradients: XLA reduces each whole over each axis
@@ -466,8 +603,13 @@ def _xlstm_terms(D, cfg, kind, ref, port):
         # gradients twice, the port thrice
         ref["all-reduce"] += [ds * d] * 2 * n_s + [h * dh * d] * 2 * n_m + \
             [2 * d_in * d] * 2 * n_m + [h * dh * dh] * 3 * n_m + \
-            [4 * ds // M * d] * n_s + [b * T * h] * 2 * n_m + \
+            [4 * ds // M * d] * single * n_s + [b * T * h] * 2 * n_m + \
             [b * T * d_in] * 2 * n_m
+        # w_x's gradient: in one segment XLA reduces its share and the
+        # rows', in the loop the whole over both axes, where the port
+        # reduces each layer's input gradient (the rows') over ``model``
+        ref["all-reduce"] += [d * 4 * ds] * 2 * (1 - single) * n_s
+        port["all-reduce"] += [b * T * d] * (1 - single) * n_s
         port["reduce-scatter"] += [ds * d // R, ds * d // (M * R)] * n_s + \
             [h * dh * d // R, h * dh * d // (M * R)] * n_m + \
             [b * T * h * 2 // M] * n_m
@@ -488,7 +630,215 @@ def _xlstm_terms(D, cfg, kind, ref, port):
         port["reduce-scatter"] += [b * T * 2 * d_in // M] * n_m
 
 
-def reckoned(name):
+def _whisper_terms(D, cfg, kind, ref, port):
+    """whisper's arrays (see `reckoned`).  Its 20 heads take the
+    sequence-parallel fallback in all three attentions, its vocab (518)
+    leaves the embedding table split over the data axis on its width
+    alone, and its frames (64) pad to one attention chunk of ``P``
+    rows."""
+    b, S, C, d, F, V, M, R, L, E = (D[k] for k in (
+        "b", "S", "C", "d", "F", "V", "M", "R", "L", "E"))
+    hw = D["H"] * D["hd"]               # an attention weight's width
+    w = d // R * hw                     # its ZeRO-3 shard
+    P = min(1024, max(-(-C // 128) * 128, 128))
+    if S > 1024 and kind != "decode":
+        assert C > 1024, "rows and frames on either side of one chunk"
+        return _whisper_whole_terms(D, kind, ref, port)
+    # XLA permutes one attention weight's shard of each self-attention to
+    # the model axis (`reckoned`'s sequence-parallel terms), and the
+    # head's, in the forward (and the recompute and backward)
+    passes = 1 if kind != "train" else 3
+    if D["square"]:
+        ref["collective-permute"] += [w] * (L + (E if kind != "decode"
+                                                 else 0)) * passes
+        ref["collective-permute"] += [d // R * V] * (2 if kind == "train"
+                                                     else 1)
+    if kind == "decode":
+        # XLA keeps the decode step's residual as partial sums over
+        # ``model`` and reduces each row's mean square for every norm
+        # (``b``), the rows for the FFN, the norms' and the logits'
+        # inputs and each layer's new K and V rows (``b*d``); it looks the
+        # ids up in each rank's share of the table's width and gathers
+        # the rows
+        ref["all-reduce"] += [b] * (3 * L + 1) + [b * d] * (4 * L + 1)
+        ref["all-gather"] += [b * d]
+        return
+    # the encoder's frames: XLA moves each rank's rows to their places in
+    # the chunk they pad to, and back, by collective-permutes
+    k = 2 if kind == "train" else 1
+    ref["collective-permute"] += [b * P // M * d] * k * E + \
+        [b * C // M * d] * k * k * E
+    # the embedding: XLA looks the ids up in each rank's share of the
+    # table's width and gathers the rows; the port moves the ids
+    ref["all-gather"] += [b * S * d]
+    if kind == "prefill":
+        # the port gathers q for its pin and splits it again for the
+        # attention (a layer), which XLA keeps split; XLA gathers the
+        # encoder's residual rows twice a layer (at the block's end and
+        # for its FFN) where the port gathers the attention's output rows
+        port["all-gather"] += [b * S * hw] * L + [b * C * hw] * E
+        ref["all-gather"] += [b * C * d] * 2 * E
+        return
+    # `models.common._gathered_grad`: the weights' gradients from each
+    # rank's share of the rows on the pod, from the gathered rows on the
+    # multipod (its batch split over two mesh axes)
+    share = D["square"]
+    # in the forward, the recompute and the backward the port gathers q
+    # for its pin (4 a decoder layer); XLA regathers one FFN weight a
+    # layer and the cross K or V in the backward, and the encoder's padded
+    # rows once a layer
+    port["all-gather"] += [b * S * hw] * 4 * L
+    ref["all-gather"] += [d * F // M] * (L + E) + [b * C * hw] * L + \
+        [b * P * hw] * E
+    # the gradients of the small leaves: XLA reduces each layer's in its
+    # layer scans, each norm weight's twice (over the batch ranks and
+    # over ``model``, whose ranks hold row shares of what it scales) and
+    # each bias's once, and the final norms' twice; the port each stacked
+    # leaf once (the decoder's three norms and output bias, the
+    # encoder's two and its bias, the FFN input biases, the two final
+    # norms)
+    ref["all-reduce"] += [F // M] * (L + E) + [d] * (7 * L + 5 * E + 4)
+    port["all-reduce"] += [L * F // M, E * F // M] + [L * d] * 4 + \
+        [E * d] * 3 + [d] * 2
+    # the attention weights' gradients: XLA reduces each one's data shard
+    # over ``model`` (all but one weight of each layer, and with two rows
+    # a rank that one too, where the port reduces the cross query's and
+    # the encoder output's whole, from its rows' share); the table's
+    # width share twice (once with one row a rank), where the port
+    # reduces the head's whole (from its rows' share)
+    ref["all-reduce"] += [w] * (7 * L + 3 * E) + \
+        [V * d // R] * (2 if share else 1)
+    if share:
+        ref["all-reduce"] += [w] * (L + E)
+        port["all-reduce"] += [d * hw] * (L + E) + [d * V]
+    # the cross attention's K and V gradients (partial sums over
+    # ``model``): XLA all-reduces them, the port reduce-scatters them onto
+    # the encoder states' rows
+    ref["all-reduce"] += [b * C * hw] * 2 * L
+    port["reduce-scatter"] += [b * C * hw // M] * 2 * L
+    if D["square"]:
+        # XLA re-lays the projections' input gradients by all-to-alls of
+        # the rows' share (a layer, and the logits')
+        ref["all-to-all"] += [b * S * d // M] * (L + 1) + \
+            [b * C * d // M] * E
+
+
+def _whisper_whole_terms(D, kind, ref, port):
+    """whisper's arrays (see `reckoned`) where its tokens and its frames
+    are both longer than one attention chunk (`models.common._rows_whole`):
+    every projection around the sequence-parallel attention runs on the
+    whole rows, in both partitioners, and only the chunks' query rows
+    split."""
+    b, S, C, d, F, V, M, R, L, E = (D[k] for k in (
+        "b", "S", "C", "d", "F", "V", "M", "R", "L", "E"))
+    hw = D["H"] * D["hd"]
+    w = d // R * hw
+    attns = 2 * L + E                   # the decoder's two, the encoder's
+
+    def padded(n):                      # rows padded to whole chunks
+        return -(-n // 1024) * 1024
+
+    train = kind == "train"
+    passes, fwd = (3, 2) if train else (1, 1)
+    # XLA permutes every attention weight's shard to the model axis (in
+    # each pass), and the table's and head's width shards (forward, and
+    # in a train step their gradients back)
+    ref["collective-permute"] += [w] * 4 * attns * passes + \
+        [V * d // R] * (4 if train else 2)
+    # the embedding: XLA looks the ids up in each rank's share of the
+    # table's width and gathers the rows; the port moves its rows (and
+    # their gradient) from the sequence split by an all-to-all
+    ref["all-gather"] += [b * S * d]
+    port["all-to-all"] += [b * S * d] * (2 if train else 1)
+    # each attention's output: XLA gathers the chunk loop's output (rows
+    # padded to whole chunks) in every pass; the port gathers the
+    # decoder's rows before its output projections (forward, recompute),
+    # sums the encoder's padded rows from the ranks that hold them
+    # (`models.common._leading_rows`) and, in the backward, gathers each
+    # attention's query-row gradient
+    ref["all-gather"] += ([b * padded(S) * hw] * 2 * L
+                          + [b * padded(C) * hw] * E) * passes
+    port["all-gather"] += [b * S * hw] * 2 * L * fwd
+    port["all-reduce"] += [b * C * hw] * E * fwd
+    if not train:
+        return
+    port["all-gather"] += [b * padded(S) * hw] * 2 * L + \
+        [b * padded(C) * hw] * E
+    # the K and V gradients (partial sums over ``model``, whose ranks hold
+    # the query rows): XLA reduces them in each query chunk, the port once
+    nq = padded(S) // 1024
+    ref["all-reduce"] += [b * S * hw] * 2 * L * nq + \
+        [b * C * hw] * 2 * L * nq + [b * C * hw] * 2 * E * (padded(C) // 1024)
+    port["all-reduce"] += [b * S * hw] * 2 * L + [b * C * hw] * 2 * (L + E)
+    # the attention weights' gradients: XLA reduces each one's ZeRO-3
+    # shard over ``model``, the port the whole (`parallel.axes.einsum`'s
+    # ``share_grad``: partial sums of the rows' shares); the head's: XLA
+    # its width shard twice, the port the whole
+    ref["all-reduce"] += [w] * 4 * attns + [V * d // R] * 2
+    port["all-reduce"] += [d * hw] * 4 * attns + [d * V]
+    # the small leaves: XLA reduces each layer's once in its layer scans
+    # (the decoder's three norms and output bias, the encoder's two and
+    # its bias, the FFN input biases, the two final norms), the port each
+    # stacked leaf once
+    ref["all-reduce"] += [F // M] * (L + E) + [d] * (4 * L + 3 * E + 2)
+    port["all-reduce"] += [L * F // M, E * F // M] + [L * d] * 4 + \
+        [E * d] * 3 + [d] * 2
+
+
+def _vlm_terms(D, kind, ref, port):
+    """The vision model's arrays (see `reckoned`): its cross blocks', and
+    those its self blocks add to the dense family's per-layer terms,
+    each in a layer scan of its own (one a segment)."""
+    b, d, F, V, H, KV, hd, M, R, n, C = (D[k] for k in (
+        "b", "d", "F", "V", "H", "KV", "hd", "M", "R", "Lx", "C"))
+    if kind == "decode":
+        # the cross attention over the cached image K/V (context rows
+        # split over ``model``), its one query row padded to a chunk of
+        # P: the port gathers the K/V; where they outweigh the padded
+        # queries (the full config's 1,600 patches), XLA gathers the
+        # queries' heads (and one KV group's) instead and reduces the
+        # softmax's max and sum and the output over the context's rows
+        P = 128
+        if C * KV > P * H:
+            port["all-gather"] += [b * C * KV * hd] * 2 * n
+            ref["all-gather"] += [b * P * H * hd, b * P * H // KV * hd] * n
+            ref["all-reduce"] += [b * P * H] * 2 * n + \
+                [b * P * H * hd] * 2 * n
+        return
+    if kind != "train":
+        return
+    kv = max(H // M // (H // KV), 1) * hd   # a rank's KV heads' width
+    w = d // R * KV * hd                    # a K/V weight's ZeRO-3 shard
+    # the cross blocks' norms: XLA reduces each block's gradients, the
+    # port each stacked leaf's
+    ref["all-reduce"] += [d] * 2 * n
+    port["all-reduce"] += [n * d] * 2
+    # the cross blocks' K/V weights (`models.common._grouped_cross`): XLA
+    # all-reduces each block's KV-head slice gradient whole over the
+    # batch ranks, the port reduce-scatters it onto its shard; XLA
+    # reduces each block's K and V gradients over the model ranks that
+    # share their KV head, the port the stacked weights' gradients over
+    # ``model`` once; XLA updates the stacked weights on a split of their
+    # KV heads over those ranks and gathers the updated weights and their
+    # two moments
+    ref["all-reduce"] += [d * kv] * 2 * n + [b * C * kv] * 2 * n
+    port["reduce-scatter"] += [d // R * kv] * 2 * n
+    port["all-reduce"] += [n * w] * 2
+    ref["all-gather"] += [n * w] * 6
+    # the backward regathers what the port keeps from its forward: the
+    # cross blocks' three FFN weights in every block; in every segment
+    # but the last (whose backward follows its forward) the self and
+    # cross blocks' q and o weights, the self block's K and V (permuted
+    # to the model axis again on the pod) and its FFN's gate and up; the
+    # head once
+    ref["all-gather"] += [d * F // M] * 3 * n + \
+        [d * H * hd // M] * 4 * (n - 1) + [d * KV * hd] * 2 * (n - 1) + \
+        [d * F // M] * 2 * (n - 1) + [d * V // M]
+    if D["square"]:
+        ref["collective-permute"] += [w] * 2 * (n - 1)
+
+
+def reckoned(name, relayout=None):
     """``(ref_only, port_only)``: for each collective kind, the arrays
     (by element count) that one partitioner moves and the other does
     not, each computed from the cell's dims (`_dims`) with its cause:
@@ -546,6 +896,21 @@ def reckoned(name):
       block (4 of ``d/R*H*hd`` a layer, where the port reduces it
       whole, ``d*H*hd``), and re-lays the projections' input gradient
       by an all-to-all (``b*S*d/M`` a layer);
+    * the sequence-parallel fallback over rows longer than one attention
+      chunk (``whole_rows``: both partitioners project the whole rows,
+      so no row gathers tell them apart): XLA permutes all four
+      attention weights' shards to the model axis (``4L`` a pass) and
+      the table's width share (the forward, and its gradient back)
+      where the port moves the embedding's rows by an all-to-all
+      (``b*S*d``); in a train step it reduces each attention weight's
+      gradient as its shard (``d/R*H*hd``, the port whole, ``d*H*hd``)
+      and the K and V gradients in each query chunk (the port once);
+    * the sequence-parallel fallback on the multipod, whose batch splits
+      over two mesh axes: both compute the output projection's weight
+      gradient from the gathered rows (`models.common._gathered_grad`),
+      so XLA reduces three weight shards a layer, not four, the port
+      none whole, and neither re-lays the input gradient; XLA permutes
+      no weight there;
     * arctic-style experts (the experts split the model axis; groups of
       ``G = S`` tokens, capacity ``C``), a train step: XLA routes on the
       experts split over ``model``, so the softmax's and each top-k
@@ -570,24 +935,44 @@ def reckoned(name):
       projection's output, XLA's gathers of what its windowed
       re-layouts leave split, the order in which each partitioner
       gathers a weight over the two axes, the per-layer against the
-      stacked reductions of small parameters' gradients, and the sLSTM's
-      per-step arrays.
+      stacked reductions of small parameters' gradients, the sLSTM's
+      per-step arrays (stated for one segment and for XLA's layer loop
+      over several) and XLA's windowed re-layouts (`relayout_windows`,
+      the mLSTM's up-projection halves);
+    * the cross-attention families (`_whisper_terms`, `_vlm_terms`, each
+      array with its cause there): whisper's projections around the
+      sequence-parallel attention, its undivided vocab's embedding and
+      logits, the encoder's padded chunk, the decode step's partial
+      residual; the vision model's K/V heads sliced per rank, its gates,
+      the layer scans of one layer a segment, the decode step's cross
+      attention over the split context rows at full size.
+
+    ``relayout``: XLA's permutes for the bare Mamba2 block at the cell's
+    dims (``tests/_ref_partition.py``'s ``relayouts``; zamba2 only).
     """
     D = _dims(name)
-    a, b, B, S, d, V, F, L = (D[k] for k in "abBSdVFL")
+    a, b, B, S, d, V, F = (D[k] for k in "abBSdVF")
+    L = D["Ls"]                 # the self-attention blocks
     H, KV, hd, M, R = (D[k] for k in ("H", "KV", "hd", "M", "R"))
     c = _cell_info(name)
     ref, port = {k: [] for k in KINDS + ("collective-permute",)}, \
         {k: [] for k in KINDS}
     train = c["kind"] == "train"
-    if train and B >= R:
+    # whisper's vocab does not split the model axis: `_whisper_terms`
+    audio = c["arch"] == "whisper-large-v3"
+    # the sequence-parallel fallback over rows longer than one attention
+    # chunk (`models.common._rows_whole`): the projections run on the
+    # whole rows
+    whole_rows = H < M and S > 1024 and not audio
+    if train and B >= R and not audio:
         ref["all-reduce"] += a * [b * S] * 2
-        ref["all-to-all"] += a * [b * S * d]
+        if not whole_rows:
+            ref["all-to-all"] += a * [b * S * d]
         port["all-to-all"] += a * [b * S * d // M]
-    if train:
+    if train and not audio:
         ref["all-reduce"] += a * [V * d // R]
         port["reduce-scatter"] += a * [V * d // (R * M)]
-    if train and c["arch"] not in RECURRENT:
+    if train and c["arch"] not in RECURRENT and not audio:
         ref["all-reduce"] += a * [d] * 2 * L
         port["all-reduce"] += a * [L * d] * 2
         port["all-gather"] += (a - 1) * [V * d // R, d * V // M]
@@ -612,19 +997,43 @@ def reckoned(name):
         if c["kind"] == "decode":
             ref["all-gather"] += L * [b * H // KV * hd]
             ref["all-reduce"] += L * [b * H * hd]
-    if H < M and not recurrent:
+    if whole_rows and not recurrent:
+        rows, kv = b * S * d, b * S * KV * hd
+        # the q and output weights' ZeRO-3 shards, and the K and V's
+        shards = [d // R * H * hd] * 2 * L + [d // R * KV * hd] * 2 * L
+        ref["collective-permute"] += shards * (3 if train else 1) + \
+            [V * d // (R * M)] * (2 if train else 1)
+        port["all-to-all"] += [rows]
+        if train:
+            nq = -(-S // 1024)
+            ref["all-reduce"] += shards + [kv] * 2 * L * nq
+            port["all-reduce"] += [d * H * hd] * 2 * L + \
+                [d * KV * hd] * 2 * L + [kv] * 2 * L
+    elif H < M and not recurrent:
         rows = b * S * d
-        ref["collective-permute"] += (3 if train else 1) * L * [
-            d // R * H * hd]
+        # `models.common._gathered_grad`: the multipod's batch splits
+        # over two mesh axes
+        gathered = not D["square"]
+        if D["square"]:
+            ref["collective-permute"] += (3 if train else 1) * L * [
+                d // R * H * hd]
         ref["all-gather"] += [rows] * (11 * L + 2 if train else 5 * L + 1)
         port["all-gather"] += [rows] * (10 * L if train else 4 * L)
         if train:
             ref["all-gather"] += [d * F // M] * (2 * L + 1)
             ref["all-reduce"] += [d] * (2 * L + 1) + \
-                [d // R * H * hd] * 4 * L
-            port["all-reduce"] += [d * H * hd] * L
-            ref["all-to-all"] += [rows // M] * L
+                [d // R * H * hd] * (3 if gathered else 4) * L
+            if not gathered:
+                port["all-reduce"] += [d * H * hd] * L
+                ref["all-to-all"] += [rows // M] * L
     E = c["cfg"].get("n_experts", 0)
+    if c["kind"] == "prefill" and E and E % M == 0:
+        # the routing on experts split over ``model`` (see train): XLA
+        # reduces the softmax's and the top-k rounds' terms per token (6
+        # a layer) and gathers the gates twice a layer, the port the
+        # router's logits once
+        ref["all-reduce"] += [b * S] * 6 * L
+        ref["all-gather"] += [b * S * E] * L
     if train and E and E % M == 0:
         G, C = S, max(int(S * 2 * 1.25 / E), 2)
         ref["all-reduce"] += [b * G] * 16 * L
@@ -633,9 +1042,13 @@ def reckoned(name):
             [b * G * E * C] * L
         port["all-reduce"] += [b * G * d] * L
     if c["arch"] == "zamba2-2.7b":
-        _zamba2_terms(D, c["cfg"], train, ref, port)
+        _zamba2_terms(D, c["cfg"], train, ref, port, relayout)
     if c["arch"] == "xlstm-1.3b":
         _xlstm_terms(D, c["cfg"], c["kind"], ref, port)
+    if c["arch"] == "llama-3.2-vision-11b":
+        _vlm_terms(D, c["kind"], ref, port)
+    if audio:
+        _whisper_terms(D, c["cfg"], c["kind"], ref, port)
     if c["serving"]:
         ref["all-gather"] += [B] * 2 * L
         ref["collective-permute"] += [B * F // (R * M)] * L
@@ -669,36 +1082,18 @@ def port_elements(rec):
                       for k, t, n in rec["coll_log"]])
 
 
-@pytest.mark.parametrize("name", [n for n in CELLS
-                                  if n not in COLLECTIVES_OPEN])
+@pytest.mark.parametrize("name", list(CELLS))
 def test_collective_kinds_and_bytes_against_reference(ref, port, name):
     """Every collective array equals the reference's, kind by kind, by
-    element count (`_hold_collectives`), on every cell but those of
-    `COLLECTIVES_OPEN`."""
+    element count (`_hold_collectives`), on every cell."""
     _hold_collectives(ref, name, port[name])
-
-
-#: XLA's ops whose collectives re-lay a dim cut into pieces its blocks
-#: do not line up with: the recurrent families' projection outputs
-#: (Mamba2's in-projection, 1088 columns in blocks of 68, cut into z,
-#: x, B, C and dt; the mLSTM's up-projection cut into its two halves)
-#: and the conv's concatenated input.  XLA moves the windows where a
-#: piece's blocks and the source's overlap, by collective-permutes that
-#: group (source, target) pairs by transfer size (or all-to-alls), which
-#: `reckoned` does not compute, so these arrays are not held; the port's
-#: counterparts (`models.mamba2._pieces`' all-to-alls, the mLSTM's
-#: up-projection gathered whole over ``model``, and their backward) it
-#: does.  ``tests/_relayout_gap.py`` sets the two against each other at
-#: full size.
-RELAYOUT_OPS = ("split", "concatenate")
 
 
 def _hold_collectives(ref, name, count):
     """XLA's CPU compile carries every product and collective in f32, the
     port its bf16 products in bf16: elements, not bytes, are the common
     measure.  Every array equals the reference's, kind by kind, but for
-    the arrays `reckoned` states, and for the recurrent families the
-    reference's `RELAYOUT_OPS`.  An all-to-all's tuple of chunks counts
+    the arrays `reckoned` states.  An all-to-all's tuple of chunks counts
     as one total.  Left out: the token ids (integers: the reference
     permutes its int32 ids, at least one rank's, the port gathers its
     own) and 0-d all-reduces (XLA reduces each leaf's squared norm and
@@ -714,12 +1109,8 @@ def _hold_collectives(ref, name, count):
     for kind, n in r.items():
         if kind != "collective-permute":
             assert w[kind] > 0, (name, kind)
-    arrays = ref[name]["arrays"]
-    if cell["arch"] in RECURRENT:
-        arrays = [a for a in arrays if a[4] not in RELAYOUT_OPS]
-    re_, pe = ref_elements(dict(ref[name], arrays=arrays)), \
-        port_elements(count)
-    ref_only, port_only = reckoned(name)
+    re_, pe = ref_elements(ref[name]), port_elements(count)
+    ref_only, port_only = reckoned(name, ref[name]["relayout"])
     for kind in KINDS:
         want = re_[kind] + Counter(port_only[kind])
         got = pe[kind] + Counter(ref_only[kind])
@@ -730,7 +1121,10 @@ def _hold_collectives(ref, name, count):
     assert re_["collective-permute"] == Counter(
         ref_only["collective-permute"]), (name, re_["collective-permute"])
     train = cell["kind"] == "train"
-    assert pe["scalars"] == (Counter({1: 1}) if train else Counter()), name
+    # the global norm's sum, and the vision model's 0-d gates' gradients
+    gates = 2 * _dims(name)["Lx"]
+    assert pe["scalars"] == (Counter({1: 1 + gates}) if train
+                             else Counter()), name
     assert sum(re_["scalars"].values()) >= train, name
 
 
@@ -774,6 +1168,43 @@ def test_split_contraction_splits_the_weights_contracted_dim(
         x, w = _split_contraction(whole(x_shape), whole(w_shape), eq)
         assert list(x.placements) == [Shard(dim), Replicate()]
         assert list(w.placements) == [Shard(0), Replicate()]
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "arctic-480b",
+                                  "whisper-large-v3"])
+def test_host_mesh_forward_past_one_chunk_equals_plain(arch):
+    """On the degenerate 1 x 1 mesh (one card, as `chip_smoke.py`'s
+    partition phase runs it) every family's heads fall back to the
+    sequence-parallel branch, whose rows split over one rank: a forward
+    over rows longer than one attention chunk runs the plain plan
+    (`models.common._rows_whole` is false there) and equals the plain
+    forward bit for bit."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel.axes import distribute_tree, sharding_rules
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype=torch.float32)
+    api = get_model(cfg)
+    params = api.init(0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (1, 1100), generator=gen,
+                                     dtype=torch.int32)}
+    specs = {"tokens": ("batch", None)}
+    if cfg.n_encoder_layers:
+        batch["ctx"] = torch.randn(1, cfg.n_ctx_tokens, cfg.d_model,
+                                   generator=gen)
+        specs["ctx"] = ("batch", None, None)
+    with torch.no_grad():
+        plain = api.forward(params, batch)
+    host = make_host_mesh("cpu")
+    rules = rules_for(host)
+    with device_mesh(host, "cpu", rules) as dm, sharding_rules(host, rules):
+        dp = distribute_tree(api.param_specs(), params, dm)
+        db = distribute_tree(specs, batch, dm)
+        with torch.no_grad(), implicit_replication():
+            out = api.forward(dp, db)
+        assert torch.equal(out.to_local(), plain), arch
     assert not dist.is_initialized()
 
 

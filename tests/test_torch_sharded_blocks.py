@@ -1,4 +1,5 @@
-"""The partitioned recurrent blocks' values against the plain model's.
+"""The partitioned recurrent and cross-attention models' values against
+the plain model's.
 
 `tests/test_torch_partition.py` holds the partitioned dry-run's FLOPs,
 args and collectives against the reference; the fake process group it
@@ -18,7 +19,12 @@ xlstm runs on a 1 x 8 mesh: its 4 heads cannot split 8 model ranks (the
 sequence-parallel fallback, as on the pod's 16), and the chunk's 128
 rows and the sLSTM's head width split 8 ways.  zamba2 runs on a 2 x 2
 mesh: data and model ranks both, and a square mesh for the permuted
-shard.
+shard.  whisper (5 heads on 2 model ranks: the sequence-parallel
+attention; vocab 129: the undivided vocab's logits) and the vision model
+(4 query heads over 1 KV head: each rank's KV heads of the context) run
+on a 2 x 2 mesh too, whisper once more at 1,040 rows over 1,031 frames,
+past one attention chunk (the projections whole, each weight's gradient
+on the rank's share, the frames padded to two chunks).
 """
 import json
 import math
@@ -38,6 +44,23 @@ CASES = {
                    cfg=dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
                             vocab=128, n_layers=2, attn_every=2,
                             ssm_state=16, ssm_head_dim=16, d_head=16)),
+    "whisper": dict(arch="whisper-large-v3", mesh=(2, 2), batch=2, seq=16,
+                    cfg=dict(d_model=80, n_heads=5, n_kv_heads=5, d_ff=160,
+                             vocab=129, n_layers=2, n_encoder_layers=2,
+                             n_ctx_tokens=8)),
+    # more rows than one attention chunk (1,024): the projections whole,
+    # the weights' gradients on each rank's share; 1,031 frames pad to
+    # two chunks
+    "whisper-long": dict(arch="whisper-large-v3", mesh=(2, 2), batch=2,
+                         seq=1040, cfg=dict(d_model=80, n_heads=5,
+                                            n_kv_heads=5, d_ff=160,
+                                            vocab=129, n_layers=1,
+                                            n_encoder_layers=1,
+                                            n_ctx_tokens=1031)),
+    "vlm": dict(arch="llama-3.2-vision-11b", mesh=(2, 2), batch=2, seq=16,
+                cfg=dict(d_model=64, n_heads=4, n_kv_heads=1, d_ff=128,
+                         vocab=128, n_layers=4, cross_attn_every=2,
+                         n_ctx_tokens=8)),
 }
 #: the largest difference allowed (fp32, sums in another order): absolute
 #: for the logits and the cache, relative to the largest gradient for the
