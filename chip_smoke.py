@@ -187,8 +187,19 @@ Phases, each printing one JSON line:
    the smoke width a Trainer fits 20 steps with a checkpoint every 5 (2
    kept), a fresh Trainer resumes with every leaf bit-equal, and
    ``prune`` keeps what it is told (no full-width checkpoint: 17.6 GB to
-   disk); one ``train`` line.  The kernel table gives each kernel's
-   launches in (a) as ``train_step_launches``.
+   disk); (d) the reference's A/B knobs that act on a train step
+   (``TRAIN_KNOBS``), each beside the default in the same process, as
+   in (a) with five timed steps from (a)'s seed and batches: median
+   s/step and peak memory (over what was allocated before the run) with
+   none and under ``REPRO_REMAT_POLICY=dots`` (the products
+   without batch dims saved, the rest recomputed) and under
+   ``REPRO_FP32_PROBS`` (its first loss within ``TRAIN_FLIP_SCALE``
+   relative of the default's); the ``dots`` forward's logits and gradients against full
+   recompute's (bit-equal, else the largest difference printed and the
+   relative L2 within ``TRAIN_DOTS_REL_L2``) and its host record's FLOPs
+   equal to the card's count of the same step; one ``train`` line.  The
+   kernel table gives each kernel's launches in (a) as
+   ``train_step_launches``.
 12. **serving** — LLM-serving traffic (``bench.serving``, stage 10 with
    telemetry, the event engine under a budget of a whole window's
    ticks): (a) the SMOKE grid through ``serving.main`` on the card, every
@@ -261,14 +272,21 @@ Phases, each printing one JSON line:
    the logits equal the plain forward's bit for bit; (b) rank 0's local
    step of the ``pod`` records of tinyllama-1.1b, zamba2-2.7b and
    whisper-large-v3 at ``train_4k`` (256 x 4096 over 16 x 16, accum 4;
-   no cut) and of llama-3.2-vision-11b at ``decode_32k`` (128 rows
-   against a 32,768-token cache; no cut) (``PARTITION_STEPS``) run with
+   no cut), of llama-3.2-vision-11b at ``decode_32k`` (128 rows
+   against a 32,768-token cache; no cut), of tinyllama-1.1b's
+   ``train_4k`` once more under ``REPRO_SP_RESIDUAL`` (set in the
+   record's worker and around the step) and of grok-1-314b's
+   ``multipod`` ``train_4k`` cut to 2 of its 64 layers at accum 8 (its
+   16 microbatch rows cannot split ``pod`` x ``data``: an unmerged mesh
+   over torch's flattened sub-meshes; peak within
+   ``PARTITION_MULTIPOD_PEAK_RATIO``) (``PARTITION_STEPS``) run with
    CUDA local shards over the fake group, whose collectives move no
    data (the values mean nothing): its FLOPs (counted below DTensor on
    the card), ``args`` and collectives equal the record's, the record's
-   FLOPs equal the reference's partitioned compile's
-   (``PARTITION_REF_FLOPS``, keyed by (arch, shape), pinned: this script
-   imports no JAX) up to the gaps the toy cells reckon, at full size
+   ``knobs`` the step's, the record's FLOPs equal the reference's
+   partitioned compile's where it is pinned (``PARTITION_REF_FLOPS``,
+   keyed by (arch, shape, knobs), pinned: this script imports no JAX;
+   grok-1's cut has none) up to the gaps the toy cells reckon, at full size
    (zamba2's SSD scan: the record equals the reference compiled with the
    port's factorisation of its three-operand einsums,
    ``PARTITION_REF_FLOPS_TWO_OPERAND``; an ideal count, 99.8e12, would
@@ -323,6 +341,8 @@ from repro_torch.bench.kernels_bench import (  # noqa: E402
     decode_launch, device_ms, inject_launch, sweep_state, time_ms,
     weave_launch, weave_state)
 
+# the reference's A/B knobs set for a step or a count in this process
+from repro_torch.launch.dryrun import knobs_set  # noqa: E402
 # the H100 SXM's HBM3 and dense bf16 peaks, from their one home
 from repro_torch.perfmodel.roofline import (  # noqa: E402
     HBM_BW as MEM_BYTES_PER_S, PEAK_FLOPS as BF16_FLOP_PER_S)
@@ -422,6 +442,18 @@ TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL, TRAIN_FLIP_SCALE = 1e-4, 1e-6, 2e-3
 TRAIN_PARAM_ATOL, TRAIN_GRAD_SMALL = 1e-5, 1e-5
 # checkpoints on the card: the smoke width, 20 steps, one every 5, 2 kept
 TRAIN_CKPT_STEPS, TRAIN_CKPT_EVERY, TRAIN_CKPT_KEEP = 20, 5, 2
+# part (d): the reference's A/B knobs that act on a train step, each run
+# beside the default in the same process (the port reads them at each
+# call); the dots step's logits and gradients against full recompute's:
+# bit-equal, else within this relative L2 distance; the fp32-probability
+# step's first loss against the default's (bf16 probabilities) within
+# TRAIN_FLIP_SCALE relative, the scale of one bf16 rounding of the
+# probabilities above (TRAIN_LOSS_RTOL, 1e-5, holds two packages on one
+# rounding: the two roundings differed by 1.4e-5 on another batch,
+# PERF.md)
+TRAIN_KNOBS = (("dots", {"REPRO_REMAT_POLICY": "dots"}),
+               ("fp32_probs", {"REPRO_FP32_PROBS": "1"}))
+TRAIN_DOTS_REL_L2 = 1e-6
 
 
 # weave phase: (stage, preset, sockets, engine), each WEAVE_WINDOWS
@@ -521,22 +553,36 @@ PARTITION_RECORDS = (
     ("whisper-large-v3", None, None, ("train_4k", "decode_32k")),
     ("llama-3.2-vision-11b", None, None, ("decode_32k",)),
     ("llama-3.2-vision-11b", 10, None, ("train_4k",)))
-#: phase (b): the ``pod`` records whose rank-0 step runs, (arch, shape)
-PARTITION_STEPS = (("tinyllama-1.1b", "train_4k"), ("zamba2-2.7b", "train_4k"),
-                   ("whisper-large-v3", "train_4k"),
-                   ("llama-3.2-vision-11b", "decode_32k"))
-#: per-device FLOPs of the reference's partitioned compile of each
-#: ``pod`` step of phase (b) (the JAX package's ``build_cell`` compiled on
-#: 512 forced host devices, ``tests/_ref_partition.py``)
+#: the reference's Megatron-style residual split (an A/B knob)
+SP_RESIDUAL = (("REPRO_SP_RESIDUAL", "1"),)
+#: phase (b): the records whose rank-0 step runs, (arch, shape, mesh,
+#: layers, accum, knobs): the ``pod`` steps, tinyllama-1.1b's once more
+#: under ``REPRO_SP_RESIDUAL``, and grok-1 cut as in `PARTITION_RECORDS`
+#: on the multipod, whose microbatch cannot split ``pod`` x ``data`` (an
+#: unmerged mesh over torch's flattened sub-meshes)
+PARTITION_STEPS = (
+    ("tinyllama-1.1b", "train_4k", "pod", None, None, ()),
+    ("zamba2-2.7b", "train_4k", "pod", None, None, ()),
+    ("whisper-large-v3", "train_4k", "pod", None, None, ()),
+    ("llama-3.2-vision-11b", "decode_32k", "pod", None, None, ()),
+    ("tinyllama-1.1b", "train_4k", "pod", None, None, SP_RESIDUAL),
+    ("grok-1-314b", "train_4k", "multipod", 2, 8, ()))
+#: per-device FLOPs of the reference's partitioned compile of each full
+#: step of phase (b), keyed by (arch, shape, knobs) (the JAX package's
+#: ``build_cell`` compiled on 512 forced host devices with the knobs set
+#: while it traces, ``tests/_ref_partition.py``); grok-1's cut has none
 PARTITION_REF_FLOPS = {
-    ("tinyllama-1.1b", "train_4k"): 51_878_909_968_384,
-    ("zamba2-2.7b", "train_4k"): 128_802_361_442_304,
-    ("whisper-large-v3", "train_4k"): 223_926_277_898_240,
-    ("llama-3.2-vision-11b", "decode_32k"): 31_194_087_424}
+    ("tinyllama-1.1b", "train_4k", ()): 51_878_909_968_384,
+    ("zamba2-2.7b", "train_4k", ()): 128_802_361_442_304,
+    ("whisper-large-v3", "train_4k", ()): 223_926_277_898_240,
+    ("llama-3.2-vision-11b", "decode_32k", ()): 31_194_087_424,
+    ("tinyllama-1.1b", "train_4k", SP_RESIDUAL): 46_209_553_137_664}
 #: the same compile with the port's two-operand factorisation of the SSD
 #: scan's einsums (``ssd="two_operand"``): the record's FLOPs equal it
 PARTITION_REF_FLOPS_TWO_OPERAND = {
-    ("zamba2-2.7b", "train_4k"): 128_791_036_821_504}
+    ("zamba2-2.7b", "train_4k", ()): 128_791_036_821_504}
+#: grok-1's multipod step: its peak within 5% of its record
+PARTITION_MULTIPOD_PEAK_RATIO = (0.95, 1.05)
 #: host processes that count phase (c)'s records (and (b)'s) while the
 #: card runs (b)'s steps
 PARTITION_WORKERS = 5
@@ -2990,14 +3036,126 @@ def train_checkpoints(dev):
     return out
 
 
+def train_knob_steps(dev):
+    """Part (d): tinyllama-1.1b at full width, B x S as part (a), through
+    the Trainer with none and with each of `TRAIN_KNOBS` set, from part
+    (a)'s seed and batches: each run's median step and its peak memory
+    over what was allocated before its Trainer was built (what earlier
+    parts left allocated is printed, ``allocated_before_gb``).  The
+    ``dots`` forward's logits and gradients against full recompute's,
+    and the host record under ``dots`` against the FLOPs the card counts
+    in its step (as phase 16 holds the default's)."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = get_config(TRAIN_ARCH)
+    api = get_model(cfg)
+    batches = train_batches(cfg, TRAIN_TIMED + 1, TRAIN_B, TRAIN_S)
+    runs = {}
+    for name, env in (("default", {}),) + TRAIN_KNOBS:
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        with knobs_set(env):
+            trainer = Trainer(api, opt.AdamWConfig(**TRAIN_OPT),
+                              TrainerConfig(total_steps=0, ckpt_every=0,
+                                            log_every=10 ** 9),
+                              seed=0, device=dev, log_fn=quiet)
+            walls, res = [], {"losses": [], "grad_norms": []}
+            train_one(trainer, batches[0], walls, res)     # warm
+            torch.cuda.reset_peak_memory_stats()
+            for b in batches[1:]:
+                train_one(trainer, b, walls, res)
+            runs[name] = {"env": env, "step_s": float(np.median(walls[1:])),
+                          "walls_s": walls,
+                          "peak_mem_gb": (torch.cuda.max_memory_allocated()
+                                          - before) / 1e9,
+                          "allocated_before_gb": before / 1e9,
+                          "losses": res["losses"],
+                          "grad_norms": res["grad_norms"]}
+        del trainer
+    torch.cuda.empty_cache()
+
+    # logits and gradients: dots against full recompute, one forward and
+    # backward of the same params and tokens
+    params = api.init(0, device=dev)
+    tokens = torch.from_numpy(batches[0]["tokens"]).to(dev)
+    labels = torch.from_numpy(batches[0]["labels"]).to(dev).long()
+    got = {}
+    for policy in ("full", "dots"):
+        tracked = map_tree(lambda p: p.detach().requires_grad_(True), params)
+        with knobs_set({"REPRO_REMAT_POLICY": policy}):
+            logits = api.forward(tracked, {"tokens": tokens})
+            loss = torch.nn.functional.cross_entropy(
+                logits.float().flatten(0, 1), labels.flatten())
+            grads = torch.autograd.grad(loss, list(leaves(tracked)))
+        got[policy] = (logits.detach(), [g.detach() for g in grads])
+        del tracked, logits, loss, grads
+    (lf, gf), (ld, gd) = got["full"], got["dots"]
+    bit_equal = torch.equal(lf, ld) and all(torch.equal(a, b)
+                                            for a, b in zip(gf, gd))
+    pairs = [(ld, lf)] + list(zip(gd, gf))
+    largest = max(float((a.float() - b.float()).abs().max())
+                  for a, b in pairs)
+    rel = max(rel_l2(a.float(), b.float()) for a, b in pairs)
+    del got, params, lf, gf, ld, gd
+    torch.cuda.empty_cache()
+
+    # the host record under dots against the card's counted FLOPs
+    shape = ShapeConfig("train_2k_b4", "train", TRAIN_S, TRAIN_B)
+    with knobs_set(dict(TRAIN_KNOBS)["dots"]), \
+            tempfile.TemporaryDirectory() as tmp:
+        rec = dryrun.run_cell(TRAIN_ARCH, shape, "host", report_dir=tmp,
+                              force=True, accum=1, verbose=False)
+        cell = dryrun.build_cell(api, shape, accum=1, device=dev)
+        flops, step_peak, _ = roofline_step(cell, dev)
+        del cell
+    torch.cuda.empty_cache()
+    base = runs["default"]
+    out = {"card": card_line(), "runs": runs,
+           "dots": {"logits_grads_bit_equal": bit_equal,
+                    "largest_abs_diff": largest, "rel_l2": rel,
+                    "rel_l2_limit": TRAIN_DOTS_REL_L2,
+                    "record_knobs": rec["knobs"],
+                    "flops_record": rec["hlo_flops_dev"],
+                    "flops_card": flops,
+                    "temp_record": rec["memory_analysis"]["temp"],
+                    "step_peak_card_bytes": step_peak,
+                    "step_s_over_default": runs["dots"]["step_s"]
+                    / base["step_s"],
+                    "peak_over_default": runs["dots"]["peak_mem_gb"]
+                    / base["peak_mem_gb"]},
+           "fp32_probs": {"step_s_over_default": runs["fp32_probs"]["step_s"]
+                          / base["step_s"],
+                          "first_loss_rel_diff": abs(
+                              runs["fp32_probs"]["losses"][0]
+                              - base["losses"][0]) / abs(base["losses"][0]),
+                          "loss_rtol": TRAIN_FLIP_SCALE}}
+    finite = all(np.isfinite(r["losses"] + r["grad_norms"]).all()
+                 for r in runs.values())
+    if not (finite and (bit_equal or rel <= TRAIN_DOTS_REL_L2)
+            and flops == rec["hlo_flops_dev"]
+            and rec["knobs"]["REPRO_REMAT_POLICY"] == "dots"
+            and out["fp32_probs"]["first_loss_rel_diff"] <= TRAIN_FLIP_SCALE):
+        raise AssertionError(f"train (d): {out}")
+    return out
+
+
 def train_phase(dev):
-    """Phase 11c: the training path on the card (parts a-c), one ``train``
+    """Phase 11c: the training path on the card (parts a-d), one ``train``
     line.  Returns the hand-written kernels' launches in part (a)."""
     full = train_full_width(dev)
     parity = train_card_vs_cpu(dev)
     ckpts = train_checkpoints(dev)
+    knobs = train_knob_steps(dev)
     emit({"phase": "train", "full_width": full, "card_vs_cpu": parity,
-          "checkpoints": ckpts})
+          "checkpoints": ckpts, "knobs": knobs})
     return full["launches"]
 
 
@@ -3733,12 +3891,14 @@ def partition_forward(dev):
     return row
 
 
-def partition_local_step(dev, card, arch, shape_name, record):
-    """17 (b): rank 0's local step of ``arch``'s ``pod`` record at
-    ``shape_name`` on the card, against the record (``record()``: it and
-    its count's wall time, counted on meta tensors on the host), and the
+def partition_local_step(dev, card, step, record):
+    """17 (b): rank 0's local step on the card of the record ``step``
+    (`PARTITION_STEPS`: arch, shape, mesh, layers, accum, knobs; the
+    knobs set around the step in this process, the record's count having
+    set them in its worker), against the record (``record()``: it and its
+    count's wall time, counted on meta tensors on the host), and the
     record against the reference's partitioned compile
-    (`PARTITION_REF_FLOPS`)."""
+    (`PARTITION_REF_FLOPS`, where it has the step)."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs.registry import get_config
@@ -3747,14 +3907,18 @@ def partition_local_step(dev, card, arch, shape_name, record):
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.registry import get_model
 
+    arch, shape_name, mesh_name, layers, accum, knobs = step
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = SHAPES[shape_name]
-    key = (arch, shape_name)
+    key = (arch, shape_name, knobs)
     rec, record_s = record()
-    mesh = make_production_mesh()
+    mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
     torch.cuda.empty_cache()
-    with dryrun.partitioned_cell(get_model(cfg), shape, mesh,
-                                 device=dev.type) as cell:
+    with knobs_set(dict(knobs)), \
+            dryrun.partitioned_cell(get_model(cfg), shape, mesh,
+                                    accum=accum, device=dev.type) as cell:
         args = float(sum(dryrun.tree_bytes(a) for a in cell.args))
         torch.cuda.synchronize(dev)
         before = torch.cuda.memory_allocated(dev)
@@ -3779,8 +3943,10 @@ def partition_local_step(dev, card, arch, shape_name, record):
     mem = rec["memory_analysis"]
     measured = args + step_peak
     counted_peak_pred = args + counted["temp"]
-    row = {"phase": "partition", "part": "pod_local_step",
-           "arch": cfg.name, "shape": shape.name, "card": card,
+    row = {"phase": "partition", "part": "local_step",
+           "arch": cfg.name, "shape": shape.name, "mesh": mesh_name,
+           "layers": cfg.n_layers, "knobs": dict(knobs),
+           "record_knobs": rec["knobs"], "card": card,
            "global_batch": shape.global_batch, "seq": shape.seq_len,
            "accum": rec["accum"], "chips": rec["chips"],
            "record_count_s": record_s, "card_count_s": counted_s,
@@ -3803,16 +3969,19 @@ def partition_local_step(dev, card, arch, shape_name, record):
            "wall_over_compute_plus_memory":
                wall / (rec["compute_s"] + rec["memory_s"]),
            "partition": rec["partition"],
-           "flops_reference": PARTITION_REF_FLOPS[key],
+           "flops_reference": PARTITION_REF_FLOPS.get(key),
            "flops_reference_two_operand_ssd":
                PARTITION_REF_FLOPS_TWO_OPERAND.get(key),
            "flops_gap_to_reference":
-               rec["hlo_flops_dev"] - PARTITION_REF_FLOPS[key]}
+               rec["hlo_flops_dev"] - PARTITION_REF_FLOPS[key]
+               if key in PARTITION_REF_FLOPS else None}
     emit(row)
-    lo, hi = PARTITION_PEAK_RATIO
+    lo, hi = (PARTITION_MULTIPOD_PEAK_RATIO if mesh_name == "multipod"
+              else PARTITION_PEAK_RATIO)
     want = PARTITION_REF_FLOPS_TWO_OPERAND.get(key) or \
-        PARTITION_REF_FLOPS[key]
+        PARTITION_REF_FLOPS.get(key, rec["hlo_flops_dev"])
     if not (rec["partition"] == "dtensor" and rec["hlo_flops_dev"] == want
+            and rec["knobs"] == dict(dryrun.knobs(), **dict(knobs))
             and counted["flops"] == rec["hlo_flops_dev"]
             and args == mem["args"] and row["collectives_equal"]
             and lo <= row["peak_ratio_to_record"] <= hi
@@ -3823,10 +3992,12 @@ def partition_local_step(dev, card, arch, shape_name, record):
 
 def _partition_count(job):
     """One host count of phase 17, in a worker process: ``job`` is
-    ``(arch, layers, accum, shape, meshes, partition)``; the records of
-    ``shape``'s step on each of ``meshes`` (ideal records of one cell share
-    one count), each with its wall time."""
-    arch, layers, accum, name, meshes, partition = job
+    ``(arch, layers, accum, shape, meshes, partition, knobs)``; the records
+    of ``shape``'s step on each of ``meshes`` (ideal records of one cell
+    share one count), each with its wall time.  The knobs are set in this
+    worker's environment for the count alone (a worker runs one job at a
+    time; the parent's environment is left as it is)."""
+    arch, layers, accum, name, meshes, partition, knobs = job
     torch.set_num_threads(1)
     from repro_torch.configs.registry import get_config
     from repro_torch.configs.shapes import SHAPES
@@ -3836,28 +4007,35 @@ def _partition_count(job):
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     out = {}
-    for mesh in meshes:
-        t0 = time.perf_counter()
-        out[mesh] = (dryrun.cell_record(cfg, SHAPES[name], mesh,
-                                        partition=partition, accum=accum),
-                     time.perf_counter() - t0)
+    with knobs_set(dict(knobs)):
+        for mesh in meshes:
+            t0 = time.perf_counter()
+            out[mesh] = (dryrun.cell_record(cfg, SHAPES[name], mesh,
+                                            partition=partition,
+                                            accum=accum),
+                         time.perf_counter() - t0)
     return out
 
 
+def _step_key(step):
+    """The `_partition_jobs` key of a (b) step's record."""
+    arch, name, mesh, layers, _, knobs = step
+    return (arch, layers, name, "dtensor", (mesh,), knobs)
+
+
 def _partition_jobs():
-    """Phase 17's host counts: (b)'s ``pod`` records, and (c)'s
-    partitioned record on each mesh and ideal records (one count for
-    both meshes), keyed by ``(arch, layers, shape, partition, meshes)``."""
-    jobs = {(arch, None, name, "dtensor", ("pod",)):
-            (arch, None, None, name, ("pod",), "dtensor")
-            for arch, name in PARTITION_STEPS}
+    """Phase 17's host counts: (b)'s records, and (c)'s partitioned
+    record on each mesh and ideal records (one count for both meshes),
+    keyed by ``(arch, layers, shape, partition, meshes, knobs)``."""
+    jobs = {_step_key(st): (st[0], st[3], st[4], st[1], (st[2],), "dtensor",
+                            st[5]) for st in PARTITION_STEPS}
     for arch, layers, accum, shapes in PARTITION_RECORDS:
         for name in shapes:
             for meshes, part in ((("pod",), "dtensor"),
                                  (("multipod",), "dtensor"),
                                  (("pod", "multipod"), "ideal")):
-                jobs[(arch, layers, name, part, meshes)] = (
-                    arch, layers, accum, name, meshes, part)
+                jobs[(arch, layers, name, part, meshes, ())] = (
+                    arch, layers, accum, name, meshes, part, ())
     return jobs
 
 
@@ -3870,10 +4048,10 @@ def partition_records(counts):
     for arch, layers, accum, shapes in PARTITION_RECORDS:
         for name in shapes:
             ideal = counts[(arch, layers, name, "ideal",
-                            ("pod", "multipod"))]()
+                            ("pod", "multipod"), ())]()
             for mesh in ("pod", "multipod"):
                 d, d_s = counts[(arch, layers, name, "dtensor",
-                                 (mesh,))]()[mesh]
+                                 (mesh,), ())]()[mesh]
                 i, i_s = ideal[mesh]
                 got = {"dtensor": d, "ideal": i}
                 row = {"phase": "partition", "part": "records",
@@ -3925,18 +4103,18 @@ def partition_phase(dev):
         counts = {k: (lambda f=f: f.result()) for k, f in futures.items()}
         fwd = partition_forward(dev)
         steps = [partition_local_step(
-            dev, card, arch, name,
-            lambda k=(arch, None, name, "dtensor", ("pod",)):
-            counts[k]()["pod"])
-            for arch, name in PARTITION_STEPS]
+            dev, card, st,
+            lambda k=_step_key(st), m=st[2]: counts[k]()[m])
+            for st in PARTITION_STEPS]
         rows = partition_records(counts)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     emit({"phase": "partition", "part": "summary", "card": card,
           "wall_s": time.perf_counter() - t0,
           "host_forward_bit_equal": fwd["logits_bit_equal"],
-          "pod_step_wall_s": {f"{s['arch']} {s['shape']}": s["step_wall_s"]
-                              for s in steps},
+          "step_wall_s": {f"{s['arch']} {s['shape']} {s['mesh']}"
+                          + "".join(f" {k}" for k in s["knobs"]):
+                          s["step_wall_s"] for s in steps},
           "records": len(rows)})
 
 

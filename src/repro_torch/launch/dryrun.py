@@ -71,10 +71,16 @@ The meshes (``--mesh``):
 Each record keeps the reference's keys (so `perfmodel.report` and
 `bench.roofline_bench` read either kind) plus ``partition``,
 ``collectives_scope`` and ``peak`` (the constants used);
-``compile_s`` holds the count's wall time.  Records go to
-``reports/torch/dryrun[_opt]/<mesh>/<arch>__<shape>.json``; a record on
-disk is reused unless ``--force``.  A config with ``use_flash_kernel``
-raises: the counter cannot see the kernel's launch.
+``compile_s`` holds the count's wall time, and ``knobs`` the values of
+the reference's four A/B knobs the models read while the step was
+counted (``KNOBS``: ``REPRO_NO_SP``, ``REPRO_SP_RESIDUAL``,
+``REPRO_REMAT_POLICY``, ``REPRO_FP32_PROBS``; empty where unset).
+Records go to ``reports/torch/dryrun[_opt]/<mesh>/<arch>__<shape>.json``;
+a record on disk is reused unless ``--force``, and only where its
+``knobs`` equal the environment's (a record without the key counts as
+counted with none set); otherwise the cell is counted again and the
+record written over.  A config with ``use_flash_kernel`` raises: the
+counter cannot see the kernel's launch.
 
 ``--all`` is slow for xlstm-1.3b's long cells: its sLSTM loop runs over
 time, op by op (about 7.5 s per 256 tokens of forward on meta at full
@@ -96,6 +102,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import pathlib
 import sys
 import time
@@ -137,6 +144,38 @@ DEFAULT_ACCUM = 4
 BF16_OPT_STATE = {"arctic-480b", "grok-1-314b"}
 
 MESHES = ("host", "pod", "multipod")
+
+#: the reference's A/B knobs, environment variables the models read at
+#: each call (`models.common.heads_tp_available`, `probs_dtype`,
+#: `models.transformer.residual_spec`, `remat_policy`)
+KNOBS = ("REPRO_NO_SP", "REPRO_SP_RESIDUAL", "REPRO_REMAT_POLICY",
+         "REPRO_FP32_PROBS")
+
+
+def knobs() -> dict:
+    """Each of ``KNOBS`` as the environment sets it now, ``""`` where
+    unset."""
+    return {k: os.environ.get(k, "") for k in KNOBS}
+
+
+@contextlib.contextmanager
+def knobs_set(env):
+    """The knobs ``env`` (names of ``KNOBS`` to values) set in this
+    process's environment for the enclosed scope, the previous values
+    restored after: a count, or a step, under them."""
+    unknown = set(env or {}) - set(KNOBS)
+    if unknown:
+        raise ValueError(f"not a knob: {sorted(unknown)}; one of {KNOBS}")
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 #: the logical names whose mesh axes a weight is gathered over
 _GATHERED = ("fsdp", "embed")
@@ -506,8 +545,15 @@ def _shape(shape) -> ShapeConfig:
     return SHAPES[shape] if isinstance(shape, str) else shape
 
 
-@functools.lru_cache(maxsize=8)
 def _counted(cfg, shape: ShapeConfig, serving: bool, accum: int | None):
+    return _counted_under(cfg, shape, serving, accum,
+                          tuple(knobs().values()))
+
+
+@functools.lru_cache(maxsize=8)
+def _counted_under(cfg, shape: ShapeConfig, serving: bool,
+                   accum: int | None, _knobs: tuple):
+    """`count_step` of the cell, kept per value of the knobs."""
     api = get_model(cfg)
     cell = build_cell(api, shape, serving=serving, accum=accum)
     return api, cell, count_step(cell)
@@ -577,7 +623,7 @@ def cell_record(cfg, shape: ShapeConfig, mesh: str, *,
                             LINK_BW=roof.LINK_BW[mesh]),
                   kind=shape.kind, global_batch=shape.global_batch,
                   seq_len=shape.seq_len, accum=cell.accum,
-                  variant=variant)
+                  variant=variant, knobs=knobs())
     return record
 
 
@@ -595,7 +641,9 @@ def run_cell(arch: str, shape, mesh: str = "host", *,
     outdir.mkdir(parents=True, exist_ok=True)
     outfile = outdir / f"{arch}__{shape.name}.json"
     if outfile.exists() and not force:
-        return json.loads(outfile.read_text())
+        record = json.loads(outfile.read_text())
+        if record.get("knobs", dict.fromkeys(KNOBS, "")) == knobs():
+            return record
 
     record = cell_record(cfgs.get_config(arch), shape, mesh,
                          variant=variant, accum=accum)

@@ -37,19 +37,28 @@ Conventions
   (`_rows_whole`), and the weights' gradients come from the gathered
   rows where the batch splits over two mesh axes (`_gathered_grad`).
   On plain tensors, or with no rules installed, all of it is the
-  identity and the products are the plain ones.  The
-  reference's A/B measurement knob ``REPRO_NO_SP`` (turn the
-  sequence-parallel branch off) is not ported.  The logical axis names
+  identity and the products are the plain ones.  The logical axis names
   of each weight are kept as data (``*_specs``: one tuple of names per
   leaf, one name per dim), which `parallel.axes` resolves.
 * Training recomputes each block's activations in the backward pass
   (`recompute`, the reference's ``jax.checkpoint`` around the same
   blocks); a forward that autograd does not record runs plainly.
+* The reference's four A/B knobs are environment variables read at each
+  call where the reference reads them while tracing: ``REPRO_NO_SP``
+  (`heads_tp_available`: no sequence-parallel fallback, heads too few
+  for the model axis whole on every model rank, each attention weight's
+  shard moved to the model axis), ``REPRO_FP32_PROBS`` (`probs_dtype`),
+  and, in `models.transformer`, ``REPRO_SP_RESIDUAL`` (the residual's
+  rows split over ``model``) and ``REPRO_REMAT_POLICY=dots`` (`recompute`'s
+  ``dots`` policy for the decoder-only layer loop).  Non-empty turns a
+  knob on; the policy only where it equals ``dots``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 from typing import Any
 
 import torch
@@ -57,13 +66,16 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.parallel.axes import (P, _mesh, _rules, all_to_all,
                                        axis_sizes, einsum, gather_fsdp,
-                                       gather_share, is_dtensor,
-                                       placements, reduce_grad_partial,
+                                       gather_share, gathered_out,
+                                       in_no_batch_product,
+                                       is_dtensor, placements,
+                                       product_scope, reduce_grad_partial,
                                        reduce_partial, resolve, serving_mode,
                                        shard, sharding_rules, transpose_local,
                                        transpose_shard, transposable)
@@ -73,10 +85,12 @@ from repro_torch.tree import leaves
 def _plain_product(eq: str, x, w):
     """``einsum(eq, x, w)`` for the projections' equations, as the plain
     products the port runs: x (..., d) @ w (d, *out), or for the
-    attention output x (..., H, D) @ w (H, D, d)."""
-    if eq == "bshk,hkd->bsd":
-        return x.reshape(*x.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
-    return _proj(x, w)
+    attention output x (..., H, D) @ w (H, D, d).  Marked by its
+    equation for the recompute policy (`product_scope`)."""
+    with product_scope(eq):
+        if eq == "bshk,hkd->bsd":
+            return x.reshape(*x.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+        return _proj(x, w)
 
 
 #: the attention's query chunk (`attention`'s default ``chunk``)
@@ -186,7 +200,7 @@ def transposed_product(x, w, eq: str, product=None):
     if "model" not in mesh.mesh_dim_names:
         return None
     m = _model_dim(mesh)
-    src = [i for i, p in enumerate(w.placements) if p == Shard(0)]
+    src = [i for i, p in enumerate(w.placements) if isinstance(p, Shard)]
     if len(src) != 1 or not transposable(w, src[0], m):
         return None
     ins, out = eq.split("->")
@@ -194,7 +208,11 @@ def transposed_product(x, w, eq: str, product=None):
     sizes = dict(zip(lx, x.to_local().shape))
     sizes.update(zip(lw, w.shape))
     y = math.prod(sizes[c] for c in out)
-    mode = ("whole_grad" if y < w.numel() else "whole_forward")
+    # a split the output keeps (the attention output's weight, its
+    # ``embed`` dim last) runs whole forward, as the reference's does
+    kept = lw[w.placements[src[0]].dim] in out
+    mode = ("whole_grad" if y < w.numel() and not kept
+            else "whole_forward")
     wt = transpose_shard(w, src[0], m)
     return reduce_partial(einsum(eq, x, wt, product or _plain_product,
                                  **{mode: "model"}))
@@ -389,12 +407,44 @@ def cast_params(cfg: ModelConfig, tree):
     return tree
 
 
-def recompute(fn, params, *args):
+#: the ops by which a product marked by `product_scope` computes its
+#: output, and reduces its partial sums on a mesh: what the ``dots``
+#: policy saves
+_PRODUCT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+                torch.ops._c10d_functional.all_reduce.default)
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """The ``dots`` policy: save the output of every product with no
+    batch dims (marked by its equation, `product_scope`: not told by the
+    aten op, since an einsum without batch dims may run as ``bmm`` over a
+    batch of one), its partial sums reduced where it runs on a mesh (the
+    reference saves the partitioned ``dot_general``'s result); recompute
+    everything else."""
+    if func in _PRODUCT_OPS and in_no_batch_product():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+#: recompute policies: the reference's plain ``jax.checkpoint`` and its
+#: ``checkpoint_dots_with_no_batch_dims``
+REMAT_POLICIES = ("full", "dots")
+
+
+def recompute(fn, params, *args, policy: str = "full"):
     """``fn(*args)``; when autograd records it (grad mode on and a leaf
     of ``params``, the block's weights, requiring grad) its activations
     are dropped after the forward and recomputed in the backward pass,
     as the reference's ``jax.checkpoint`` does: the same values, one
-    block's activations alive at a time."""
+    block's activations alive at a time.  ``policy="dots"`` keeps the
+    outputs of the products with no batch dims (the projections and the
+    FFN's) and recomputes the rest (the norms, the rotation, the
+    attention), the reference's ``checkpoint_dots_with_no_batch_dims``
+    (``torch.utils.checkpoint``'s selective mode)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"recompute policy {policy!r}: one of "
+                         f"{REMAT_POLICIES}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in leaves(params)):
         # the recompute may run on the autograd engine's device thread:
@@ -405,8 +455,12 @@ def recompute(fn, params, *args):
             with sharding_rules(mesh, rules):
                 return fn(*a)
 
+        kw = {}
+        if policy == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
         return checkpoint(rerun, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+                          preserve_rng_state=False, **kw)
     return fn(*args)
 
 
@@ -437,18 +491,26 @@ def apply_rope(x, cos, sin):
 
 def heads_tp_available(n: int) -> bool:
     """True if ``n`` heads can shard the ``model`` axis (divisibility)
-    under the installed rules; False with no rules.  The reference's
-    ``REPRO_NO_SP`` knob (force True, an A/B measurement) is not
-    ported."""
+    under the installed rules; False with no rules.  True where
+    ``REPRO_NO_SP`` is set non-empty (the reference's A/B knob, read at
+    each call: the sequence-parallel fallback off, the heads whole on
+    every model rank where they do not divide it)."""
+    if os.environ.get("REPRO_NO_SP"):
+        return True
     spec = resolve(("heads",), (n,))
     return len(spec) > 0 and spec[0] is not None
 
 
-#: the dtype probabilities and V are rounded to before the chunked
-#: route's P·V product (and the mLSTM's decay-weighted scores before
-#: theirs), which accumulate in fp32: bf16, the reference's default (its
-#: ``_probs_dtype``)
-PROBS_DTYPE = torch.bfloat16
+def probs_dtype() -> torch.dtype:
+    """The dtype probabilities and V are rounded to before the chunked
+    route's P·V product (and the mLSTM's decay-weighted scores before
+    theirs), which accumulate in fp32: bf16, or fp32 where
+    ``REPRO_FP32_PROBS`` is set non-empty (the reference's
+    ``_probs_dtype``, an A/B knob read at each call).  The flash routes
+    do not read it: ``sm90_bf16`` rounds P to bf16 by design, and
+    ``cuda_core`` is fp32."""
+    return torch.float32 if os.environ.get("REPRO_FP32_PROBS") \
+        else torch.bfloat16
 
 
 def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
@@ -458,8 +520,8 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
     q (B,S,Hq,D); k,v (B,T,Hkv,D), Hq % Hkv == 0.  The GQA group dim is
     contracted by einsum, so the repeated KV is never materialized.
     Loops over query chunks so peak score memory is (B,Hkv,G,chunk,T).
-    Probabilities are rounded to `PROBS_DTYPE` (bf16) before the PV
-    product, which accumulates in fp32, as the reference does by default.
+    Probabilities are rounded to `probs_dtype()` (bf16 by default)
+    before the PV product, which accumulates in fp32, as the reference's.
     ``q_start``: the position of q's first row among k's (default
     ``T - S``: q is the last S rows), for a slice of the rows.
     """
@@ -472,7 +534,8 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
     qp = F.pad(q, (0, 0, 0, 0, 0, nq * chunk - s))
     qc = qp.reshape(b, nq, chunk, hkv, g, d)
     kf = k.float()
-    vb = v.to(PROBS_DTYPE).float()
+    pdt = probs_dtype()
+    vb = v.to(pdt).float()
     kpos = torch.arange(t, device=q.device)[None, :]
     q_start = t - s if q_start is None else q_start
     outs = []
@@ -489,7 +552,7 @@ def _chunked_attention(q, k, v, *, causal: bool, chunk: int,
         p = torch.exp(sc - torch.where(torch.isfinite(m), m, 0.0))
         l = p.sum(-1, keepdim=True).clamp_min(1e-30)
         o = torch.einsum("bchgt,bthd->bchgd",
-                         p.to(PROBS_DTYPE).float(), vb)
+                         p.to(pdt).float(), vb)
         outs.append((o / l).to(q.dtype))
     o = torch.stack(outs, 1).reshape(b, nq * chunk, hq, d)
     return o[:, :s]
@@ -687,8 +750,11 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
     """Project + rope.  x (B,S,d) -> q (B,S,Hq,D), k/v (B,S,Hkv,D)."""
     dt = cfg.dtype
     specs = attn_specs(cfg)
-    x = reduce_grad_partial(x)
     eq = "bsd,dhk->bshk"
+    if (_rows_split(x) and not serving_mode()
+            and heads_tp_available(cfg.n_heads)):
+        return _qkv_split_rows(cfg, p, x, positions)
+    x = reduce_grad_partial(x)
     if is_dtensor(x) and not heads_tp_available(cfg.n_heads):
         if _rows_whole(x.shape[1]):
             q, k, v = (_whole_product(x, p[w].to(dt), eq, specs[w])
@@ -699,15 +765,38 @@ def attn_qkv(cfg: ModelConfig, p, x, positions):
         # each model rank's rows, and the pins below gather q, k and v
         x = shard(x, "batch", "seq", None)
     x = serving_input(x, p["wq"], eq, specs["wq"])
-    # GQA's K/V weights, whose heads cannot split the model axis where
-    # the query heads do: the reference's partitioner permutes their
-    # ZeRO-3 shards to the model axis
-    gqa = (heads_tp_available(cfg.n_heads)
-           and not heads_tp_available(cfg.n_kv_heads))
+    # weights whose heads cannot split the model axis outside the
+    # sequence-parallel fallback (GQA's K/V; every weight under
+    # ``REPRO_NO_SP``): the reference's partitioner permutes their ZeRO-3
+    # shards to the model axis (`transposed_product`; a weight split over
+    # ``model`` is left as it is)
     q, k, v = (serving_matmul(x, p[w].to(dt), eq, specs[w],
-                              transpose=gqa and w != "wq",
+                              transpose=heads_tp_available(cfg.n_heads),
                               split=splits_contraction(cfg))
                for w in ("wq", "wk", "wv"))
+    return _qkv_rotated(cfg, p, q, k, v, positions)
+
+
+def _qkv_split_rows(cfg: ModelConfig, p, x, positions):
+    """`attn_qkv` of normed rows ``x`` split over ``model`` (the residual
+    under ``REPRO_SP_RESIDUAL``), heads that split the ``model`` axis:
+    the rows all-gathered, and the projections as without the knob, but
+    for K/V heads too few to split it (GQA), whose projections run on
+    each rank's rows against the weights gathered whole, their outputs'
+    rows then gathered, and the input's gradient computed whole from the
+    outputs' (`parallel.axes.gathered_out`): the reference's partitioner
+    runs them so under the knob, where without it it runs their forward
+    whole on every model rank (measured at full size on tinyllama-1.1b's
+    pod ``train_4k``)."""
+    dt, specs, eq = cfg.dtype, attn_specs(cfg), "bsd,dhk->bshk"
+    whole = reduce_grad_partial(shard(x, "batch", None, None))
+    q = serving_matmul(whole, p["wq"].to(dt), eq, specs["wq"])
+    if heads_tp_available(cfg.n_kv_heads):
+        k, v = (serving_matmul(whole, p[w].to(dt), eq, specs[w])
+                for w in ("wk", "wv"))
+    else:
+        k, v = (gathered_out(eq, x, gather_fsdp(p[w].to(dt), specs[w]),
+                             "model", _plain_product) for w in ("wk", "wv"))
     return _qkv_rotated(cfg, p, q, k, v, positions)
 
 
@@ -739,6 +828,7 @@ def attn_out(cfg: ModelConfig, p, o):
                                      whole_forward="model",
                                      **_gathered_grad(o)))
     return serving_matmul(o, wo, "bshk,hkd->bsd", names,
+                          transpose=heads_tp_available(cfg.n_heads),
                           split=splits_contraction(cfg))
 
 
@@ -781,6 +871,7 @@ def cross_q(cfg: ModelConfig, p, h):
                                      whole_forward="model",
                                      **_gathered_grad(h)))
     return serving_matmul(h, wq, "bsd,dhk->bshk", names,
+                          transpose=heads_tp_available(cfg.n_heads),
                           split=splits_contraction(cfg))
 
 
@@ -800,7 +891,9 @@ def cross_kv(cfg: ModelConfig, p, ctx):
                          for w in ("wk", "wv"))
         ctx = shard(ctx, "batch", "seq", None)
     return tuple(serving_matmul(ctx, p[w].to(cfg.dtype), "btd,dhk->bthk",
-                                specs[w]) for w in ("wk", "wv"))
+                                specs[w],
+                                transpose=heads_tp_available(cfg.n_heads))
+                 for w in ("wk", "wv"))
 
 
 def cross_attention(cfg: ModelConfig, p, q, ctx):
@@ -979,10 +1072,19 @@ def logits(cfg: ModelConfig, p, x):
     (``whole_forward``; rows that do not split run whole)."""
     x = reduce_grad_partial(rmsnorm(x, p["norm_f"], cfg.norm_eps))
     w = (p["tok"].T if cfg.tie_embeddings else p["head"]).to(cfg.dtype)
+    if (_rows_split(x) and not serving_mode()
+            and resolve(("vocab",), (w.shape[1],)) != P()):
+        # a residual whose rows stay split (``REPRO_SP_RESIDUAL``): the
+        # normed rows gathered for the vocab-split product (the gradient
+        # reduce-scattered back onto them)
+        x = shard(x, "batch", None, None)
+    # the sequence-parallel attention's plan reaches the logits of a vocab
+    # too small for the model axis (whisper's)
+    seq_par = not heads_tp_available(cfg.n_heads)
     if (is_dtensor(w) and not serving_mode() and _rows_whole(x.shape[1])
-            and resolve(("vocab",), (w.shape[1],)) == P()):
+            and resolve(("vocab",), (w.shape[1],)) == P() and seq_par):
         y = _whole_product(x, w, "bsd,dv->bsv", ("embed", "vocab"))
-    elif (is_dtensor(w) and not serving_mode()
+    elif (is_dtensor(w) and not serving_mode() and seq_par
             and "model" in w.device_mesh.mesh_dim_names
             and resolve(("vocab",), (w.shape[1],)) == P()
             and x.shape[1] % _seq_ranks() == 0 and _seq_ranks() > 1):
@@ -999,5 +1101,6 @@ def logits(cfg: ModelConfig, p, x):
                    _plain_product)
     else:
         y = serving_matmul(x, w, "bsd,dv->bsv", ("embed", "vocab"),
+                           transpose=not seq_par,
                            split=splits_contraction(cfg))
     return shard(y, "batch", None, "vocab")

@@ -12,6 +12,7 @@ MoE family's experts), as the reference's hooks do.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -90,11 +91,57 @@ def _mlp_fn(cfg: ModelConfig, mlp_fn):
     return mlp_fn or functools.partial(cm.mlp, cfg)
 
 
+def residual_spec() -> tuple:
+    """The logical names `block_fwd` pins its output (the residual) to:
+    ``("batch", "seq", None)`` where ``REPRO_SP_RESIDUAL`` is set
+    non-empty (Megatron-style sequence parallelism: the residual's rows
+    split over ``model``, the norms on each rank's rows), else
+    ``("batch", None, None)``; the reference's ``_residual_spec``, an A/B
+    knob read at each call."""
+    if os.environ.get("REPRO_SP_RESIDUAL"):
+        return ("batch", "seq", None)
+    return ("batch", None, None)
+
+
 def block_fwd(cfg: ModelConfig, p, x, positions, mlp_fn=None):
+    spec = residual_spec()
+    if spec[1] == "seq" and is_dtensor(x):
+        return _block_fwd_seq(cfg, p, x, positions, mlp_fn)
     h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
     x = x + cm.self_attention(cfg, p["attn"], h, positions)
     h = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return shard(x + _mlp_fn(cfg, mlp_fn)(p["mlp"], h), "batch", None, None)
+    return shard(x + _mlp_fn(cfg, mlp_fn)(p["mlp"], h), *spec)
+
+
+def _block_fwd_seq(cfg: ModelConfig, p, x, positions, mlp_fn=None):
+    """`block_fwd` under ``REPRO_SP_RESIDUAL`` on DTensors: the residual's
+    rows split over ``seq`` (the ``model`` axis) through the block, each
+    norm on the rank's rows; the attention and the FFN, which read whole
+    rows, take the normed rows all-gathered over ``model`` (one gather
+    before each; GQA's K/V projections on the rank's rows,
+    `common.attn_qkv`), run as without the knob (their partial sums
+    all-reduced), and the rank keeps its rows of each output, a local
+    slice, before the residual add.  The backward: each gather's, a
+    slice of the normed rows' gradient (all-reduced where the
+    projections leave partial sums); each slice's, an all-gather of the
+    rows' gradient."""
+    rows = ("batch", "seq", None)
+    whole = ("batch", None, None)
+    x = shard(x, *rows)
+    h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)      # gathered in attn_qkv
+    x = x + shard(cm.self_attention(cfg, p["attn"], h, positions), *rows)
+    h = shard(cm.rmsnorm(x, p["norm2"], cfg.norm_eps), *whole)
+    return x + shard(_mlp_fn(cfg, mlp_fn)(p["mlp"], h), *rows)
+
+
+def remat_policy() -> str:
+    """The layer loop's recompute policy: ``"dots"`` where
+    ``REPRO_REMAT_POLICY`` is ``dots`` (save the products without batch
+    dims), else ``"full"``; the reference's ``_remat``, an A/B knob read
+    at each `forward` call.  Only this family's loop reads it, as in the
+    reference."""
+    return "dots" if os.environ.get("REPRO_REMAT_POLICY") == "dots" \
+        else "full"
 
 
 def forward(cfg: ModelConfig, params, tokens, mlp_fn=None):
@@ -106,10 +153,12 @@ def forward(cfg: ModelConfig, params, tokens, mlp_fn=None):
     x = cm.embed(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     layers = cm.cast_params(cfg, params["layers"])
+    policy = remat_policy()
     for i in range(cfg.n_layers):
         lp = _layer(layers, i)
         x = cm.recompute(functools.partial(
-            block_fwd, cfg, lp, positions=positions, mlp_fn=mlp_fn), lp, x)
+            block_fwd, cfg, lp, positions=positions, mlp_fn=mlp_fn), lp, x,
+            policy=policy)
     return cm.logits(cfg, params["embed"], x)
 
 

@@ -60,13 +60,25 @@ def param_specs(cfg: ModelConfig):
 
 def _cross_apply(cfg: ModelConfig, p, x, attend):
     """Gated cross-attention block; ``attend(q)`` the attention over the
-    image K/V."""
-    h = cm.rmsnorm(x, p["norm1"], cfg.norm_eps)
+    image K/V.  A residual whose rows the self blocks leave split over
+    ``model`` (``REPRO_SP_RESIDUAL``) keeps them split: each norm on the
+    rank's rows, the normed rows gathered for the query projection and
+    the FFN, and the rank's rows of their outputs added, as
+    `transformer.block_fwd` runs it."""
+    rows = cm._rows_split(x)
+
+    def whole(t):
+        return shard(t, "batch", None, None) if rows else t
+
+    def back(t):
+        return shard(t, "batch", "seq", None) if rows else t
+
+    h = whole(cm.rmsnorm(x, p["norm1"], cfg.norm_eps))
     o = attend(shard(cm.cross_q(cfg, p["attn"], h), "batch", None, "heads",
                      None))
-    x = x + torch.tanh(p["gate_attn"]) * cm.attn_out(cfg, p["attn"], o)
-    h = cm.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + torch.tanh(p["gate_mlp"]) * cm.mlp(cfg, p["mlp"], h)
+    x = x + torch.tanh(p["gate_attn"]) * back(cm.attn_out(cfg, p["attn"], o))
+    h = whole(cm.rmsnorm(x, p["norm2"], cfg.norm_eps))
+    return x + torch.tanh(p["gate_mlp"]) * back(cm.mlp(cfg, p["mlp"], h))
 
 
 def forward(cfg: ModelConfig, params, tokens, ctx):

@@ -104,7 +104,8 @@ def _mlstm_parallel(q, k, v, logi, logf, chunk: int = 1024):
     cumf_p = F.pad(cumf, (0, 0, 0, nq * chunk - s))
     kterm = logi - cumf                                 # log i_j - F_j
     kf = k.float()
-    vb = v.to(cm.PROBS_DTYPE).float()
+    pdt = cm.probs_dtype()
+    vb = v.to(pdt).float()
     jpos = torch.arange(s, device=q.device)[None, None, :, None]
     outs = []
     for i in range(nq):
@@ -122,7 +123,7 @@ def _mlstm_parallel(q, k, v, logi, logf, chunk: int = 1024):
         sd = sc * dmat
         norm = torch.maximum(sd.sum(2).abs(), (-m[:, :, 0, :]).exp())
         out = torch.einsum("bcsh,bshd->bchd",
-                           sd.to(cm.PROBS_DTYPE).float(), vb)
+                           sd.to(pdt).float(), vb)
         outs.append(out / norm[..., None])
     return torch.cat(outs, 1)[:, :s]
 
@@ -239,7 +240,8 @@ def _mlstm_fwd_sharded(cfg: ModelConfig, p, x, chunk: int = 1024):
                              for p_ in q.placements], run_check=False)
     ql = along(q5, "model", Shard(2))
     ql = ql.to_local(grad_placements=ql.placements)
-    kf, vb = whole(k).float(), whole(v).to(cm.PROBS_DTYPE).float()
+    pdt = cm.probs_dtype()
+    kf, vb = whole(k).float(), whole(v).to(pdt).float()
     cumf = logf.cumsum(1)
     kterm = logi - cumf
     cumf_r = _chunks(cumf, nq * c, c, (r, share))
@@ -259,7 +261,7 @@ def _mlstm_fwd_sharded(cfg: ModelConfig, p, x, chunk: int = 1024):
         sd = sc * dmat
         norm = torch.maximum(sd.sum(2).abs(), (-m[:, :, 0, :]).exp())
         out = torch.einsum("bcsh,bshd->bchd",
-                           sd.to(cm.PROBS_DTYPE).float(), vb)
+                           sd.to(pdt).float(), vb)
         outs.append(out / norm[..., None])
     o = torch.stack(outs, 1)                      # (B, nq, share, H, dh)
     g = _chunks(F.silu(whole(zg)), nq * c, c, (r, share))

@@ -326,8 +326,43 @@ def reduce_partial(x):
         return x
     if not any(isinstance(p, Partial) for p in x.placements):
         return x
-    return x.redistribute(x.device_mesh, [
-        Replicate() if isinstance(p, Partial) else p for p in x.placements])
+    want = [Replicate() if isinstance(p, Partial) else p
+            for p in x.placements]
+    if getattr(x, "no_batch_product", False):
+        with product_scope(None):
+            return x.redistribute(x.device_mesh, want)
+    return x.redistribute(x.device_mesh, want)
+
+
+def batch_labels(eq: str) -> set:
+    """The batch dims of the product ``eq`` (``"ab,bc->ac"``): the labels
+    both operands and the output share, as ``dot_general`` names them."""
+    ins, out = eq.split("->")
+    la, lb = ins.split(",")
+    return set(la) & set(lb) & set(out)
+
+
+@contextlib.contextmanager
+def product_scope(eq: str | None):
+    """Marks the product ``eq`` computed in the enclosed scope, for the
+    recompute policy ``dots`` (`models.common.recompute`): a product with
+    no batch dims (`batch_labels`) is one whose output that policy saves,
+    as ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``
+    saves a ``dot_general`` without batch dims.  ``None``: the reduction
+    of such a product's partial sums (`reduce_partial`), which is part of
+    the reference's product."""
+    prev = getattr(_state, "no_batch_product", False)
+    _state.no_batch_product = eq is None or not batch_labels(eq)
+    try:
+        yield
+    finally:
+        _state.no_batch_product = prev
+
+
+def in_no_batch_product() -> bool:
+    """Whether the running code computes a product marked by
+    `product_scope` as one with no batch dims."""
+    return getattr(_state, "no_batch_product", False)
 
 
 def einsum(eq: str, a, b, product=None, *, whole_forward: str | None = None,
@@ -360,6 +395,13 @@ def einsum(eq: str, a, b, product=None, *, whole_forward: str | None = None,
     rank's share of its first dim the dim's ranks divide (`_ShareGrad`:
     zero elsewhere, a partial sum)."""
     product = product or torch.einsum
+    with product_scope(eq):
+        return _einsum(eq, a, b, product, whole_forward, whole_grad,
+                       share_grad, gathered_grad)
+
+
+def _einsum(eq, a, b, product, whole_forward, whole_grad, share_grad,
+            gathered_grad):
     if not is_dtensor(a):
         return product(eq, a, b)
     mesh = a.device_mesh
@@ -421,7 +463,10 @@ def einsum(eq: str, a, b, product=None, *, whole_forward: str | None = None,
         lab, in_a = share
         y = _SplitProduct.apply(eq, al, bl, lab, in_a, mesh, whole, product,
                                 mode, gathered_grad)
-    return DTensor.from_local(y, mesh, po, run_check=False)
+    out = DTensor.from_local(y, mesh, po, run_check=False)
+    # its partial sums' reduction belongs to the product (`reduce_partial`)
+    out.no_batch_product = not batch_labels(eq)
+    return out
 
 
 def _wait(t):
@@ -640,6 +685,67 @@ class _SplitProduct(torch.autograd.Function):
             dx = torch.einsum(f"{ly},{lo}->{lx}", dy, share(o, lo))
         grads = (dx, do) if ctx.in_a else (do, dx)
         return (None, *grads, None, None, None, None, None, None, None)
+
+
+class _GatheredOut(torch.autograd.Function):
+    """``product(eq, a, b)`` on local tensors, where ``a`` holds this
+    rank's share of its label ``lab`` along mesh dim ``m`` (which the
+    output keeps) and ``b`` holds it whole: the forward runs on the share
+    and all-gathers the output along ``lab``; the backward computes
+    ``a``'s gradient whole from the output's whole gradient (then keeps
+    the share) and ``b``'s from the share."""
+
+    @staticmethod
+    def forward(ctx, eq, a, b, lab, mesh, m, product):
+        out = eq.split("->")[1]
+        ctx.eq, ctx.lab, ctx.mesh, ctx.m = eq, lab, mesh, m
+        ctx.save_for_backward(a, b)
+        y = product(eq, a, b)
+        return _all_gather(y, out.index(lab), mesh.get_group(m))
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        ins, ly = ctx.eq.split("->")
+        la, lb = ins.split(",")
+        n = a.shape[la.index(ctx.lab)]
+        r = ctx.mesh.get_local_rank(ctx.m)
+        share = dy.narrow(ly.index(ctx.lab), r * n, n)
+        da = torch.einsum(f"{ly},{lb}->{la}", dy, b).narrow(
+            la.index(ctx.lab), r * n, n)
+        db = torch.einsum(f"{la},{ly}->{lb}", a, share)
+        return None, da, db, None, None, None, None
+
+
+def gathered_out(eq: str, a, b, mesh_dim: str, product=None):
+    """``einsum(eq, a, b)`` for DTensors ``a``, split over ``mesh_dim`` on
+    a label the output keeps, and ``b``, whole there (`_GatheredOut`):
+    the product on the rank's share, its output gathered whole over
+    ``mesh_dim``; in the backward ``a``'s gradient computed whole (each
+    rank keeps its share) and ``b``'s on the share (a partial sum).
+    Over the other mesh dims as `einsum`."""
+    product = product or torch.einsum
+    mesh = a.device_mesh
+    m = mesh.mesh_dim_names.index(mesh_dim)
+    ins, out = eq.split("->")
+    la, lb = ins.split(",")
+    lab = la[a.placements[m].dim % a.ndim]
+    pa, pb, gb, po = [], [], [], []
+    for i, (xa, xb) in enumerate(zip(a.placements, b.placements)):
+        if i == m:
+            pa.append(xa), pb.append(Replicate()), gb.append(Partial())
+            po.append(Replicate())
+            continue
+        if isinstance(xa, Shard) and la[xa.dim % a.ndim] not in lb:
+            pa.append(xa), pb.append(Replicate()), gb.append(Partial())
+            po.append(Shard(out.index(la[xa.dim % a.ndim])))
+            continue
+        raise ValueError(f"{eq}: mesh dim {i} lays out {xa}, {xb}")
+    al = a.redistribute(mesh, pa).to_local(grad_placements=pa)
+    bl = b.redistribute(mesh, pb).to_local(grad_placements=gb)
+    with product_scope(eq):
+        y = _GatheredOut.apply(eq, al, bl, lab, mesh, m, product)
+    return DTensor.from_local(y, mesh, po, run_check=False)
 
 
 class _ShareGrad(torch.autograd.Function):

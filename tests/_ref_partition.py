@@ -5,7 +5,9 @@ Run as ``python tests/_ref_partition.py '<json list of cells>'`` with
 is ``dict(arch, cfg, kind, seq, batch, mesh, accum=1, serving=False)``:
 ``arch`` names a smoke config, ``cfg`` overrides its fields, ``mesh`` is
 ``pod`` or ``multipod``; or ``dict(arch, shape, mesh)``: the full config
-at a registered shape.
+at a registered shape (``layers``: cut to that depth).  Either may carry
+``env``, environment variables set while the cell is traced (the
+reference's A/B knobs).
 
 The reference's own dry-run raises under JAX 0.9 (``jax.make_mesh``
 gives Explicit axes, and its first ``shard`` refuses them), so the mesh
@@ -237,7 +239,20 @@ def relayouts(cell: dict) -> dict:
 
 def lower(cell: dict):
     """The cell's step lowered (traced: one cell at a time, since the
-    toy's accumulation and the SSD factorisation are module state)."""
+    toy's accumulation and the SSD factorisation are module state).  A
+    cell's ``env`` (the reference's A/B knobs, which it reads while
+    tracing) is set around its lowering and restored after."""
+    if cell.get("env"):
+        saved = {k: os.environ.get(k) for k in cell["env"]}
+        os.environ.update(cell["env"])
+        try:
+            return lower(dict(cell, env=None))
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
     if cell.get("ssd") == "two_operand":
         from repro.models import mamba2
         three, mamba2._ssd_scan = mamba2._ssd_scan, _ssd_two_operand
@@ -253,6 +268,8 @@ def lower(cell: dict):
                          axis_types=(AxisType.Auto,) * len(shape))
     if "shape" in cell:
         cfg, shape = get_config(cell["arch"]), SHAPES[cell["shape"]]
+        if cell.get("layers"):
+            cfg = dataclasses.replace(cfg, n_layers=cell["layers"])
         dryrun.DEFAULT_ACCUM = FULL_ACCUM
     else:
         cfg = dataclasses.replace(get_smoke(cell["arch"]), **cell["cfg"])
@@ -286,15 +303,22 @@ def record(cell: dict, compiled) -> dict:
                 temp=float(mem.temp_size_in_bytes))
 
 
+def _compiled_record(cell: dict, lowered) -> dict:
+    """The record of ``cell`` from its lowered step, compiled here; the
+    executable is dropped once its record is read (every executable kept
+    to the end held the memory of all of them at once)."""
+    return record(cell, lowered.compile())
+
+
 def records(cells: list, workers: int = 6) -> list:
-    """Each cell's record: lowered one after another, each compiled in
-    one of ``workers`` threads as soon as it is lowered (XLA's compile
-    runs outside the interpreter's lock)."""
+    """Each cell's record: lowered one after another, each compiled and
+    read in one of ``workers`` threads as soon as it is lowered (XLA's
+    compile runs outside the interpreter's lock)."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(workers) as pool:
-        compiled = [pool.submit(lo.compile) for lo in map(lower, cells)]
-        return [record(c, x.result()) for c, x in zip(cells, compiled)]
+        futures = [pool.submit(_compiled_record, c, lower(c)) for c in cells]
+        return [f.result() for f in futures]
 
 
 if __name__ == "__main__":

@@ -21,11 +21,13 @@ generator, and a random cache's cross K/V.
 Phases: ``forward`` (the logits), ``decode`` (the logits and every cache
 leaf after two steps from a random cache) and ``grad`` (every parameter's
 gradient of a weighted sum of the logits; the difference relative to the
-largest gradient).
+largest gradient).  A case's ``extras`` run other models on the same
+process group, each under the reference's A/B knobs it names.
 """
 import dataclasses
 import json
 import math
+import os
 import sys
 
 import torch
@@ -35,8 +37,8 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.registry import get_smoke
+from repro_torch.launch.dryrun import knobs_set
 from repro_torch.launch.mesh import Mesh, rules_for
-from repro_torch.models import common as cm
 from repro_torch.models.registry import get_model
 from repro_torch.parallel.axes import (is_spec_leaf, placements, resolve,
                                        sharding_rules)
@@ -61,21 +63,37 @@ def err(a, b):
 
 
 def run(case, rank, store_dir):
+    """The case's phases, then each of its ``extras`` (``dict(arch, cfg,
+    batch, seq, env)``: another model on the same process group and mesh,
+    with the reference's A/B knobs ``env`` set around it), the latter's
+    differences keyed ``<extra>.<phase>``."""
     shape = tuple(case["mesh"])
     world = math.prod(shape)
     dist.init_process_group(
         "gloo", store=dist.FileStore(f"{store_dir}/store", world),
         rank=rank, world_size=world)
     torch.manual_seed(0)
-    cm.PROBS_DTYPE = torch.float32
-    cfg = dataclasses.replace(get_smoke(case["arch"]), dtype=torch.float32,
-                              **case["cfg"])
-    api = get_model(cfg)
+    os.environ["REPRO_FP32_PROBS"] = "1"
     mesh = Mesh(("data", "model"), shape)
-    rules = rules_for(mesh)
     dm = DeviceMesh("cpu", torch.arange(world).reshape(shape),
                     mesh_dim_names=("data", "model"))
     dm["data", "model"]._flatten("data_model")
+    out = phases(case, mesh, dm)
+    for name, extra in case.get("extras", {}).items():
+        with knobs_set(extra["env"]):
+            out.update({f"{name}.{k}": v for k, v in
+                        phases(dict(extra, mesh=shape), mesh, dm).items()})
+    dist.destroy_process_group()
+    return out
+
+
+def phases(case, mesh, dm):
+    """The forward, decode and gradient differences of the case's model
+    on the mesh ``mesh`` (its DeviceMesh ``dm``)."""
+    cfg = dataclasses.replace(get_smoke(case["arch"]), dtype=torch.float32,
+                              **case["cfg"])
+    api = get_model(cfg)
+    rules = rules_for(mesh)
     gen = torch.Generator().manual_seed(1)
     b, s = case["batch"], case["seq"]
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
@@ -150,7 +168,6 @@ def run(case, rank, store_dir):
                       spread(("batch", None, "vocab"), wts, dm))
     out["grad"] = max(err(g, w) for g, w in zip(got_g, want_g)) / max(
         float(w.abs().max()) for w in want_g)
-    dist.destroy_process_group()
     return out
 
 

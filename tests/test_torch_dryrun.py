@@ -339,3 +339,66 @@ def test_flash_kernel_config_is_refused():
         dryrun.build_cell(get_model(cfg), ShapeConfig("p", "prefill", S, 2))
     with pytest.raises(ValueError, match="unknown mesh"):
         dryrun.run_cell("tinyllama-1.1b", "train_4k", "v5e")
+
+
+def test_host_train_record_under_dots(monkeypatch):
+    """``REPRO_REMAT_POLICY=dots``: the host record of a toy dense train
+    step counts fewer FLOPs than under full recompute, by the forward of
+    the products without batch dims that full recompute reruns (q, k, v,
+    the output projection, the FFN's gate and up: the down projection's
+    output no gradient reads, so neither reruns it), and holds more at
+    once (those products' outputs are kept from the forward)."""
+    cfg = cfgs.get_smoke("tinyllama-1.1b")
+    shape = ShapeConfig("toy", "train", S, B)
+    recs = {}
+    for policy in ("", "dots"):
+        monkeypatch.setenv("REPRO_REMAT_POLICY", policy)
+        recs[policy] = dryrun.cell_record(cfg, shape, "host", accum=1)
+        assert recs[policy]["knobs"]["REPRO_REMAT_POLICY"] == policy
+    full, dots = recs[""], recs["dots"]
+    d, hd, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    per_row = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+               + cfg.n_heads * hd * d + 2 * d * f)
+    assert full["hlo_flops_dev"] - dots["hlo_flops_dev"] == \
+        2 * B * S * per_row * cfg.n_layers
+    assert dots["memory_analysis"]["temp"] > full["memory_analysis"]["temp"]
+
+
+def test_record_is_reused_only_under_its_knobs(tmp_path, monkeypatch):
+    """A record on disk is reused only where its ``knobs`` equal the
+    environment's; a record without the key counts as counted with none
+    set."""
+    for k in dryrun.KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    d = tmp_path / "dryrun"
+    path = d / "host" / "tinyllama-1.1b__decode_32k.json"
+
+    def run():
+        return dryrun.run_cell("tinyllama-1.1b", "decode_32k", "host",
+                               report_dir=d, verbose=False)
+
+    def mark(drop_knobs=False):
+        rec = json.loads(path.read_text())
+        rec["marker"] = 1
+        if drop_knobs:
+            del rec["knobs"]
+        path.write_text(json.dumps(rec))
+
+    assert run()["knobs"] == dict.fromkeys(dryrun.KNOBS, "")
+    mark()
+    assert run()["marker"] == 1                        # reused
+    monkeypatch.setenv("REPRO_FP32_PROBS", "1")
+    rec = run()                                        # counted again
+    assert "marker" not in rec and rec["knobs"]["REPRO_FP32_PROBS"] == "1"
+    assert json.loads(path.read_text())["knobs"] == rec["knobs"]
+    mark()
+    monkeypatch.setenv("REPRO_NO_SP", "1")             # another knob too
+    assert "marker" not in run()
+    mark()
+    monkeypatch.delenv("REPRO_NO_SP")
+    monkeypatch.delenv("REPRO_FP32_PROBS")
+    assert "marker" not in run()                       # none set
+    mark(drop_knobs=True)
+    assert run()["marker"] == 1                        # no key: none set
+    monkeypatch.setenv("REPRO_REMAT_POLICY", "dots")
+    assert "marker" not in run()

@@ -44,8 +44,19 @@ second of 4 layers (two segments) over 64 patches, and its train step
 once more at 6 layers (three segments); each at prefill, train and
 decode on the pod and a train step on the multipod.  The full configs
 are held at the pod: tinyllama-1.1b's prefill_32k, decode_32k and
-train_4k, and the decode_32k of xlstm-1.3b, zamba2-2.7b,
-whisper-large-v3 and llama-3.2-vision-11b.  Per cell:
+train_4k (and its train_4k at full width cut to 2 layers, plain and
+under ``REPRO_SP_RESIDUAL``), and the decode_32k of xlstm-1.3b,
+zamba2-2.7b, whisper-large-v3 and llama-3.2-vision-11b.  The knob cells
+(`KNOB_CELLS`) are cells of these with one of the reference's A/B knobs
+set in both packages (``env``: around the reference's trace in its
+subprocess, around the port's count): ``REPRO_NO_SP`` on the 8-heads
+train cell at one row a rank, on arctic's shape at 128 rows (its base
+compiled by the reference only, `KNOB_BASES`) and on whisper's train
+cell; ``REPRO_SP_RESIDUAL`` on the dense train and prefill cells and the
+arctic-style MoE train cell on the pod and the dense train cell on the
+multipod; ``REPRO_REMAT_POLICY=dots`` on the dense and MoE train cells on
+the pod and the dense train cell on the multipod.  Each reference
+record differs from its base's (the knob took effect).  Per cell:
 
 * per-device FLOPs equal the reference's, counting the dots its cost
   model misses (``fused_dot_flops``: XLA puts the one-row products of
@@ -114,6 +125,12 @@ def _cell(arch="tinyllama-1.1b", kind="train", mesh="pod", accum=1,
           batch=32, serving=False, seq=128, **cfg):
     return dict(arch=arch, cfg=dict(TOY, **cfg), kind=kind, seq=seq,
                 batch=batch, mesh=mesh, accum=accum, serving=serving)
+
+
+#: the reference's A/B knobs, one setting each
+NO_SP = {"REPRO_NO_SP": "1"}
+SP_RESIDUAL = {"REPRO_SP_RESIDUAL": "1"}
+DOTS = {"REPRO_REMAT_POLICY": "dots"}
 
 
 CELLS = {
@@ -210,13 +227,39 @@ CELLS = {
         vocab=518, n_layers=2, n_encoder_layers=2)
        for k in ("prefill", "train")},
 }
+#: arctic's shape (8 heads over 4 KV heads, 16 experts split over the
+#: model axis) over rows of one attention chunk: the base of a knob cell,
+#: compiled by the reference only
+KNOB_BASES = {"moe-ep-seqpar-train-pod-b16": _cell(
+    arch="arctic-480b", n_heads=8, n_kv_heads=4, n_experts=16, batch=16)}
+#: the knob cells: each a cell of `CELLS` (or `KNOB_BASES`) with one of
+#: the reference's A/B knobs set in both packages (``env``), and the
+#: name of that cell
+KNOB_CELLS = {
+    f"{tag}-{base}": (base, env)
+    for env, tag, bases in (
+        (NO_SP, "nosp", ("seqpar-train-pod-b16", "moe-ep-seqpar-train-pod-b16",
+                         "whisper-train-pod")),
+        (SP_RESIDUAL, "spres", ("train-pod", "prefill-pod", "moe-ep-pod",
+                                "train-multipod")),
+        (DOTS, "dots", ("train-pod", "moe-ep-pod", "train-multipod")))
+    for base in bases}
+CELLS.update({name: dict({**CELLS, **KNOB_BASES}[base], env=env)
+              for name, (base, env) in KNOB_CELLS.items()})
 #: the full configs at registered shapes on the pod
 FULL = {**{f"full-{s}": dict(arch="tinyllama-1.1b", shape=s, mesh="pod")
            for s in ("prefill_32k", "decode_32k", "train_4k")},
         **{f"full-{a.split('-')[0]}-decode_32k":
            dict(arch=a, shape="decode_32k", mesh="pod")
            for a in ("xlstm-1.3b", "zamba2-2.7b", "whisper-large-v3",
-                     "llama-3.2-vision-11b")}}
+                     "llama-3.2-vision-11b")},
+        # at full width cut to 2 layers, and so under REPRO_SP_RESIDUAL:
+        # GQA's K/V projected on each rank's rows (no toy cell shows the
+        # reference's full-width plan for it)
+        **{f"full-train_4k-2l{tag}": dict(arch="tinyllama-1.1b",
+                                          shape="train_4k", mesh="pod",
+                                          layers=2, **env)
+           for tag, env in (("", {}), ("-spres", dict(env=SP_RESIDUAL)))}}
 #: the zamba2 train cells, compiled once more with the port's
 #: factorisation of the SSD scan's einsums (the FLOP gap's cause)
 SSD_TWO_OPERAND = {f"{n}+ssd2": dict(c, ssd="two_operand")
@@ -226,7 +269,7 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 
 
 #: every cell the reference compiles, in its subprocess's order
-REF_CELLS = {**CELLS, **FULL, **SSD_TWO_OPERAND}
+REF_CELLS = {**CELLS, **KNOB_BASES, **FULL, **SSD_TWO_OPERAND}
 
 
 @pytest.fixture(scope="module")
@@ -256,9 +299,10 @@ def port_count(cell):
     cfg = dataclasses.replace(get_smoke(cell["arch"]), **cell["cfg"])
     shape = ShapeConfig("toy", cell["kind"], cell["seq"], cell["batch"])
     mesh = make_production_mesh(multi_pod=cell["mesh"] == "multipod")
-    with dryrun.partitioned_cell(get_model(cfg), shape, mesh,
-                                 serving=cell["serving"],
-                                 accum=cell["accum"]) as c:
+    with dryrun.knobs_set(cell.get("env")), \
+            dryrun.partitioned_cell(get_model(cfg), shape, mesh,
+                                    serving=cell["serving"],
+                                    accum=cell["accum"]) as c:
         out = dryrun.count_step(c, local=True)
     assert not dist.is_initialized()
     return out
@@ -346,7 +390,9 @@ def _cell_info(name):
 @pytest.mark.parametrize("name", list(FULL))
 def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
     """The full configs at full width and depth: the per-device FLOPs and
-    args of tinyllama-1.1b's pod prefill, decode and train step and of
+    args of tinyllama-1.1b's pod prefill, decode and train step (and its
+    train step cut to 2 layers, plain and under ``REPRO_SP_RESIDUAL``) and
+    of
     xlstm-1.3b's, zamba2-2.7b's, whisper-large-v3's and
     llama-3.2-vision-11b's pod decode equal the reference's partitioned
     compile's; tinyllama's prefill all-reduces too (bf16 counting
@@ -355,8 +401,16 @@ def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
     whose FLOPs and args are the same)."""
     c = FULL[name]
     cfg, shape = cfgs.get_config(c["arch"]), SHAPES[c["shape"]]
-    rec = dryrun.cell_record(cfg, shape, "pod")
+    if c.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=c["layers"])
+    with dryrun.knobs_set(c.get("env")):
+        rec = dryrun.cell_record(cfg, shape, "pod")
     r = ref[name]
+    if c.get("env"):
+        base = ref[name.replace("-spres", "")]
+        assert r["flops"] != base["flops"], name      # the knob took effect
+        assert rec["knobs"] == dict(dict.fromkeys(dryrun.KNOBS, ""),
+                                    **c["env"])
     assert rec["partition"] == "dtensor"
     assert rec["hlo_flops_dev"] == r["flops"] + r["fused_dot_flops"]
     assert rec["memory_analysis"]["args"] == r["args"]
@@ -723,6 +777,35 @@ def _whisper_terms(D, cfg, kind, ref, port):
             [b * C * d // M] * E
 
 
+def _whisper_no_sp_terms(D, kind, ref, port):
+    """whisper's arrays under ``REPRO_NO_SP`` (see `reckoned`): its 20
+    heads run whole on every model rank in all three attentions, no
+    sequence-parallel fallback.  Every attention weight (q, k, v and the
+    output of the decoder's two attentions and the encoder's, ``8L +
+    4E``) is whole over ``model``, and the head too (its vocab does not
+    divide the axis): both partitioners move each ZeRO-3 shard to the
+    model axis in each pass, XLA by collective-permutes, the port by
+    all-to-alls (`parallel.axes.transpose_shard`).  XLA looks the ids up
+    in each rank's share of the table's width and gathers the rows; it
+    reduces the small leaves' gradients per layer in its layer scans,
+    the port each stacked leaf once; and the head's gradient as its ZeRO-3
+    shard over ``model``."""
+    b, S, d, F, V, M, R, L, E = (D[k] for k in (
+        "b", "S", "d", "F", "V", "M", "R", "L", "E"))
+    passes = 3 if kind == "train" else 1
+    w = [d // R * D["H"] * D["hd"]] * (8 * L + 4 * E) * passes + \
+        [d // R * V] * (2 if kind == "train" else 1)
+    ref["collective-permute"] += w
+    port["all-to-all"] += w
+    ref["all-gather"] += [b * S * d]
+    if kind != "train":
+        return
+    ref["all-reduce"] += [d] * (4 * L + 3 * E) + [F // M] * (L + E) + \
+        [d // R * V]
+    port["all-reduce"] += [L * d] * 4 + [E * d] * 3 + [L * F // M,
+                                                        E * F // M]
+
+
 def _whisper_whole_terms(D, kind, ref, port):
     """whisper's arrays (see `reckoned`) where its tokens and its frames
     are both longer than one attention chunk (`models.common._rows_whole`):
@@ -838,6 +921,40 @@ def _vlm_terms(D, kind, ref, port):
         ref["collective-permute"] += [w] * 2 * (n - 1)
 
 
+def _sp_residual_terms(D, moe, ref):
+    """XLA's arrays under ``REPRO_SP_RESIDUAL`` (see `reckoned`) that the
+    port's plan does not move, for a decoder-only or MoE cell whose heads
+    split the model axis.  The port gathers each block's normed rows
+    before its attention and its FFN and keeps its rows of their outputs
+    (`models.transformer._block_fwd_seq`), the products as without the
+    knob.  XLA carries the rows' split into the attention: it runs the
+    query projection on each model rank's rows with the weight gathered
+    whole over ``model`` (its ZeRO-3 shard's heads, then the whole), and
+    re-lays the rotation's halves, the causal mask's rows and the
+    scores' and statistics' chunks between the rows' split and the heads'
+    by all-to-alls, a head at a time; it gathers the rotation's tables and
+    the FFN's gate and up weights once more, and reduces the norm
+    weights' gradients over ``model`` too."""
+    b, S, d, F, L, H, hd, M, R = (D[k] for k in (
+        "b", "S", "d", "F", "L", "H", "hd", "M", "R"))
+    rows = b * S // M                   # a rank's rows of the residual
+    train = D["kind"] == "train"
+    ref["all-gather"] += [d * H * hd] * (5 if train else 2) * L
+    # the rotation's halves, a head at a time (forward; and in a train
+    # step the recompute and the backward)
+    ref["all-to-all"] += [rows * hd // 2] * (8 if train else 4) * H * L
+    if not train:
+        return
+    ref["all-gather"] += [d // R * H * hd] * 4 * L + \
+        [d * F // M] * (2 * L + 1) + [S * hd // 2] * 8 * L + \
+        [b * S * d] * (2 + (L if moe else 0))
+    ref["all-reduce"] += [d] * (2 * L + 1)
+    # the scores' rows (``rows*S``), the output's (``rows*hd``) and the
+    # softmax statistics' (``rows``), a head at a time
+    ref["all-to-all"] += ([rows * S] * 2 + [rows * hd] * 2 + [rows] * 3) \
+        * H * L
+
+
 def reckoned(name, relayout=None):
     """``(ref_only, port_only)``: for each collective kind, the arrays
     (by element count) that one partitioner moves and the other does
@@ -939,6 +1056,16 @@ def reckoned(name, relayout=None):
       per-step arrays (stated for one segment and for XLA's layer loop
       over several) and XLA's windowed re-layouts (`relayout_windows`,
       the mLSTM's up-projection halves);
+    * ``REPRO_NO_SP`` with heads too few for the model axis: every
+      attention weight (and whisper's head) whole over ``model``, its
+      ZeRO-3 shard moved to the model axis in each pass (XLA's permutes
+      against the port's all-to-alls, `_whisper_no_sp_terms` for
+      whisper's three attentions and small leaves), no sequence-parallel
+      terms;
+    * ``REPRO_SP_RESIDUAL`` (`_sp_residual_terms`): XLA carries the
+      rows' split into the attention, the port gathers the normed rows
+      before it and before the FFN; ``REPRO_REMAT_POLICY=dots`` needs no
+      term (both save the projections' reduced outputs);
     * the cross-attention families (`_whisper_terms`, `_vlm_terms`, each
       array with its cause there): whisper's projections around the
       sequence-parallel attention, its undivided vocab's embedding and
@@ -963,7 +1090,10 @@ def reckoned(name, relayout=None):
     # the sequence-parallel fallback over rows longer than one attention
     # chunk (`models.common._rows_whole`): the projections run on the
     # whole rows
-    whole_rows = H < M and S > 1024 and not audio
+    # ``REPRO_NO_SP``: heads too few for the model axis run whole on
+    # every model rank, no sequence-parallel fallback (`_no_sp_terms`)
+    no_sp = c.get("env") == NO_SP
+    whole_rows = H < M and S > 1024 and not audio and not no_sp
     if train and B >= R and not audio:
         ref["all-reduce"] += a * [b * S] * 2
         if not whole_rows:
@@ -1009,7 +1139,7 @@ def reckoned(name, relayout=None):
             ref["all-reduce"] += shards + [kv] * 2 * L * nq
             port["all-reduce"] += [d * H * hd] * 2 * L + \
                 [d * KV * hd] * 2 * L + [kv] * 2 * L
-    elif H < M and not recurrent:
+    elif H < M and not recurrent and not no_sp:
         rows = b * S * d
         # `models.common._gathered_grad`: the multipod's batch splits
         # over two mesh axes
@@ -1047,8 +1177,25 @@ def reckoned(name, relayout=None):
         _xlstm_terms(D, c["cfg"], c["kind"], ref, port)
     if c["arch"] == "llama-3.2-vision-11b":
         _vlm_terms(D, c["kind"], ref, port)
-    if audio:
+    if audio and no_sp:
+        _whisper_no_sp_terms(D, c["kind"], ref, port)
+    elif audio:
         _whisper_terms(D, c["cfg"], c["kind"], ref, port)
+    if no_sp and H < M and not recurrent and not audio:
+        # ``REPRO_NO_SP`` with heads too few for the model axis: every
+        # attention weight is whole over ``model``, and both partitioners
+        # move its ZeRO-3 shard to the model axis in each pass (the q, k,
+        # v projections then split their contraction, the output
+        # projection runs whole); XLA by collective-permutes, the port by
+        # all-to-alls (`parallel.axes.transpose_shard`)
+        w = [d // R * H * hd] * 2 * L + [d // R * KV * hd] * 2 * L
+        passes = 3 * a if train else 1
+        if D["square"]:
+            ref["collective-permute"] += w * passes
+            port["all-to-all"] += w * passes
+    if c.get("env") == SP_RESIDUAL and c["arch"] in (
+            "tinyllama-1.1b", "arctic-480b", "grok-1-314b"):
+        _sp_residual_terms(D, bool(E), ref)
     if c["serving"]:
         ref["all-gather"] += [B] * 2 * L
         ref["collective-permute"] += [B * F // (R * M)] * L
@@ -1126,6 +1273,18 @@ def _hold_collectives(ref, name, count):
     assert pe["scalars"] == (Counter({1: 1 + gates}) if train
                              else Counter()), name
     assert sum(re_["scalars"].values()) >= train, name
+
+
+@pytest.mark.parametrize("name", list(KNOB_CELLS))
+def test_knob_changes_the_reference_record(ref, name):
+    """Each knob cell's reference record differs from the same cell's
+    without the knob, in its FLOPs or its collectives: the knob took
+    effect in the reference's trace (and, the cell holding, in the
+    port's)."""
+    base = KNOB_CELLS[name][0]
+    r, b = ref[name], ref[base]
+    assert (r["flops"] + r["fused_dot_flops"], ref_elements(r)) != \
+        (b["flops"] + b["fused_dot_flops"], ref_elements(b)), name
 
 
 def test_the_toy_product_counts_local_flops():

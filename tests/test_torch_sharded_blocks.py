@@ -36,14 +36,22 @@ import sys
 import pytest
 
 HERE = pathlib.Path(__file__).resolve().parent
+ZAMBA2 = dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab=128,
+              n_layers=2, attn_every=2, ssm_state=16, ssm_head_dim=16,
+              d_head=16)
+VLM = dict(d_model=64, n_heads=4, n_kv_heads=1, d_ff=128, vocab=128,
+           n_layers=4, cross_attn_every=2, n_ctx_tokens=8)
 CASES = {
     "xlstm": dict(arch="xlstm-1.3b", mesh=(1, 8), batch=2, seq=16,
                   cfg=dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=0,
                            vocab=128, n_layers=2, slstm_every=2)),
     "zamba2": dict(arch="zamba2-2.7b", mesh=(2, 2), batch=2, seq=16,
-                   cfg=dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
-                            vocab=128, n_layers=2, attn_every=2,
-                            ssm_state=16, ssm_head_dim=16, d_head=16)),
+                   cfg=ZAMBA2,
+                   # the shared block's residual rows over ``model``
+                   # (values only: the plan is not the reference's)
+                   extras=dict(sp_residual_zamba2=dict(
+                       arch="zamba2-2.7b", batch=2, seq=16, cfg=ZAMBA2,
+                       env={"REPRO_SP_RESIDUAL": "1"}))),
     "whisper": dict(arch="whisper-large-v3", mesh=(2, 2), batch=2, seq=16,
                     cfg=dict(d_model=80, n_heads=5, n_kv_heads=5, d_ff=160,
                              vocab=129, n_layers=2, n_encoder_layers=2,
@@ -58,10 +66,33 @@ CASES = {
                                             n_encoder_layers=1,
                                             n_ctx_tokens=1031)),
     "vlm": dict(arch="llama-3.2-vision-11b", mesh=(2, 2), batch=2, seq=16,
-                cfg=dict(d_model=64, n_heads=4, n_kv_heads=1, d_ff=128,
-                         vocab=128, n_layers=4, cross_attn_every=2,
-                         n_ctx_tokens=8)),
+                cfg=VLM,
+                extras=dict(
+                    # the self blocks' residual rows over ``model``, kept
+                    # through the cross blocks (values only: the plan is
+                    # not the reference's)
+                    sp_residual_vlm=dict(
+                        arch="llama-3.2-vision-11b", batch=2, seq=16,
+                        cfg=VLM, env={"REPRO_SP_RESIDUAL": "1"}),
+                    # Megatron-style residual rows over ``model``, GQA's
+                    # K/V projected on each rank's rows
+                    sp_residual_dense=dict(
+                        arch="tinyllama-1.1b", batch=2, seq=16,
+                        env={"REPRO_SP_RESIDUAL": "1"},
+                        cfg=dict(d_model=64, n_heads=4, n_kv_heads=1,
+                                 d_ff=128, vocab=128, n_layers=2)),
+                    # arctic's shape: heads too few for the model axis
+                    # (3 on 2) run whole on every rank, 4 experts split
+                    no_sp_arctic=dict(
+                        arch="arctic-480b", batch=2, seq=16,
+                        env={"REPRO_NO_SP": "1"},
+                        cfg=dict(d_model=48, n_heads=3, n_kv_heads=1,
+                                 d_ff=64, vocab=128, n_layers=2,
+                                 n_experts=4)))),
 }
+#: the extra models' runs, each in a case's process group: (case, extra)
+EXTRAS = [(name, extra) for name, case in CASES.items()
+          for extra in case.get("extras", {})]
 #: the largest difference allowed (fp32, sums in another order): absolute
 #: for the logits and the cache, relative to the largest gradient for the
 #: gradients
@@ -103,3 +134,19 @@ def test_partitioned_blocks_equal_plain(runs, name, phase):
     decode steps, the cache after them, and every parameter's gradient."""
     for r, got in enumerate(runs[name]):
         assert got[phase] <= TOL[phase], (name, phase, r, got)
+
+
+@pytest.mark.parametrize("phase", list(TOL))
+@pytest.mark.parametrize("name,extra", EXTRAS)
+def test_knob_blocks_equal_plain(runs, name, extra, phase):
+    """The reference's A/B knobs on real meshes: a dense toy under
+    ``REPRO_SP_RESIDUAL`` (the residual's rows split over ``model``, GQA's
+    K/V projected on each rank's rows, `parallel.axes.gathered_out`) and
+    arctic's shape under ``REPRO_NO_SP`` (heads whole on every model
+    rank, every attention weight's shard moved to the model axis), each
+    in the vision model's run, and the vision model and zamba2 under
+    ``REPRO_SP_RESIDUAL`` in their own runs: on every rank the same
+    values as the plain model's within `TOL`."""
+    for r, got in enumerate(runs[name]):
+        assert got[f"{extra}.{phase}"] <= TOL[phase], (name, extra, phase,
+                                                       r, got)

@@ -16,8 +16,8 @@ route each gradient element is held to 1e-4 relative + 1e-6 absolute
 plus 2e-3 of its leaf's largest magnitude (a rounded probability feeds
 terms on the leaf's scale; 6.3e-4 measured at most), and the new params
 to 1e-5 where the gradient's sign is certain.  With the probabilities
-in fp32 in both packages (the reference's ``REPRO_FP32_PROBS``, the
-port's ``common.PROBS_DTYPE``) every element holds 1e-4 + 1e-6.  The
+in fp32 in both packages (``REPRO_FP32_PROBS``, which both read at
+each call) every element holds 1e-4 + 1e-6.  The
 MoE routing of these weights has no near-tie, so no routing rule beyond
 the forward's is needed.
 
@@ -107,8 +107,21 @@ def grad_bound(want, exact_probs):
 @pytest.mark.parametrize("fam", sorted(FAMS))
 def test_train_step_matches_reference(fam, probs, monkeypatch):
     if probs == "float32":
-        monkeypatch.setenv("REPRO_FP32_PROBS", "1")        # the reference
-        monkeypatch.setattr(cm, "PROBS_DTYPE", torch.float32)
+        monkeypatch.setenv("REPRO_FP32_PROBS", "1")        # both packages
+    _hold_step(fam, probs)
+
+
+@pytest.mark.parametrize("fam", ["dense", "moe"])
+def test_train_step_under_dots_matches_reference(fam, monkeypatch):
+    """``REPRO_REMAT_POLICY=dots`` in both packages (the reference's
+    ``checkpoint_dots_with_no_batch_dims`` around its layer scan, the
+    port's selective recompute around its layer loop): the same step at
+    the same tolerances."""
+    monkeypatch.setenv("REPRO_REMAT_POLICY", "dots")
+    _hold_step(fam, "bfloat16")
+
+
+def _hold_step(fam, probs):
     rcfg, cfg = configs(fam)
     rapi, api = apis(rcfg, cfg)
     jp, tp = both(cfg, ref_tree(rcfg))
@@ -180,13 +193,50 @@ def test_recompute_leaves_forward_and_grads_bit_equal(fam, monkeypatch):
         plain = api.forward(tp, b)
     assert len(calls) == RECOMPUTED[fam]         # none without autograd
     assert torch.equal(logits, plain)
-    monkeypatch.setattr(cm, "recompute", lambda fn, params, *args: fn(*args))
+    monkeypatch.setattr(cm, "recompute",
+                        lambda fn, params, *args, **kw: fn(*args))
     logits_off, grads_off = _forward_and_grads(api, tp, b)
     assert len(calls) == RECOMPUTED[fam]
     assert torch.equal(logits, logits_off)
     for g, g_off in zip(grads, grads_off):
         assert (g is None) == (g_off is None)
         assert g is None or torch.equal(g, g_off)
+
+
+@pytest.mark.parametrize("fam", ["dense", "moe"])
+def test_dots_policy_bit_equal_to_full_recompute(fam, monkeypatch):
+    """Under ``REPRO_REMAT_POLICY=dots`` the layer loop saves the outputs
+    of its products without batch dims (one per projection: no
+    recompute of them, `models.common._save_dots`) and recomputes the
+    rest: the logits and every gradient bit-equal to full recompute, and
+    fewer products run by exactly the forward FLOPs of the products full
+    recompute reruns: q, k, v, the output projection, the FFN's gate and
+    up (and the router); neither reruns the FFN's down projection, whose
+    output the backward does not read (the recompute stops at the last
+    tensor it needs, as XLA's drops what no gradient reads)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    _, cfg = configs(fam)
+    api = get_model(cfg)
+    _, tp = both(cfg, ref_tree(configs(fam)[0]))
+    b = {k: torch.from_numpy(v) for k, v in train_batch(cfg).items()}
+    runs = {}
+    for policy in ("full", "dots"):
+        monkeypatch.setenv("REPRO_REMAT_POLICY", policy)
+        with FlopCounterMode(display=False) as fc:
+            logits, grads = _forward_and_grads(api, tp, b)
+        runs[policy] = logits, grads, fc.get_total_flops()
+    (lf, gf, ff), (ld, gd, fd) = runs["full"], runs["dots"]
+    assert torch.equal(lf, ld)
+    for g, g_d in zip(gf, gd):
+        assert (g is None) == (g_d is None)
+        assert g is None or torch.equal(g, g_d)
+    rows = b["tokens"].numel()
+    d, hd = cfg.d_model, cfg.head_dim
+    proj = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    ffn = 2 * d * cfg.d_ff
+    if fam == "moe":          # the router; the dense residual's FFN above
+        ffn += d * cfg.n_experts
+    assert ff - fd == 2 * rows * (proj + ffn) * cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", SMOKE_ARCHS)
