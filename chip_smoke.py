@@ -275,30 +275,38 @@ Phases, each printing one JSON line:
    no cut), of llama-3.2-vision-11b at ``decode_32k`` (128 rows
    against a 32,768-token cache; no cut), of tinyllama-1.1b's
    ``train_4k`` once more under ``REPRO_SP_RESIDUAL`` (set in the
-   record's worker and around the step) and of grok-1-314b's
+   record's worker and around the step), of grok-1-314b's
    ``multipod`` ``train_4k`` cut to 2 of its 64 layers at accum 8 (its
    16 microbatch rows cannot split ``pod`` x ``data``: an unmerged mesh
    over torch's flattened sub-meshes; peak within
-   ``PARTITION_MULTIPOD_PEAK_RATIO``) (``PARTITION_STEPS``) run with
+   ``PARTITION_MULTIPOD_PEAK_RATIO``) and of xlstm-1.3b's ``pod``
+   ``train_4k`` cut to 8 of its 48 layers (one segment) at its accum 4:
+   its sLSTM loop runs all 4 x 4,096 steps, forward and backward, where
+   the record counted it by its trip count (``loops``), so its peak
+   holds the trip count's ``temp`` (``PARTITION_STEPS``) run with
    CUDA local shards over the fake group, whose collectives move no
    data (the values mean nothing): its FLOPs (counted below DTensor on
    the card), ``args`` and collectives equal the record's, the record's
    ``knobs`` the step's, the record's FLOPs equal the reference's
    partitioned compile's where it is pinned (``PARTITION_REF_FLOPS``,
-   keyed by (arch, shape, knobs), pinned: this script imports no JAX;
-   grok-1's cut has none) up to the gaps the toy cells reckon, at full size
+   keyed by (arch, shape, knobs) and the layers of a cut, pinned: this
+   script imports no JAX; grok-1's cut has none) up to the gaps the
+   tests reckon (``PARTITION_REF_GAP``: xlstm's mLSTM gates, which XLA
+   computes on the whole rows where the chunk loop has more than one
+   chunk), at full size
    (zamba2's SSD scan: the record equals the reference compiled with the
    port's factorisation of its three-operand einsums,
    ``PARTITION_REF_FLOPS_TWO_OPERAND``; an ideal count, 99.8e12, would
    not); its peak (``max_memory_allocated`` over a second, uncounted run)
    within ``PARTITION_PEAK_RATIO`` of the record's ``bytes_per_device``
    and of the same counter's args + temp on the card; its wall beside
-   the record's ``compute_s`` and ``memory_s``; (c) the ``pod`` and
+   the record's ``compute_s`` and ``memory_s`` and the record's count
+   time on the host; (c) the ``pod`` and
    ``multipod`` records of tinyllama-1.1b and of grok-1-314b (cut to 2
    of its 64 layers and to accum 8) at ``train_4k`` and ``decode_32k``,
-   of xlstm-1.3b and zamba2-2.7b at ``decode_32k`` (xlstm's ``train_4k``
-   is left out: its sLSTM loop, counted op by op over 4,096 steps, runs
-   past 30 minutes on the host), of whisper-large-v3 at ``train_4k`` and
+   of xlstm-1.3b at ``train_4k``, ``prefill_32k`` and ``decode_32k``
+   (its sLSTM loop counted by its trip count), of zamba2-2.7b at
+   ``decode_32k``, of whisper-large-v3 at ``train_4k`` and
    ``decode_32k``, and of llama-3.2-vision-11b at ``decode_32k`` and at
    ``train_4k`` cut to 10 of its 40 layers (two segments), partitioned
    and ideal (counted on meta tensors on the host), each record's
@@ -541,14 +549,13 @@ PARTITION_ARCH = "tinyllama-1.1b"
 PARTITION_FWD = (2, 2048)        # phase (a): B x S
 PARTITION_PEAK_RATIO = (0.95, 1.05)
 #: (arch, layers, train accum, shapes): grok-1 cut to 2 of its 64
-#: layers and to accum 8; xlstm-1.3b and zamba2-2.7b at decode only
-#: (xlstm's ``train_4k`` counts op by op past 30 minutes on the host);
-#: llama-3.2-vision-11b's ``train_4k`` cut to 10 of its 40 layers (two
-#: segments)
+#: layers and to accum 8; zamba2-2.7b at decode only; xlstm-1.3b at full
+#: depth (its sLSTM loop counted by its trip count); llama-3.2-vision-11b's
+#: ``train_4k`` cut to 10 of its 40 layers (two segments)
 PARTITION_RECORDS = (
     ("tinyllama-1.1b", None, None, ("train_4k", "decode_32k")),
     ("grok-1-314b", 2, 8, ("train_4k", "decode_32k")),
-    ("xlstm-1.3b", None, None, ("decode_32k",)),
+    ("xlstm-1.3b", None, None, ("train_4k", "prefill_32k", "decode_32k")),
     ("zamba2-2.7b", None, None, ("decode_32k",)),
     ("whisper-large-v3", None, None, ("train_4k", "decode_32k")),
     ("llama-3.2-vision-11b", None, None, ("decode_32k",)),
@@ -557,26 +564,38 @@ PARTITION_RECORDS = (
 SP_RESIDUAL = (("REPRO_SP_RESIDUAL", "1"),)
 #: phase (b): the records whose rank-0 step runs, (arch, shape, mesh,
 #: layers, accum, knobs): the ``pod`` steps, tinyllama-1.1b's once more
-#: under ``REPRO_SP_RESIDUAL``, and grok-1 cut as in `PARTITION_RECORDS`
+#: under ``REPRO_SP_RESIDUAL``, grok-1 cut as in `PARTITION_RECORDS`
 #: on the multipod, whose microbatch cannot split ``pod`` x ``data`` (an
-#: unmerged mesh over torch's flattened sub-meshes)
+#: unmerged mesh over torch's flattened sub-meshes), and xlstm-1.3b cut
+#: to one segment (7 mLSTM + 1 sLSTM layers), its sLSTM loop run over
+#: all its steps (the record's trip count against the card's peak)
 PARTITION_STEPS = (
     ("tinyllama-1.1b", "train_4k", "pod", None, None, ()),
     ("zamba2-2.7b", "train_4k", "pod", None, None, ()),
     ("whisper-large-v3", "train_4k", "pod", None, None, ()),
     ("llama-3.2-vision-11b", "decode_32k", "pod", None, None, ()),
     ("tinyllama-1.1b", "train_4k", "pod", None, None, SP_RESIDUAL),
-    ("grok-1-314b", "train_4k", "multipod", 2, 8, ()))
-#: per-device FLOPs of the reference's partitioned compile of each full
-#: step of phase (b), keyed by (arch, shape, knobs) (the JAX package's
-#: ``build_cell`` compiled on 512 forced host devices with the knobs set
-#: while it traces, ``tests/_ref_partition.py``); grok-1's cut has none
+    ("grok-1-314b", "train_4k", "multipod", 2, 8, ()),
+    ("xlstm-1.3b", "train_4k", "pod", 8, None, ()))
+#: per-device FLOPs of the reference's partitioned compile of each step
+#: of phase (b), keyed by (arch, shape, knobs), and the layers of a cut
+#: (the JAX package's ``build_cell`` compiled on 512 forced host devices
+#: with the knobs set while it traces, ``tests/_ref_partition.py``);
+#: grok-1's cut has none
 PARTITION_REF_FLOPS = {
     ("tinyllama-1.1b", "train_4k", ()): 51_878_909_968_384,
     ("zamba2-2.7b", "train_4k", ()): 128_802_361_442_304,
     ("whisper-large-v3", "train_4k", ()): 223_926_277_898_240,
     ("llama-3.2-vision-11b", "decode_32k", ()): 31_194_087_424,
-    ("tinyllama-1.1b", "train_4k", SP_RESIDUAL): 46_209_553_137_664}
+    ("tinyllama-1.1b", "train_4k", SP_RESIDUAL): 46_209_553_137_664,
+    ("xlstm-1.3b", "train_4k", (), 8): 19_070_594_318_336}
+#: the record's FLOPs less the reference's where a gap is reckoned
+#: (``tests/test_torch_partition.py``'s ``mlstm_gates_gap``): XLA runs
+#: each mLSTM's gates' product on the whole rows on every model rank
+#: where the layer's chunk loop has more than one chunk (4,096 rows,
+#: 4 chunks), the port on the rank's rows: 15 x 7 layers x 2 b (S/16)
+#: d h 2 for the forward, the recompute and the backward, 4 microbatches
+PARTITION_REF_GAP = {("xlstm-1.3b", "train_4k", (), 8): -42_278_584_320}
 #: the same compile with the port's two-operand factorisation of the SSD
 #: scan's einsums (``ssd="two_operand"``): the record's FLOPs equal it
 PARTITION_REF_FLOPS_TWO_OPERAND = {
@@ -3912,7 +3931,7 @@ def partition_local_step(dev, card, step, record):
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     shape = SHAPES[shape_name]
-    key = (arch, shape_name, knobs)
+    key = (arch, shape_name, knobs) + ((layers,) if layers else ())
     rec, record_s = record()
     mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
     torch.cuda.empty_cache()
@@ -3974,12 +3993,15 @@ def partition_local_step(dev, card, step, record):
                PARTITION_REF_FLOPS_TWO_OPERAND.get(key),
            "flops_gap_to_reference":
                rec["hlo_flops_dev"] - PARTITION_REF_FLOPS[key]
-               if key in PARTITION_REF_FLOPS else None}
+               if key in PARTITION_REF_FLOPS else None,
+           "flops_gap_reckoned": PARTITION_REF_GAP.get(key, 0),
+           "loops": rec["loops"]}
     emit(row)
     lo, hi = (PARTITION_MULTIPOD_PEAK_RATIO if mesh_name == "multipod"
               else PARTITION_PEAK_RATIO)
     want = PARTITION_REF_FLOPS_TWO_OPERAND.get(key) or \
-        PARTITION_REF_FLOPS.get(key, rec["hlo_flops_dev"])
+        PARTITION_REF_FLOPS.get(key, rec["hlo_flops_dev"]) + \
+        PARTITION_REF_GAP.get(key, 0)
     if not (rec["partition"] == "dtensor" and rec["hlo_flops_dev"] == want
             and rec["knobs"] == dict(dryrun.knobs(), **dict(knobs))
             and counted["flops"] == rec["hlo_flops_dev"]

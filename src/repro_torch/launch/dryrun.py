@@ -70,7 +70,7 @@ The meshes (``--mesh``):
 
 Each record keeps the reference's keys (so `perfmodel.report` and
 `bench.roofline_bench` read either kind) plus ``partition``,
-``collectives_scope`` and ``peak`` (the constants used);
+``collectives_scope``, ``loops`` and ``peak`` (the constants used);
 ``compile_s`` holds the count's wall time, and ``knobs`` the values of
 the reference's four A/B knobs the models read while the step was
 counted (``KNOBS``: ``REPRO_NO_SP``, ``REPRO_SP_RESIDUAL``,
@@ -82,10 +82,17 @@ counted with none set); otherwise the cell is counted again and the
 record written over.  A config with ``use_flash_kernel`` raises: the
 counter cannot see the kernel's launch.
 
-``--all`` is slow for xlstm-1.3b's long cells: its sLSTM loop runs over
-time, op by op (about 7.5 s per 256 tokens of forward on meta at full
-width, more under DTensor's dispatch): its ``train_4k`` and
-``prefill_32k`` counts run past 30 minutes (``PERF.md``).
+A loop over time (`models.common.scan`: xlstm-1.3b's sLSTM) is counted
+by its trip count, as the reference's cost model counts a ``lax.scan``
+body once and multiplies it: its first four steps and its last run op by
+op, steps 2 and 3 are held alike, forward and backward, and step 3
+stands in for each step left out (`StepCounter`).  Counted so, every
+field equals the op-by-op count's, ``temp`` included (the left-out
+steps' live bytes held from their forward to their backward).  Each
+record names its loops (``loops``: ``{name: {trip, run_steps, calls}}``;
+empty where there is none).  xlstm-1.3b's ``train_4k`` counts in about
+90 s a mesh at full depth on meta, where op by op it ran past 30
+minutes (``PERF.md``).
 
 Usage (``--arch`` without ``--shape``: the arch's registered cells):
   python -m repro_torch.launch.dryrun --mesh host --arch tinyllama-1.1b \\
@@ -97,6 +104,7 @@ Usage (``--arch`` without ``--shape``: the arch's registered cells):
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import functools
@@ -119,6 +127,7 @@ from repro_torch.configs import registry as cfgs
 from repro_torch.configs.shapes import SHAPES, ShapeConfig
 from repro_torch.launch.mesh import (device_mesh, make_production_mesh,
                                      rules_for)
+from repro_torch.models import common as cm
 from repro_torch.models.registry import get_model
 from repro_torch.parallel.axes import (distribute_tree, is_dtensor,
                                        local_shape, resolve, resolve_tree,
@@ -243,6 +252,95 @@ def _mutated(func, args, kwargs) -> list:
     return out
 
 
+#: a trip-counted loop runs its first ``_LEAD`` steps and its last; the
+#: last two of the first (``_MIDDLE``) are the middle steps held alike.
+#: Step 1 is not one: its backward releases what step 0's leaves (the
+#: last view of the gradient of the stacked outputs)
+_LEAD = 4
+_MIDDLE = (_LEAD - 2, _LEAD - 1)
+
+
+class _Probe:
+    """One step of a trip-counted loop, forward or backward, as the
+    counter saw it: what its ops added to the counter's fields
+    (`fields`)."""
+
+    def __init__(self, counter):
+        self.counter = counter
+        self.flops, self.bytes = counter.flops, counter.bytes
+        self.log = len(counter.coll_log)
+        self.live = self.top = counter.live
+        self.created = 0
+        self.keys = set()
+
+    def fields(self) -> dict:
+        """``flops``, ``bytes`` and ``coll_log`` of the step's ops; the
+        bytes of the storages it created (``created``) and of those
+        still alive (``alive``); its change of the live bytes (``live``)
+        and its peak above the live bytes it started from (``peak``)."""
+        c = self.counter
+        return dict(flops=c.flops - self.flops, bytes=c.bytes - self.bytes,
+                    coll_log=c.coll_log[self.log:], created=self.created,
+                    alive=sum(c._new.get(k, 0) for k in self.keys),
+                    live=c.live - self.live, peak=self.top - self.live)
+
+
+class _Loop:
+    """One call of `models.common.scan` under a `StepCounter`: the steps
+    that run (``steps``: the first ``_LEAD`` and the last, or every step
+    where the trip holds no step to leave out) and the fields of its two
+    middle steps (``_MIDDLE``), forward (``fwd``) and backward
+    (``bwd``)."""
+
+    def __init__(self, counter, name: str, trip: int):
+        self.counter, self.name, self.trip = counter, name, trip
+        self.steps = (list(range(trip)) if trip <= _LEAD + 1
+                      else list(range(_LEAD)) + [trip - 1])
+        self.skipped = trip - len(self.steps)
+        self.fwd, self.bwd = {}, {}
+
+    @contextlib.contextmanager
+    def step(self, t: int):
+        """Step ``t`` runs inside: its forward ops are counted (and held,
+        for a middle step), the autograd nodes it creates noted for its
+        backward; before the last step the left-out steps' forward is
+        added."""
+        c = self.counter
+        if not self.skipped:
+            yield
+            return
+        if t == self.trip - 1:
+            c._add_steps(self, self.fwd, "forward")
+        first = torch._C._autograd._get_sequence_nr()
+        probe = c._open(_Probe(c)) if t in _MIDDLE else None
+        yield
+        if probe is not None:
+            self.fwd[t] = c._close(probe)
+        end = torch._C._autograd._get_sequence_nr()
+        if end > first:
+            c._nodes.append((first, end, self, t))
+
+
+def _alike(loop: _Loop, probes: dict, phase: str) -> dict:
+    """The fields of ``loop``'s middle step in ``phase``, held equal
+    between its two middle steps (``_MIDDLE``): steps that differ raise,
+    naming the loop and the field."""
+    i, j = _MIDDLE
+    if set(probes) != {i, j}:
+        raise RuntimeError(
+            f"loop {loop.name!r} (trip {loop.trip}): its {phase} steps {i} "
+            f"and {j} were not both seen ({sorted(probes)}); it cannot be "
+            f"counted by its trip count")
+    a, b = probes[i], probes[j]
+    for field in a:
+        if a[field] != b[field]:
+            raise RuntimeError(
+                f"loop {loop.name!r} (trip {loop.trip}): its {phase} steps "
+                f"{i} and {j} differ in {field!r} ({a[field]!r} against "
+                f"{b[field]!r}); it cannot be counted by its trip count")
+    return b
+
+
 class StepCounter(TorchDispatchMode):
     """Counts, for every aten op dispatched inside it, the FLOPs of its
     product by ``torch.utils.flop_counter``'s formulas (``flops``) and
@@ -257,11 +355,28 @@ class StepCounter(TorchDispatchMode):
     DTensor issues, its output bytes per `COLLECTIVES` name
     (``coll_bytes``, ``coll_counts``; ``coll_log`` lists each as
     ``(name, dtype, bytes)``).  A collective op this counter does not
-    know raises."""
+    know raises.
 
-    def __init__(self, local: bool = False):
+    With ``trips=True`` it counts each `models.common.scan` loop by its
+    trip count, as the reference's cost model counts a ``lax.scan``
+    (``loops`` names each): the first ``_LEAD`` steps and the last run
+    op by op (`_Loop`), and the two middle ones among them (``_MIDDLE``)
+    are held alike, forward and backward (the ops each dispatches, and
+    in the backward those of the autograd nodes it created, read off
+    ``torch._C._current_autograd_node``).  The later middle step stands
+    in for each step left out: its FLOPs, bytes and collectives (in the
+    log where the left-out steps' would be) added once for each, the
+    live bytes it leaves held as ``virtual`` bytes from its forward to
+    its backward, its transient peak counted on top of each.  The steps
+    at the ends run as themselves: step 0 (a zero state with no
+    gradient), step 1 (its backward releases what step 0's leaves) and
+    the last step (its h read by the output alone).  Middle steps that
+    differ raise."""
+
+    def __init__(self, local: bool = False, trips: bool = True):
         super().__init__()
         self.local = local
+        self.trips = trips
         self.bytes = 0
         self.live = 0
         self.peak = 0
@@ -269,7 +384,121 @@ class StepCounter(TorchDispatchMode):
         self.coll_bytes = {c: 0 for c in COLLECTIVES}
         self.coll_counts = {c: 0 for c in COLLECTIVES}
         self.coll_log = []
+        self.loops = {}
+        self.virtual = 0           # the left-out steps' live bytes
         self._new = {}             # id(storage) -> nbytes, while alive
+        self._probes = []          # open probes
+        self._nodes = []           # (first, end, loop, step) by sequence nr
+        self._seg = None           # (loop, step) of the backward op
+        self._window = None        # [loop, live, log index, peak] (`_seen`)
+        self._bwd_probe = None
+
+    def __enter__(self):
+        self._installed = cm.loop_counter(self if self.trips else None)
+        self._installed.__enter__()
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            if exc[0] is None:
+                self._seen(None)
+        finally:
+            self._installed.__exit__(*exc)
+        return super().__exit__(*exc)
+
+    def loop(self, name: str, trip: int) -> _Loop:
+        """The `_Loop` of one `models.common.scan` call."""
+        if self._probes:
+            raise NotImplementedError(
+                f"loop {name!r} inside a step of another trip-counted loop")
+        loop = _Loop(self, name, trip)
+        self.loops.setdefault(name, dict(trip=trip, run_steps=loop.steps,
+                                         calls=0))["calls"] += 1
+        return loop
+
+    def _open(self, probe):
+        self._probes.append(probe)
+        return probe
+
+    def _close(self, probe) -> dict:
+        self._probes.remove(probe)
+        return probe.fields()
+
+    def _add_steps(self, loop: _Loop, probes: dict, phase: str):
+        """Add ``loop``'s left-out steps of ``phase`` (their middle step's
+        fields once for each): in the forward, before its last step; in
+        the backward, once its earlier middle step is done, at the live
+        bytes and log position of the window (`_seen`)."""
+        f = _alike(loop, probes, phase)
+        n = loop.skipped
+        self.flops += n * f["flops"]
+        self.bytes += n * f["bytes"]
+        for name, _, b in f["coll_log"]:
+            self.coll_bytes[name] += n * b
+            self.coll_counts[name] += n
+        d = f["live"]
+        if phase == "forward":
+            live, at = self.live + self.virtual, len(self.coll_log)
+            top = live + max(0, (n - 1) * d) + f["peak"]
+        else:
+            _, live, at, after = self._window
+            top = max(live + max(0, (n - 1) * d) + f["peak"], after + n * d)
+        self.coll_log[at:at] = f["coll_log"] * n
+        self.peak = max(self.peak, top)
+        self.virtual += n * d
+
+    def _seen(self, node):
+        """The backward op about to run belongs to ``node`` (None: not a
+        backward op, or the count's end).  Each middle step of a loop,
+        from its first op to the next op that is not its own, is one
+        probe.  A loop's window opens at its later middle step, whose
+        backward the left-out steps' would precede, and closes at the
+        first op past the earlier one: the left-out steps are added then,
+        at the window's start, and the window's own peak is counted above
+        them."""
+        seg = None
+        if node is not None:
+            nr = node._sequence_nr()
+            i = bisect.bisect_right(self._nodes, nr,
+                                    key=lambda e: e[0]) - 1
+            if i >= 0 and nr < self._nodes[i][1]:
+                seg = self._nodes[i][2:]
+        if seg == self._seg:
+            return
+        if self._seg is not None and self._seg[1] in _MIDDLE:
+            loop, t = self._seg
+            loop.bwd[t] = self._close(self._bwd_probe)
+        self._seg = seg
+        if self._window is not None and (
+                seg is None or seg[0] is not self._window[0]
+                or seg[1] not in _MIDDLE):
+            loop = self._window[0]
+            self._add_steps(loop, loop.bwd, "backward")
+            self._window = None
+        if seg is None:
+            return
+        loop, t = seg
+        if t not in _MIDDLE:
+            return
+        if t in loop.bwd:
+            raise RuntimeError(
+                f"loop {loop.name!r} (trip {loop.trip}): the backward of its "
+                f"step {t} ran in two parts; it cannot be counted by its "
+                f"trip count")
+        if t == _MIDDLE[1]:
+            live = self.live + self.virtual
+            self._window = [loop, live, len(self.coll_log), live]
+        self._bwd_probe = self._open(_Probe(self))
+
+    def _touch(self):
+        """The live bytes rose: the open probes' peaks, and the window's
+        (which the left-out steps' backward will raise) or the count's."""
+        for p in self._probes:
+            p.top = max(p.top, self.live)
+        if self._window is not None:
+            self._window[3] = max(self._window[3], self.live + self.virtual)
+        else:
+            self.peak = max(self.peak, self.live + self.virtual)
 
     def _free(self, key):
         self.live -= self._new.pop(key)
@@ -299,6 +528,8 @@ class StepCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if self._nodes:
+            self._seen(torch._C._current_autograd_node())
         if self.local:
             if any(is_dtensor(t) for t in tree_leaves((args, kwargs))):
                 # DTensor dispatches it: its ops on the local shards
@@ -339,7 +570,10 @@ class StepCounter(TorchDispatchMode):
             self._new[key] = (min(st.nbytes(), tensor_bytes(t))
                               if self.local else st.nbytes())
             self.live += self._new[key]
-            self.peak = max(self.peak, self.live)
+            for p in self._probes:
+                p.created += self._new[key]
+                p.keys.add(key)
+            self._touch()
             weakref.finalize(st, self._free, key)
         return out
 
@@ -425,25 +659,28 @@ def build_cell(api, shape: ShapeConfig, *, serving: bool = False,
                 "decode")
 
 
-def count_step(cell: Cell, local: bool = False) -> dict:
+def count_step(cell: Cell, local: bool = False, _trips: bool = True) -> dict:
     """Run ``cell``'s step once under `StepCounter`: FLOPs, bytes, the
     peak of the bytes it creates (``temp``), the bytes of its outputs,
-    and the wall time of the count.  ``local``: the step runs on DTensors
-    (`partitioned_cell`) and the counts are rank 0's, collectives
-    included."""
+    the loops counted by their trip count (``loops``: each
+    `models.common.scan` by name, its trip, the steps that ran and its
+    calls) and the wall time of the count.  ``local``: the step runs on
+    DTensors (`partitioned_cell`) and the counts are rank 0's,
+    collectives included.  ``_trips=False`` runs every step of every
+    loop op by op instead (the tests hold the two counts equal)."""
     grad = torch.enable_grad() if cell.kind == "train" else torch.no_grad()
     # implicit replication: the tensors a partitioned step makes itself
     # (the positions, masks and constants) are whole on every rank
     rep = implicit_replication() if local else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with grad, rep, StepCounter(local=local) as counter:
+    with grad, rep, StepCounter(local=local, trips=_trips) as counter:
         out = cell.fn(*cell.args)
         output = counter.created(out)
     del out
     rec = dict(flops=float(counter.flops), bytes=float(counter.bytes),
                temp=float(counter.peak), output=float(output),
                args=float(sum(tree_bytes(a) for a in cell.args)),
-               wall_s=time.perf_counter() - t0)
+               loops=counter.loops, wall_s=time.perf_counter() - t0)
     if local:
         rec.update(collectives=dict(
             bytes_by_op=dict(counter.coll_bytes),
@@ -559,30 +796,40 @@ def _counted_under(cfg, shape: ShapeConfig, serving: bool,
     return api, cell, count_step(cell)
 
 
+def partitioned_count(cfg, shape: ShapeConfig, mesh: str, *,
+                      serving: bool = False, accum: int | None = None):
+    """``(cell, count)``: ``shape``'s step of the model ``cfg`` as rank 0
+    of ``mesh`` (``"pod"`` / ``"multipod"``) runs it (`partitioned_cell`)
+    and its `count_step`, collectives included."""
+    m = make_production_mesh(multi_pod=mesh == "multipod")
+    with partitioned_cell(get_model(cfg), shape, m, serving=serving,
+                          accum=accum) as cell:
+        try:
+            return cell, count_step(cell, local=True)
+        except Exception as e:
+            raise RuntimeError(
+                f"{cfg.name} x {shape.name} x {mesh}: DTensor could not "
+                f"partition the step: {e}") from e
+
+
 def cell_record(cfg, shape: ShapeConfig, mesh: str, *,
                 variant: str = "baseline", accum: int | None = None,
-                partition: str | None = None) -> dict:
+                partition: str | None = None, counted=None) -> dict:
     """The record of ``shape``'s step of the model ``cfg`` (a full config
     or one cut in depth) on ``mesh``.  ``partition``: ``"dtensor"`` or
     ``"ideal"`` for a ``pod`` / ``multipod`` cell; by default
     ``"dtensor"`` for the families of ``PARTITIONED_FAMILIES``, else
-    ``"ideal"``."""
+    ``"ideal"``.  ``counted``: the cell's `partitioned_count`, already
+    taken, for a ``"dtensor"`` record (not counted again)."""
     if partition is None:
         partition = ("dtensor" if cfg.family in PARTITIONED_FAMILIES
                      else "ideal")
     serving = variant == "opt" and shape.kind == "decode"
     if mesh != "host" and partition == "dtensor":
-        api = get_model(cfg)
-        m = make_production_mesh(multi_pod=mesh == "multipod")
-        with partitioned_cell(api, shape, m, serving=serving,
-                              accum=accum) as cell:
-            try:
-                c = count_step(cell, local=True)
-            except Exception as e:
-                raise RuntimeError(
-                    f"{cfg.name} x {shape.name} x {mesh}: DTensor could not "
-                    f"partition the step: {e}") from e
-        chips, args, coll = m.size, c["args"], c["collectives"]
+        cell, c = counted or partitioned_count(cfg, shape, mesh,
+                                               serving=serving, accum=accum)
+        chips, args, coll = (make_production_mesh(
+            multi_pod=mesh == "multipod").size, c["args"], c["collectives"])
         cost = {"flops": c["flops"], "bytes accessed": c["bytes"]}
         temp, output = c["temp"], c["output"]
         partition, scope = "dtensor", "all"
@@ -623,7 +870,7 @@ def cell_record(cfg, shape: ShapeConfig, mesh: str, *,
                             LINK_BW=roof.LINK_BW[mesh]),
                   kind=shape.kind, global_batch=shape.global_batch,
                   seq_len=shape.seq_len, accum=cell.accum,
-                  variant=variant, knobs=knobs())
+                  variant=variant, knobs=knobs(), loops=c["loops"])
     return record
 
 

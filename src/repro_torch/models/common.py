@@ -55,6 +55,7 @@ Conventions
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -462,6 +463,52 @@ def recompute(fn, params, *args, policy: str = "full"):
         return checkpoint(rerun, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
     return fn(*args)
+
+
+#: the counter that counts `scan` loops by their trip count, while one
+#: is installed (`loop_counter`: the dry-run's ``StepCounter``)
+_LOOP_COUNTER = None
+
+
+@contextlib.contextmanager
+def loop_counter(counter):
+    """Install ``counter`` for the enclosed scope: each `scan` inside it
+    asks ``counter.loop(name, trip)`` which steps to run."""
+    global _LOOP_COUNTER
+    prev, _LOOP_COUNTER = _LOOP_COUNTER, counter
+    try:
+        yield
+    finally:
+        _LOOP_COUNTER = prev
+
+
+def scan(name: str, body, state, xs):
+    """The reference's ``lax.scan`` over the leading dim of ``xs``:
+    ``state, y = body(state, xs[t])`` for every step ``t`` in order;
+    returns the last state and the steps' outputs, a list.
+
+    Under a loop counter (`loop_counter`) only the steps the counter's
+    loop names run (``loop.steps``, each inside ``loop.step(t)``), the
+    counter standing in for the others; each left-out step's output is a
+    detached view of the last output that ran before it, so that what
+    follows the loop runs at its full shape.  Outside one, every step
+    runs."""
+    trip = xs.shape[0]
+    if _LOOP_COUNTER is None:
+        ys = []
+        for t in range(trip):
+            state, y = body(state, xs[t])
+            ys.append(y)
+        return state, ys
+    loop = _LOOP_COUNTER.loop(name, trip)
+    ys = [None] * trip
+    for t in loop.steps:
+        with loop.step(t):
+            state, ys[t] = body(state, xs[t])
+    for t in range(1, trip):
+        if ys[t] is None:
+            ys[t] = ys[t - 1].detach()
+    return state, ys
 
 
 def rmsnorm(x, w, eps: float = 1e-5):

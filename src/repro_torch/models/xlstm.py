@@ -13,9 +13,10 @@ the quadratic parallel form, query-chunked like the chunked attention
 product, as the reference's are); decode is the O(1) recurrent update
 (state (H, dh, dh) per layer, fp32).
 
-sLSTM (scalar memory, recurrent gating) is sequential: a Python loop over
-time takes the place of the reference's ``lax.scan``, one small group of
-kernels per token.
+sLSTM (scalar memory, recurrent gating) is sequential: a loop over time
+(`common.scan`) takes the place of the reference's ``lax.scan``, one
+small group of kernels per token; the dry-run counts it by its trip
+count, as the reference's cost model counts the scan.
 
 On DTensors (the partitioned dry-run) the blocks run per rank as the
 reference's partitioner runs them (`_mlstm_fwd_sharded`,
@@ -450,10 +451,11 @@ def _slstm_fwd_sharded(cfg: ModelConfig, p, x):
     state = {k: torch.full(lead, v, dtype=torch.float32, device=xg5.device)
              for k, v in dict(c=0.0, n=0.0, m=M_INIT).items()}
     hw = torch.zeros(xg5.shape[1], h, dh, device=xg5.device)
-    hs = []
-    for t in range(s):
+
+    def step(carry, xt):
+        state, hw = carry
         rec = contract("bhk,hkgl->bhgl", hw, rh)
-        za, ia, fa, oa = (xg5[t] + rec + bias).unbind(1)
+        za, ia, fa, oa = (xt + rec + bias).unbind(1)
         zt, ot = torch.tanh(za), torch.sigmoid(oa)
         logi, logf = ia, F.logsigmoid(fa)
         m_new = torch.maximum(logf + state["m"], logi)
@@ -462,9 +464,10 @@ def _slstm_fwd_sharded(cfg: ModelConfig, p, x):
         c = fp * state["c"] + ip * zt
         n = fp * state["n"] + ip
         hnew = ot * c / torch.clamp_min(n, 1.0)
-        state = dict(c=c, n=n, m=m_new)
         hw = gather_share(hnew, 2, mesh, "model")
-        hs.append(hw)
+        return (dict(c=c, n=n, m=m_new), hw), hw
+
+    _, hs = cm.scan("slstm", step, (state, hw), xg5)
     hs = torch.stack(hs, 1)[:, r * share:(r + 1) * share]
     hs = hs.reshape(*hs.shape[:2], d_in).to(cfg.dtype)
     wo = _whole(p["wo"].to(cfg.dtype), zr)
@@ -479,15 +482,12 @@ def slstm_fwd(cfg: ModelConfig, p, x):
     """Sequential over time (inherent to sLSTM).  x (B,S,d)."""
     if is_dtensor(x):
         return _slstm_fwd_sharded(cfg, p, x)
-    b, s, _ = x.shape
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
     xg = torch.einsum("bsd,dgk->sbgk", z.float(), p["wx"].float())
     rh, bias = p["rh"].float(), p["b"].float()
-    state = _slstm_state(cfg, (b,), x.device)
-    hs = []
-    for t in range(s):
-        state, h = _slstm_cell(cfg, rh, bias, state, xg[t])
-        hs.append(h)
+    state = _slstm_state(cfg, (x.shape[0],), x.device)
+    _, hs = cm.scan("slstm", functools.partial(_slstm_cell, cfg, rh, bias),
+                    state, xg)
     hs = torch.stack(hs, 1).to(cfg.dtype)                # (B,S,d_in)
     return x + hs @ p["wo"].to(cfg.dtype)
 

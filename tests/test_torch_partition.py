@@ -259,7 +259,19 @@ FULL = {**{f"full-{s}": dict(arch="tinyllama-1.1b", shape=s, mesh="pod")
         **{f"full-train_4k-2l{tag}": dict(arch="tinyllama-1.1b",
                                           shape="train_4k", mesh="pod",
                                           layers=2, **env)
-           for tag, env in (("", {}), ("-spres", dict(env=SP_RESIDUAL)))}}
+           for tag, env in (("", {}), ("-spres", dict(env=SP_RESIDUAL)))},
+        # at full width cut to one segment (7 mLSTM + 1 sLSTM layers): the
+        # sLSTM's loop over 4,096 and 32,768 steps, counted by its trip
+        # count as the reference's cost model counts its scan
+        **{f"full-xlstm-{s}-8l": dict(arch="xlstm-1.3b", shape=s,
+                                      mesh="pod", layers=8)
+           for s in ("train_4k", "prefill_32k")}}
+#: xlstm's toy over 2,048 rows, two mLSTM query chunks: XLA's plan for
+#: the mLSTM's gates changes past one chunk (`mlstm_gates_gap`); FLOPs
+#: and args held, the collectives not (ROADMAP Queue 3)
+CHUNK_CELLS = {f"xlstm-{k}-pod-s2048": _cell(
+    arch="xlstm-1.3b", kind=k, batch=16, seq=2048, n_heads=4, n_kv_heads=4,
+    d_ff=0, n_layers=2, slstm_every=2) for k in ("prefill", "train")}
 #: the zamba2 train cells, compiled once more with the port's
 #: factorisation of the SSD scan's einsums (the FLOP gap's cause)
 SSD_TWO_OPERAND = {f"{n}+ssd2": dict(c, ssd="two_operand")
@@ -269,7 +281,8 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 
 
 #: every cell the reference compiles, in its subprocess's order
-REF_CELLS = {**CELLS, **KNOB_BASES, **FULL, **SSD_TWO_OPERAND}
+REF_CELLS = {**CELLS, **KNOB_BASES, **FULL, **SSD_TWO_OPERAND,
+             **CHUNK_CELLS}
 
 
 @pytest.fixture(scope="module")
@@ -348,6 +361,26 @@ def router_gap(name):
     return layers * (combine + router // 16)
 
 
+def mlstm_gates_gap(name):
+    """xlstm, where each mLSTM layer's query-chunk loop runs more than
+    one chunk (rows past 1,024, the full cells): XLA computes the gates'
+    product (``bsd,dhg->bshg``) on the whole rows on every model rank,
+    the port on each model rank's rows (`models.xlstm._mlstm_fwd_sharded`),
+    XLA's own plan over one chunk (the toy cells): ``M - 1`` ranks' rows
+    more a layer, in the forward and, in a train step, twice more (the
+    recompute and one product of the backward), each microbatch.  Per
+    device; negative, the port counting fewer.  Measured on the toy at
+    2,048 rows (two chunks: prefill and train) and on the full cells
+    (4 and 32 chunks)."""
+    c, D = _cell_info(name), _dims(name)
+    if c["arch"] != "xlstm-1.3b" or D["kind"] == "decode" or D["S"] <= 1024:
+        return 0
+    n_m = D["L"] - D["L"] // c["cfg"]["slstm_every"]
+    share = 2 * D["b"] * (D["S"] // D["M"]) * D["d"] * D["H"] * 2
+    passes = 3 if D["kind"] == "train" else 1
+    return -(D["M"] - 1) * share * n_m * passes * D["a"]
+
+
 @pytest.mark.parametrize("name", list(CELLS))
 def test_flops_and_args_equal_reference(ref, port, name):
     """Per-device FLOPs equal the reference's but for two reckoned gaps:
@@ -373,18 +406,35 @@ def test_flops_and_args_equal_reference(ref, port, name):
     assert p["args"] == r["args"], name
 
 
+@pytest.mark.parametrize("name", list(CHUNK_CELLS))
+def test_mlstm_gates_gap_over_two_chunks(ref, name):
+    """xlstm's toy over two mLSTM query chunks: per-device FLOPs equal
+    the reference's less `mlstm_gates_gap` (XLA's gates' product on the
+    whole rows), args equal."""
+    r, p = ref[name], port_count(CHUNK_CELLS[name])
+    assert mlstm_gates_gap(name) < 0
+    assert p["flops"] == r["flops"] + r["fused_dot_flops"] + \
+        mlstm_gates_gap(name), name
+    assert p["args"] == r["args"], name
+
+
 def _cell_info(name):
     """A cell of `CELLS` or `FULL` as ``dict(arch, cfg, kind, seq, batch,
     mesh, accum, serving)``, ``cfg`` every field of its config."""
-    if name in CELLS:
-        c = CELLS[name]
+    if name in CELLS or name in CHUNK_CELLS:
+        c = {**CELLS, **CHUNK_CELLS}[name]
         cfg = dataclasses.replace(get_smoke(c["arch"]), **c["cfg"])
         return dict(c, cfg=dataclasses.asdict(cfg))
     c = FULL[name]
     shape = SHAPES[c["shape"]]
-    return dict(arch=c["arch"], mesh=c["mesh"], accum=1, serving=False,
-                cfg=dataclasses.asdict(cfgs.get_config(c["arch"])),
-                kind=shape.kind, seq=shape.seq_len, batch=shape.global_batch)
+    cfg = cfgs.get_config(c["arch"])
+    if c.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=c["layers"])
+    accum = (dryrun.TRAIN_ACCUM.get(cfg.name, dryrun.DEFAULT_ACCUM)
+             if shape.kind == "train" else 1)
+    return dict(arch=c["arch"], mesh=c["mesh"], accum=accum, serving=False,
+                cfg=dataclasses.asdict(cfg), kind=shape.kind,
+                seq=shape.seq_len, batch=shape.global_batch)
 
 
 @pytest.mark.parametrize("name", list(FULL))
@@ -404,7 +454,8 @@ def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
     if c.get("layers"):
         cfg = dataclasses.replace(cfg, n_layers=c["layers"])
     with dryrun.knobs_set(c.get("env")):
-        rec = dryrun.cell_record(cfg, shape, "pod")
+        counted = dryrun.partitioned_count(cfg, shape, "pod")
+        rec = dryrun.cell_record(cfg, shape, "pod", counted=counted)
     r = ref[name]
     if c.get("env"):
         base = ref[name.replace("-spres", "")]
@@ -412,17 +463,17 @@ def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
         assert rec["knobs"] == dict(dict.fromkeys(dryrun.KNOBS, ""),
                                     **c["env"])
     assert rec["partition"] == "dtensor"
-    assert rec["hlo_flops_dev"] == r["flops"] + r["fused_dot_flops"]
+    assert rec["hlo_flops_dev"] == \
+        r["flops"] + r["fused_dot_flops"] + mlstm_gates_gap(name)
     assert rec["memory_analysis"]["args"] == r["args"]
     if name == "full-prefill_32k":
         assert 2 * rec["collectives"]["bytes_by_op"]["all-reduce"] == \
             r["full_bytes_by_op"]["all-reduce"]
-    if c["arch"] != "tinyllama-1.1b":
-        with dryrun.partitioned_cell(get_model(cfg), shape,
-                                     make_production_mesh()) as cell:
-            count = dryrun.count_step(cell, local=True)
-        assert count["collectives"] == rec["collectives"]
-        _hold_collectives(ref, name, count)
+    if c["arch"] == "xlstm-1.3b" and shape.kind != "decode":
+        assert rec["loops"]["slstm"]["trip"] == shape.seq_len
+        _hold_step_collectives(ref, name, counted[1])
+    elif c["arch"] != "tinyllama-1.1b":
+        _hold_collectives(ref, name, counted[1])
 
 
 def _dims(name):
@@ -1273,6 +1324,68 @@ def _hold_collectives(ref, name, count):
     assert pe["scalars"] == (Counter({1: 1 + gates}) if train
                              else Counter()), name
     assert sum(re_["scalars"].values()) >= train, name
+
+
+def slstm_step_terms(name):
+    """``(ref, port)``: the arrays each partitioner moves at every step
+    of the sLSTM's loop, per microbatch, by kind, in elements, at full
+    size (rows past one mLSTM chunk: the full cells).  XLA gathers the
+    previous h whole once (``b*ds``, for the recurrent product) and one
+    head's share (``b*dhs``), permutes the gates' pre-activation share
+    (``b*4*ds/M``) and re-lays the stacked output's share by four
+    all-to-alls (``b*4*dhs/M`` each), where at the toy's size it gathers
+    h a second time; its backward mirrors the forward's arrays and
+    all-reduces the h gradient's partial sums, the recurrent weights' and
+    the bias's gradient shares every step.  The port gathers h once
+    (`parallel.axes.gather_share`) and reduce-scatters its gradient onto
+    the share, and reduces the recurrent weights' and the bias's
+    gradients once, outside the loop."""
+    D, cfg = _dims(name), _cell_info(name)["cfg"]
+    b, M = D["b"], D["M"]
+    ds = cfg["d_model"]
+    dhs = ds // cfg["n_heads"]
+    fwd = {"all-gather": [b * dhs, b * ds],
+           "all-to-all": [b * 4 * dhs // M] * 4,
+           "collective-permute": [b * 4 * ds // M]}
+    ref = {k: list(v) for k, v in fwd.items()}
+    port = {"all-gather": [b * ds]}
+    if D["kind"] == "train":
+        for k, v in fwd.items():
+            ref[k] += v
+        ref["all-reduce"] = [b * ds, cfg["n_heads"] * dhs * 4 * dhs // M,
+                             4 * ds // M]
+        port["reduce-scatter"] = [b * ds // M]
+    return ref, port
+
+
+def _hold_step_collectives(ref, name, count):
+    """The sLSTM's per-step collective arrays of a full xlstm cell, kind
+    by kind, by element count (`slstm_step_terms`): the arrays of each
+    size that run ``T`` times a microbatch or more, counted in multiples
+    of ``T*a`` (the few arrays of the same size outside the loop fall
+    below one).  The trip count multiplies exactly these.  The rest of
+    XLA's full-size plan for the mLSTM layers over rows past one chunk is
+    not reckoned here (ROADMAP Queue 3)."""
+    D = _dims(name)
+    per = D["T"] * D["a"]
+    want_ref, want_port = slstm_step_terms(name)
+    got_ref, got_port = Counter(), Counter()
+    for kind, dtype, dims, runs, _ in ref[name]["arrays"]:
+        if dtype not in ("s32", "int32", "int64"):
+            got_ref[(kind, math.prod(int(x) for x in dims.split(",")
+                                     if x))] += runs
+    for kind, dtype, n in count["coll_log"]:
+        if dtype not in (torch.int32, torch.int64):
+            got_port[(kind, n // dtype.itemsize)] += 1
+
+    def steps(got):
+        return Counter({k: v // per for k, v in got.items() if v >= per})
+
+    def terms(want):
+        return Counter((k, n) for k, sizes in want.items() for n in sizes)
+
+    assert steps(got_ref) == terms(want_ref), (name, steps(got_ref))
+    assert steps(got_port) == terms(want_port), (name, steps(got_port))
 
 
 @pytest.mark.parametrize("name", list(KNOB_CELLS))
