@@ -88,7 +88,8 @@ body once and multiplies it: its first four steps and its last run op by
 op, steps 2 and 3 are held alike, forward and backward, and step 3
 stands in for each step left out (`StepCounter`).  Counted so, every
 field equals the op-by-op count's, ``temp`` included (the left-out
-steps' live bytes held from their forward to their backward).  Each
+steps' live bytes held from their forward to their backward, or, in a
+forward alone, until its outputs are freed).  Each
 record names its loops (``loops``: ``{name: {trip, run_steps, calls}}``;
 empty where there is none).  xlstm-1.3b's ``train_4k`` counts in about
 90 s a mesh at full depth on meta, where op by op it ran past 30
@@ -127,7 +128,6 @@ from repro_torch.configs import registry as cfgs
 from repro_torch.configs.shapes import SHAPES, ShapeConfig
 from repro_torch.launch.mesh import (device_mesh, make_production_mesh,
                                      rules_for)
-from repro_torch.models import common as cm
 from repro_torch.models.registry import get_model
 from repro_torch.parallel.axes import (distribute_tree, is_dtensor,
                                        local_shape, resolve, resolve_tree,
@@ -210,7 +210,8 @@ _COLLECTIVE_OPS = {
 }
 
 #: collective bookkeeping that moves no bytes
-_NO_BYTES = ("_c10d_functional::wait_tensor",
+_WAIT = "_c10d_functional::wait_tensor"
+_NO_BYTES = (_WAIT,
              "_c10d_functional::_wrap_tensor_autograd")
 
 
@@ -298,6 +299,8 @@ class _Loop:
                       else list(range(_LEAD)) + [trip - 1])
         self.skipped = trip - len(self.steps)
         self.fwd, self.bwd = {}, {}
+        self.kept = set()          # the later middle step's live storages
+        self.graphed = False       # autograd recorded a step
 
     @contextlib.contextmanager
     def step(self, t: int):
@@ -316,8 +319,11 @@ class _Loop:
         yield
         if probe is not None:
             self.fwd[t] = c._close(probe)
+            self.kept = {k for k in probe.keys if k in c._new}
         end = torch._C._autograd._get_sequence_nr()
-        if end > first:
+        # (a custom Function takes a sequence number in no-grad mode too)
+        if end > first and torch.is_grad_enabled():
+            self.graphed = True
             c._nodes.append((first, end, self, t))
 
 
@@ -367,7 +373,9 @@ class StepCounter(TorchDispatchMode):
     in for each step left out: its FLOPs, bytes and collectives (in the
     log where the left-out steps' would be) added once for each, the
     live bytes it leaves held as ``virtual`` bytes from its forward to
-    its backward, its transient peak counted on top of each.  The steps
+    its backward (where autograd records the loop; else until the last
+    of the storages it left alive is freed), its transient peak counted
+    on top of each.  The steps
     at the ends run as themselves: step 0 (a zero state with no
     gradient), step 1 (its backward releases what step 0's leaves) and
     the last step (its h read by the output alone).  Middle steps that
@@ -387,27 +395,23 @@ class StepCounter(TorchDispatchMode):
         self.loops = {}
         self.virtual = 0           # the left-out steps' live bytes
         self._new = {}             # id(storage) -> nbytes, while alive
+        self._on_free = {}         # id(storage) -> callbacks (`_release`)
         self._probes = []          # open probes
         self._nodes = []           # (first, end, loop, step) by sequence nr
         self._seg = None           # (loop, step) of the backward op
         self._window = None        # [loop, live, log index, peak] (`_seen`)
         self._bwd_probe = None
 
-    def __enter__(self):
-        self._installed = cm.loop_counter(self if self.trips else None)
-        self._installed.__enter__()
-        return super().__enter__()
-
     def __exit__(self, *exc):
-        try:
-            if exc[0] is None:
-                self._seen(None)
-        finally:
-            self._installed.__exit__(*exc)
+        if exc[0] is None:
+            self._seen(None)
         return super().__exit__(*exc)
 
-    def loop(self, name: str, trip: int) -> _Loop:
-        """The `_Loop` of one `models.common.scan` call."""
+    def loop(self, name: str, trip: int) -> _Loop | None:
+        """The `_Loop` of one `models.common.scan` call (None: every step
+        runs, op by op, where ``trips`` is off)."""
+        if not self.trips:
+            return None
         if self._probes:
             raise NotImplementedError(
                 f"loop {name!r} inside a step of another trip-counted loop")
@@ -446,6 +450,25 @@ class StepCounter(TorchDispatchMode):
         self.coll_log[at:at] = f["coll_log"] * n
         self.peak = max(self.peak, top)
         self.virtual += n * d
+        if phase == "forward" and not loop.graphed:
+            self._release(loop.kept, n * d)
+
+    def _release(self, keys: set, nbytes: int):
+        """Take ``nbytes`` off the virtual bytes once the last of the
+        storages ``keys`` is freed: a loop autograd does not record
+        leaves nothing for its backward, and the left-out steps' live
+        bytes (their outputs) die with the later middle step's."""
+        left = set(keys)
+
+        def freed(key):
+            left.discard(key)
+            if not left:
+                self.virtual -= nbytes
+
+        if not left:
+            self.virtual -= nbytes
+        for k in keys:
+            self._on_free.setdefault(k, []).append(freed)
 
     def _seen(self, node):
         """The backward op about to run belongs to ``node`` (None: not a
@@ -502,6 +525,8 @@ class StepCounter(TorchDispatchMode):
 
     def _free(self, key):
         self.live -= self._new.pop(key)
+        for f in self._on_free.pop(key, ()):
+            f(key)
 
     def created(self, tree) -> int:
         """Bytes of the storages of ``tree``'s tensors that ops inside
@@ -538,6 +563,11 @@ class StepCounter(TorchDispatchMode):
             if _in_sharding_prop():
                 return func(*args, **kwargs)
         out = func(*args, **kwargs)
+        if self.local and func._schema.name == _WAIT:
+            # the card's wait returns its input; the meta kernel's returns
+            # a new tensor, and the collective's output would count as
+            # freed at its wait
+            return args[0]
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             self.flops += count(*args, **kwargs, out_val=out)
@@ -798,18 +828,22 @@ def _counted_under(cfg, shape: ShapeConfig, serving: bool,
 
 def partitioned_count(cfg, shape: ShapeConfig, mesh: str, *,
                       serving: bool = False, accum: int | None = None):
-    """``(cell, count)``: ``shape``'s step of the model ``cfg`` as rank 0
-    of ``mesh`` (``"pod"`` / ``"multipod"``) runs it (`partitioned_cell`)
-    and its `count_step`, collectives included."""
+    """The `count_step` of ``shape``'s step of the model ``cfg`` as rank 0
+    of ``mesh`` (``"pod"`` / ``"multipod"``) runs it (`partitioned_cell`),
+    collectives included, with the ``cell``, the mesh's ``chips`` and
+    what it counted (``of``: cfg, shape, mesh, serving, accum and the
+    knobs)."""
     m = make_production_mesh(multi_pod=mesh == "multipod")
     with partitioned_cell(get_model(cfg), shape, m, serving=serving,
                           accum=accum) as cell:
         try:
-            return cell, count_step(cell, local=True)
+            c = count_step(cell, local=True)
         except Exception as e:
             raise RuntimeError(
                 f"{cfg.name} x {shape.name} x {mesh}: DTensor could not "
                 f"partition the step: {e}") from e
+    return dict(c, cell=cell, chips=m.size,
+                of=(cfg, shape, mesh, serving, accum, knobs()))
 
 
 def cell_record(cfg, shape: ShapeConfig, mesh: str, *,
@@ -820,16 +854,21 @@ def cell_record(cfg, shape: ShapeConfig, mesh: str, *,
     ``"ideal"`` for a ``pod`` / ``multipod`` cell; by default
     ``"dtensor"`` for the families of ``PARTITIONED_FAMILIES``, else
     ``"ideal"``.  ``counted``: the cell's `partitioned_count`, already
-    taken, for a ``"dtensor"`` record (not counted again)."""
+    taken, for a ``"dtensor"`` record (not counted again; one of another
+    cell raises)."""
     if partition is None:
         partition = ("dtensor" if cfg.family in PARTITIONED_FAMILIES
                      else "ideal")
     serving = variant == "opt" and shape.kind == "decode"
     if mesh != "host" and partition == "dtensor":
-        cell, c = counted or partitioned_count(cfg, shape, mesh,
-                                               serving=serving, accum=accum)
-        chips, args, coll = (make_production_mesh(
-            multi_pod=mesh == "multipod").size, c["args"], c["collectives"])
+        of = (cfg, shape, mesh, serving, accum, knobs())
+        c = counted or partitioned_count(cfg, shape, mesh, serving=serving,
+                                         accum=accum)
+        if c["of"] != of:
+            raise ValueError(f"{cfg.name} x {shape.name} x {mesh}: the "
+                             f"count given was taken for {c['of']}")
+        cell, chips, args, coll = (c["cell"], c["chips"], c["args"],
+                                   c["collectives"])
         cost = {"flops": c["flops"], "bytes accessed": c["bytes"]}
         temp, output = c["temp"], c["output"]
         partition, scope = "dtensor", "all"

@@ -55,7 +55,6 @@ Conventions
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
@@ -67,6 +66,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -465,21 +465,14 @@ def recompute(fn, params, *args, policy: str = "full"):
     return fn(*args)
 
 
-#: the counter that counts `scan` loops by their trip count, while one
-#: is installed (`loop_counter`: the dry-run's ``StepCounter``)
-_LOOP_COUNTER = None
-
-
-@contextlib.contextmanager
-def loop_counter(counter):
-    """Install ``counter`` for the enclosed scope: each `scan` inside it
-    asks ``counter.loop(name, trip)`` which steps to run."""
-    global _LOOP_COUNTER
-    prev, _LOOP_COUNTER = _LOOP_COUNTER, counter
-    try:
-        yield
-    finally:
-        _LOOP_COUNTER = prev
+def _loop_counter():
+    """The innermost active dispatch mode that counts `scan` loops by
+    their trip count (one with a ``loop`` method: the dry-run's
+    ``StepCounter``), or None."""
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "loop"):
+            return mode
+    return None
 
 
 def scan(name: str, body, state, xs):
@@ -487,20 +480,21 @@ def scan(name: str, body, state, xs):
     ``state, y = body(state, xs[t])`` for every step ``t`` in order;
     returns the last state and the steps' outputs, a list.
 
-    Under a loop counter (`loop_counter`) only the steps the counter's
-    loop names run (``loop.steps``, each inside ``loop.step(t)``), the
-    counter standing in for the others; each left-out step's output is a
-    detached view of the last output that ran before it, so that what
-    follows the loop runs at its full shape.  Outside one, every step
-    runs."""
+    Under a loop counter (`_loop_counter`) whose ``loop(name, trip)``
+    gives a loop, only the steps it names run (``loop.steps``, each
+    inside ``loop.step(t)``), the counter standing in for the others;
+    each left-out step's output is a detached view of the last output
+    that ran before it, so that what follows the loop runs at its full
+    shape.  Otherwise every step runs."""
     trip = xs.shape[0]
-    if _LOOP_COUNTER is None:
+    counter = _loop_counter()
+    loop = counter.loop(name, trip) if counter is not None else None
+    if loop is None:
         ys = []
         for t in range(trip):
             state, y = body(state, xs[t])
             ys.append(y)
         return state, ys
-    loop = _LOOP_COUNTER.loop(name, trip)
     ys = [None] * trip
     for t in loop.steps:
         with loop.step(t):

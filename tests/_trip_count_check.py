@@ -22,12 +22,17 @@ FIELDS = ("flops", "bytes", "temp", "output", "args", "collectives",
           "coll_log")
 
 
-def count(cfg, shape, mesh: str, trips: bool) -> dict:
+def count(cfg, shape, mesh: str, trips: bool, accum: int | None = None
+          ) -> dict:
+    """The `count_step` of ``shape``'s step of ``cfg`` on ``mesh`` (rank
+    0's on the ``pod`` / ``multipod``), by its trip count or op by op;
+    ``accum`` overrides the arch's train accumulation."""
     if mesh == "host":
-        return dryrun.count_step(dryrun.build_cell(get_model(cfg), shape),
-                                 _trips=trips)
+        cell = dryrun.build_cell(get_model(cfg), shape, accum=accum)
+        return dryrun.count_step(cell, _trips=trips)
     m = make_production_mesh(multi_pod=mesh == "multipod")
-    with dryrun.partitioned_cell(get_model(cfg), shape, m) as cell:
+    with dryrun.partitioned_cell(get_model(cfg), shape, m,
+                                 accum=accum) as cell:
         return dryrun.count_step(cell, local=True, _trips=trips)
 
 

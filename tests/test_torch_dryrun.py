@@ -42,10 +42,11 @@ from repro.train import step as ref_step
 from repro_torch.configs import registry as cfgs
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_production_mesh, rules_for
+from repro_torch.launch.mesh import (device_mesh, make_production_mesh,
+                                     rules_for)
 from repro_torch.models import moe
 from repro_torch.models.registry import get_model
-from repro_torch.parallel.axes import sharding_rules
+from repro_torch.parallel.axes import gather_share, sharding_rules
 
 B_FWD, B, S = 2, 4, 64
 TRAIN_ACCUM2 = ("tinyllama-1.1b", "xlstm-1.3b", "arctic-480b",
@@ -241,6 +242,37 @@ def test_byte_and_peak_counters_on_closed_forms():
                                         ((), (), ()), "decode"))
     assert (got["bytes"], got["temp"], got["output"]) == (
         2 * 8 + 2 * 8 * f32, 0, 0)
+
+
+def test_collective_output_counts_until_freed():
+    """A gathered share held past its wait counts in the peak, as on the
+    card, where the wait returns its input (the meta kernel returns a
+    new tensor): (2, 8) fp32 gathered over the pod's 16 model ranks to
+    (2, 128), then doubled, the two held at once."""
+    m = make_production_mesh()
+    with device_mesh(m, "cuda", rules_for(m)) as dm:
+        def double_gathered(x):
+            return gather_share(x, 1, dm, "model") * 2
+
+        x = torch.zeros((2, 8), device="meta")
+        got = dryrun.count_step(dryrun.Cell(double_gathered, (x,), ((),),
+                                            "prefill"), local=True)
+    assert got["collectives"]["counts"]["all-gather"] == 1
+    assert (got["temp"], got["output"]) == (2 * 2 * 128 * 4, 2 * 128 * 4)
+
+
+def test_record_refuses_a_count_of_another_cell():
+    """`cell_record` takes a `partitioned_count` only of its own cell."""
+    cfg = dataclasses.replace(cfgs.get_smoke("tinyllama-1.1b"), d_model=256,
+                              n_heads=16, n_kv_heads=16, d_ff=512, vocab=512)
+    counted = dryrun.partitioned_count(
+        cfg, ShapeConfig("toy", "prefill", 128, 32), "pod")
+    rec = dryrun.cell_record(cfg, ShapeConfig("toy", "prefill", 128, 32),
+                             "pod", counted=counted)
+    assert rec["hlo_flops_dev"] == counted["flops"]
+    with pytest.raises(ValueError, match="the count given was taken for"):
+        dryrun.cell_record(cfg, ShapeConfig("toy", "prefill", 64, 32),
+                           "pod", counted=counted)
 
 
 def test_ideal_partition_on_a_toy():

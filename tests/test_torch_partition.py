@@ -471,9 +471,9 @@ def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
             r["full_bytes_by_op"]["all-reduce"]
     if c["arch"] == "xlstm-1.3b" and shape.kind != "decode":
         assert rec["loops"]["slstm"]["trip"] == shape.seq_len
-        _hold_step_collectives(ref, name, counted[1])
+        _hold_step_collectives(ref, name, counted)
     elif c["arch"] != "tinyllama-1.1b":
-        _hold_collectives(ref, name, counted[1])
+        _hold_collectives(ref, name, counted)
 
 
 def _dims(name):

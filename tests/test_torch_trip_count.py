@@ -22,12 +22,11 @@ import dataclasses
 import pytest
 import torch
 
+from _trip_count_check import FIELDS, count
 from repro_torch.configs.registry import get_config, get_smoke
 from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import common as cm
-from repro_torch.models.registry import get_model
 
 TOY = dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=0, vocab=512,
            n_layers=2, slstm_every=2)
@@ -36,23 +35,11 @@ TOY = dict(d_model=256, n_heads=4, n_kv_heads=4, d_ff=0, vocab=512,
 CELLS = (("prefill", "pod", 1), ("train", "pod", 1), ("train", "multipod", 1),
          ("train", "host", 2), ("prefill", "host", 1))
 SEQS = (32, 128)
-FIELDS = ("flops", "bytes", "temp", "output", "args", "collectives",
-          "coll_log")
-
-
-def _count(cfg, shape, mesh, accum, trips):
-    if mesh == "host":
-        cell = dryrun.build_cell(get_model(cfg), shape, accum=accum)
-        return dryrun.count_step(cell, _trips=trips)
-    m = make_production_mesh(multi_pod=mesh == "multipod")
-    with dryrun.partitioned_cell(get_model(cfg), shape, m,
-                                 accum=accum) as cell:
-        return dryrun.count_step(cell, local=True, _trips=trips)
 
 
 def _held(cfg, shape, mesh, accum):
-    trip = _count(cfg, shape, mesh, accum, True)
-    plain = _count(cfg, shape, mesh, accum, False)
+    trip = count(cfg, shape, mesh, True, accum)
+    plain = count(cfg, shape, mesh, False, accum)
     s = shape.seq_len
     calls = cfg.n_layers // cfg.slstm_every * (
         accum if shape.kind == "train" else 1)
@@ -72,6 +59,18 @@ def test_trip_count_equals_op_by_op(kind, mesh, accum, seq):
     assert rec["flops"] > 0 and rec["temp"] > 0
     if mesh != "host":
         assert rec["collectives"]["counts"]["all-gather"] > seq
+
+
+@pytest.mark.parametrize("seq", SEQS)
+@pytest.mark.parametrize("mesh", ("host", "pod"))
+def test_two_segment_prefill_trip_count_equals_op_by_op(mesh, seq):
+    """Two segments at prefill: the first loop's left-out outputs die
+    with the stack that reads them, before the second segment's peak
+    (autograd records nothing, so no backward gives their bytes back)."""
+    cfg = dataclasses.replace(get_smoke("xlstm-1.3b"), **dict(
+        TOY, n_layers=4))
+    rec = _held(cfg, ShapeConfig("toy", "prefill", seq, 32), mesh, 1)
+    assert rec["loops"]["slstm"]["calls"] == 2
 
 
 def test_full_width_segment_trip_count_equals_op_by_op():
