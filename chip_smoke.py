@@ -280,20 +280,20 @@ Phases, each printing one JSON line:
    16 microbatch rows cannot split ``pod`` x ``data``: an unmerged mesh
    over torch's flattened sub-meshes; peak within
    ``PARTITION_MULTIPOD_PEAK_RATIO``) and of xlstm-1.3b's ``pod``
-   ``train_4k`` cut to 8 of its 48 layers (one segment) at its accum 4:
-   its sLSTM loop runs all 4 x 4,096 steps, forward and backward, where
-   the record counted it by its trip count (``loops``), so its peak
-   holds the trip count's ``temp`` (``PARTITION_STEPS``) run with
+   ``train_4k`` cut to 8 of its 48 layers (one segment) at its accum 4,
+   and once more under ``REPRO_NO_SP`` (the mLSTM's scores split over
+   the value dims): its sLSTM loop runs all 4 x 4,096 steps, forward
+   and backward, where the record counted it by its trip count
+   (``loops``), so its peak holds the trip count's ``temp``, and its
+   mLSTM runs the reference's plan past one query chunk, the gates and
+   the projections on the whole rows (``PARTITION_STEPS``), run with
    CUDA local shards over the fake group, whose collectives move no
    data (the values mean nothing): its FLOPs (counted below DTensor on
    the card), ``args`` and collectives equal the record's, the record's
    ``knobs`` the step's, the record's FLOPs equal the reference's
    partitioned compile's where it is pinned (``PARTITION_REF_FLOPS``,
    keyed by (arch, shape, knobs) and the layers of a cut, pinned: this
-   script imports no JAX; grok-1's cut has none) up to the gaps the
-   tests reckon (``PARTITION_REF_GAP``: xlstm's mLSTM gates, which XLA
-   computes on the whole rows where the chunk loop has more than one
-   chunk), at full size
+   script imports no JAX; grok-1's cut has none), at full size
    (zamba2's SSD scan: the record equals the reference compiled with the
    port's factorisation of its three-operand einsums,
    ``PARTITION_REF_FLOPS_TWO_OPERAND``; an ideal count, 99.8e12, would
@@ -562,13 +562,16 @@ PARTITION_RECORDS = (
     ("llama-3.2-vision-11b", 10, None, ("train_4k",)))
 #: the reference's Megatron-style residual split (an A/B knob)
 SP_RESIDUAL = (("REPRO_SP_RESIDUAL", "1"),)
+#: the reference's sequence-parallel fallback off (an A/B knob)
+NO_SP = (("REPRO_NO_SP", "1"),)
 #: phase (b): the records whose rank-0 step runs, (arch, shape, mesh,
 #: layers, accum, knobs): the ``pod`` steps, tinyllama-1.1b's once more
 #: under ``REPRO_SP_RESIDUAL``, grok-1 cut as in `PARTITION_RECORDS`
 #: on the multipod, whose microbatch cannot split ``pod`` x ``data`` (an
 #: unmerged mesh over torch's flattened sub-meshes), and xlstm-1.3b cut
 #: to one segment (7 mLSTM + 1 sLSTM layers), its sLSTM loop run over
-#: all its steps (the record's trip count against the card's peak)
+#: all its steps (the record's trip count against the card's peak), and
+#: so once more under ``REPRO_NO_SP``
 PARTITION_STEPS = (
     ("tinyllama-1.1b", "train_4k", "pod", None, None, ()),
     ("zamba2-2.7b", "train_4k", "pod", None, None, ()),
@@ -576,7 +579,8 @@ PARTITION_STEPS = (
     ("llama-3.2-vision-11b", "decode_32k", "pod", None, None, ()),
     ("tinyllama-1.1b", "train_4k", "pod", None, None, SP_RESIDUAL),
     ("grok-1-314b", "train_4k", "multipod", 2, 8, ()),
-    ("xlstm-1.3b", "train_4k", "pod", 8, None, ()))
+    ("xlstm-1.3b", "train_4k", "pod", 8, None, ()),
+    ("xlstm-1.3b", "train_4k", "pod", 8, None, NO_SP))
 #: per-device FLOPs of the reference's partitioned compile of each step
 #: of phase (b), keyed by (arch, shape, knobs), and the layers of a cut
 #: (the JAX package's ``build_cell`` compiled on 512 forced host devices
@@ -588,14 +592,8 @@ PARTITION_REF_FLOPS = {
     ("whisper-large-v3", "train_4k", ()): 223_926_277_898_240,
     ("llama-3.2-vision-11b", "decode_32k", ()): 31_194_087_424,
     ("tinyllama-1.1b", "train_4k", SP_RESIDUAL): 46_209_553_137_664,
-    ("xlstm-1.3b", "train_4k", (), 8): 19_070_594_318_336}
-#: the record's FLOPs less the reference's where a gap is reckoned
-#: (``tests/test_torch_partition.py``'s ``mlstm_gates_gap``): XLA runs
-#: each mLSTM's gates' product on the whole rows on every model rank
-#: where the layer's chunk loop has more than one chunk (4,096 rows,
-#: 4 chunks), the port on the rank's rows: 15 x 7 layers x 2 b (S/16)
-#: d h 2 for the forward, the recompute and the backward, 4 microbatches
-PARTITION_REF_GAP = {("xlstm-1.3b", "train_4k", (), 8): -42_278_584_320}
+    ("xlstm-1.3b", "train_4k", (), 8): 19_070_594_318_336,
+    ("xlstm-1.3b", "train_4k", NO_SP, 8): 19_039_590_023_168}
 #: the same compile with the port's two-operand factorisation of the SSD
 #: scan's einsums (``ssd="two_operand"``): the record's FLOPs equal it
 PARTITION_REF_FLOPS_TWO_OPERAND = {
@@ -3994,14 +3992,12 @@ def partition_local_step(dev, card, step, record):
            "flops_gap_to_reference":
                rec["hlo_flops_dev"] - PARTITION_REF_FLOPS[key]
                if key in PARTITION_REF_FLOPS else None,
-           "flops_gap_reckoned": PARTITION_REF_GAP.get(key, 0),
            "loops": rec["loops"]}
     emit(row)
     lo, hi = (PARTITION_MULTIPOD_PEAK_RATIO if mesh_name == "multipod"
               else PARTITION_PEAK_RATIO)
     want = PARTITION_REF_FLOPS_TWO_OPERAND.get(key) or \
-        PARTITION_REF_FLOPS.get(key, rec["hlo_flops_dev"]) + \
-        PARTITION_REF_GAP.get(key, 0)
+        PARTITION_REF_FLOPS.get(key, rec["hlo_flops_dev"])
     if not (rec["partition"] == "dtensor" and rec["hlo_flops_dev"] == want
             and rec["knobs"] == dict(dryrun.knobs(), **dict(knobs))
             and counted["flops"] == rec["hlo_flops_dev"]

@@ -950,7 +950,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=tuple(SHAPES))
-    ap.add_argument("--mesh", choices=("host", "single", "multi", "both"),
+    # ``pod`` and ``multipod`` name the meshes as the records do
+    ap.add_argument("--mesh", choices=("host", "single", "multi", "both",
+                                       "pod", "multipod"),
                     default="host")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
@@ -968,7 +970,8 @@ def main(argv=None):
         ap.error("give --arch [--shape], or --all")
 
     meshes = {"host": ("host",), "single": ("pod",), "multi": ("multipod",),
-              "both": ("pod", "multipod")}[args.mesh]
+              "both": ("pod", "multipod"), "pod": ("pod",),
+              "multipod": ("multipod",)}[args.mesh]
     failures = []
     for arch, shape in cells:
         for mesh in meshes:

@@ -98,15 +98,16 @@ def _plain_product(eq: str, x, w):
 ATTN_CHUNK = 1024
 
 
-def _rows_whole(rows: int) -> bool:
+def _rows_whole(rows: int, chunk: int = ATTN_CHUNK) -> bool:
     """True where ``rows`` of the sequence-parallel fallback are more than
-    one attention chunk and split over more than one rank: the
-    reference's partitioner splits each chunk's query rows (its pin
+    one query chunk of ``chunk`` rows and split over more than one rank:
+    the reference's partitioner splits each chunk's query rows (its pin
     inside the chunk loop), a split that does not reach back through the
-    chunking, so the projections around the attention run on the whole
-    rows (`_whole_product`).  Measured on the decoder-only toy (8 heads
-    on the 16-way ``model`` axis) and on whisper's, both at 2,048 rows."""
-    return rows > ATTN_CHUNK and _seq_ranks() > 1
+    chunking, so the projections around the loop run on the whole rows
+    (`_whole_product`; xlstm's mLSTM and sLSTM, `models.xlstm`).  Measured
+    on the decoder-only toy (8 heads on the 16-way ``model`` axis), on
+    whisper's and on xlstm's (4 heads), all at 2,048 rows."""
+    return rows > chunk and _seq_ranks() > 1
 
 
 def _gathered_grad(x) -> dict:

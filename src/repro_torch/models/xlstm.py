@@ -20,7 +20,11 @@ count, as the reference's cost model counts the scan.
 
 On DTensors (the partitioned dry-run) the blocks run per rank as the
 reference's partitioner runs them (`_mlstm_fwd_sharded`,
-`_slstm_fwd_sharded` and the two steps; see the section below).
+`_slstm_fwd_sharded` and the two steps; see the section below): the
+projections around the mLSTM's query-chunk loop on each model rank's
+rows where the rows lie within one chunk, on the whole rows past it
+and under ``REPRO_NO_SP`` (`_rows_whole`); on a mesh of one rank the
+blocks' plain forward runs.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import common as cm
 from repro_torch.models import transformer as tt
@@ -37,7 +41,10 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.parallel.axes import (along, contract, einsum,
                                        even_share, gather_fsdp, gather_share,
                                        is_dtensor, reduce_grad_partial,
-                                       reduce_partial, shard)
+                                       product_scope, reduce_partial,
+                                       regather, regather_local, shard,
+                                       swap_share)
+from repro_torch.tree import map_tree
 
 M_INIT = -1e30            # the stabiliser's initial value
 
@@ -151,7 +158,9 @@ def _mlstm_proj(cfg: ModelConfig, p, z):
 # xlstm-1.3b's 4 heads cannot split the 16-way ``model`` axis, so the
 # reference's rules put its tensor parallelism on the value dims
 # (``state``) and its mLSTM falls back to splitting each query chunk's
-# rows over ``model``.  Each function below runs the block per rank with
+# rows over ``model``; under ``REPRO_NO_SP`` (the fallback off) the
+# partitioner splits the scores over the value dims instead
+# (`_mlstm_by_value`).  Each function below runs the block per rank with
 # the placements the reference's partitioner gives it.
 
 
@@ -162,14 +171,6 @@ def _whole(t, like):
     t = along(gather_fsdp(t, tuple("fsdp" for _ in range(t.ndim))),
               "model", Replicate())
     return cm.local_for(t, like)
-
-
-def _require_seq_par(cfg: ModelConfig):
-    if cm.heads_tp_available(cfg.n_heads):
-        raise NotImplementedError(
-            f"{cfg.name}: the partitioned mLSTM takes the reference's "
-            f"sequence-parallel fallback only ({cfg.n_heads} heads split "
-            f"the model axis)")
 
 
 def _mlstm_qkv_sharded(cfg: ModelConfig, p, z):
@@ -200,59 +201,39 @@ def _chunks(t, s_pad, c, rows=None):
     return t[:, :, r * n:(r + 1) * n]
 
 
-def _mlstm_fwd_sharded(cfg: ModelConfig, p, x, chunk: int = 1024):
-    """`mlstm_fwd` per rank: q/k/v as `_mlstm_qkv_sharded`; the gates on
-    each model rank's rows; the reference's sequence-parallel fallback of
-    `_mlstm_parallel` (each query chunk's rows split over ``model``, q
-    moved there by an all-to-all; k, v (the reference's pin), the gates'
-    cumulative sums whole); the output projection on the rank's rows with
-    w_o gathered whole, the rows gathered back."""
-    dt = cfg.dtype
-    _, h, dh = _dims(cfg)
-    b, s, _ = x.shape
-    _require_seq_par(cfg)
-    mesh = x.device_mesh
-    mi = mesh.mesh_dim_names.index("model")
-    r, nm = mesh.get_local_rank(mi), mesh.size(mi)
-    z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
-    q, k, v, zg = _mlstm_qkv_sharded(cfg, p, z)
-    v = shard(v, "batch", None, "heads", None)
-    zr = along(z.float(), "model", Shard(1))
-    gates = einsum("bsd,dhg->bshg", zr,
-                   gather_fsdp(p["wif"].float(), ("fsdp", None, None)))
-    gl = gates.to_local(grad_placements=gates.placements) + \
-        cm.local_for(p["bif"], gates)
-    gates = DTensor.from_local(gl, mesh, gates.placements, run_check=False,
-                               shape=gates.shape, stride=gates.stride())
+MLSTM_CHUNK = 1024        # the mLSTM's query chunk (`_mlstm_parallel`)
 
-    def whole(t):
-        t = along(t, "model", Replicate())
-        return t.to_local(grad_placements=cm.partial_over_model(t))
 
-    gw = whole(gates)
-    logi, logf = gw[..., 0], F.logsigmoid(gw[..., 1])
-    c = min(chunk, max(-(-s // 128) * 128, 128))
-    nq = -(-s // c)
-    share = even_share(c, nm, f"{cfg.name}: the mLSTM's chunk rows")
-    # q: its value-dim split moved to each chunk's rows (one all-to-all)
-    ql = q.to_local(grad_placements=q.placements)
-    q5 = DTensor.from_local(_chunks(ql, nq * c, c), mesh,
-                            [Shard(4) if p_ == Shard(3) else p_
-                             for p_ in q.placements], run_check=False)
-    ql = along(q5, "model", Shard(2))
-    ql = ql.to_local(grad_placements=ql.placements)
+def _chunk_rows(s: int):
+    """``(c, nq)``: `_mlstm_parallel`'s query chunk over ``s`` rows and
+    the number of chunks."""
+    c = min(MLSTM_CHUNK, max(-(-s // 128) * 128, 128))
+    return c, -(-s // c)
+
+
+def _rows_whole(cfg: ModelConfig, s: int, nm: int) -> bool:
+    """Whether the projections around the mLSTM's query-chunk loop (and
+    the sLSTM's after it) run on the whole rows of ``s`` on ``nm`` model
+    ranks: past one chunk (`common._rows_whole`), and wherever the heads
+    may split the ``model`` axis (``REPRO_NO_SP``: `_mlstm_by_value`), as
+    the reference's partitioner plans them; else on each rank's rows."""
+    return cm._rows_whole(s, MLSTM_CHUNK) or (
+        cm.heads_tp_available(cfg.n_heads) and nm > 1)
+
+
+def _chunk_loop(ql, cumf_r, kterm, kf, vb, s, c, row0, scale):
+    """`_mlstm_parallel`'s loop on each chunk's query rows ``ql`` (B, nq,
+    n, H, dh) from row ``row0`` of the chunk (their cumulative forget
+    gates ``cumf_r``) against the whole keys, values and key terms:
+    (B, nq, n, H, dh) fp32."""
     pdt = cm.probs_dtype()
-    kf, vb = whole(k).float(), whole(v).to(pdt).float()
-    cumf = logf.cumsum(1)
-    kterm = logi - cumf
-    cumf_r = _chunks(cumf, nq * c, c, (r, share))
+    n = ql.shape[2]
     jpos = torch.arange(s, device=ql.device)[None, None, :, None]
-    scale = 1.0 / (dh ** 0.5)
     outs = []
-    for i in range(nq):
+    for i in range(ql.shape[1]):
         qi, cfi = ql[:, i], cumf_r[:, i]
         logd = cfi[:, :, None, :] + kterm[:, None, :, :]
-        ipos = (i * c + r * share + torch.arange(share, device=ql.device))[
+        ipos = (i * c + row0 + torch.arange(n, device=ql.device))[
             None, :, None, None]
         logd = torch.where(jpos <= ipos, logd, float("-inf"))
         m = logd.amax(2, keepdim=True)
@@ -264,7 +245,92 @@ def _mlstm_fwd_sharded(cfg: ModelConfig, p, x, chunk: int = 1024):
         out = torch.einsum("bcsh,bshd->bchd",
                            sd.to(pdt).float(), vb)
         outs.append(out / norm[..., None])
-    o = torch.stack(outs, 1)                      # (B, nq, share, H, dh)
+    return torch.stack(outs, 1)
+
+
+def _bias_local(p, like):
+    """The gates' bias as the local tensor to add to the local gates of
+    the activation ``like``: its gradient a partial sum over ``model``
+    (each model rank runs its own query rows or value block) and over
+    the dims ``like`` splits."""
+    names = like.device_mesh.mesh_dim_names
+    return p["bif"].to_local(grad_placements=[
+        Partial() if n == "model" or isinstance(a, Shard) else q
+        for n, q, a in zip(names, p["bif"].placements, like.placements)])
+
+
+def _mlstm_fwd_sharded(cfg: ModelConfig, p, x):
+    """`mlstm_fwd` per rank: q/k/v as `_mlstm_qkv_sharded`; the
+    reference's sequence-parallel fallback of `_mlstm_parallel` (each
+    query chunk's rows split over ``model``, q moved there by an
+    all-to-all; k, v (the reference's pin), the gates' cumulative sums
+    whole).  Around the loop the plan follows the rows, as the
+    reference's partitioner's does (`_rows_whole`): over one
+    chunk the gates run on each model rank's rows (their output gathered
+    whole), the output projection on the rank's rows with w_o gathered
+    whole, the rows gathered back; over more than one chunk the gates
+    run on the whole rows on every model rank, the loop's output is
+    gathered to the whole rows on each rank's share of the value dims
+    (`parallel.axes.swap_share`), and the output projection runs there
+    on w_o's own ``state`` split, its partial sums reduced."""
+    dt = cfg.dtype
+    _, h, dh = _dims(cfg)
+    b, s, _ = x.shape
+    mesh = x.device_mesh
+    mi = mesh.mesh_dim_names.index("model")
+    r, nm = mesh.get_local_rank(mi), mesh.size(mi)
+    c, nq = _chunk_rows(s)
+    whole_rows = _rows_whole(cfg, s, nm)
+    z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
+    q, k, v, zg = _mlstm_qkv_sharded(cfg, p, z)
+    v = shard(v, "batch", None, "heads", None)
+    if cm.heads_tp_available(h) and nm > 1:
+        return x + _mlstm_by_value(cfg, p, z, q, k, v, zg)
+    wif = gather_fsdp(p["wif"].float(), ("fsdp", None, None))
+
+    def whole(t):
+        t = along(t, "model", Replicate())
+        return t.to_local(grad_placements=cm.partial_over_model(t))
+
+    if whole_rows:
+        gates = einsum("bsd,dhg->bshg", z.float(), wif, share_grad="model")
+        gw = gates.to_local(grad_placements=cm.partial_over_model(gates)) \
+            + _bias_local(p, gates)
+    else:
+        zr = along(z.float(), "model", Shard(1))
+        gates = einsum("bsd,dhg->bshg", zr, wif)
+        gl = gates.to_local(grad_placements=gates.placements) + \
+            _bias_local(p, gates)
+        gw = whole(DTensor.from_local(gl, mesh, gates.placements,
+                                      run_check=False, shape=gates.shape,
+                                      stride=gates.stride()))
+    logi, logf = gw[..., 0], F.logsigmoid(gw[..., 1])
+    share = even_share(c, nm, f"{cfg.name}: the mLSTM's chunk rows")
+    # q: its value-dim split moved to each chunk's rows (one all-to-all)
+    ql = q.to_local(grad_placements=q.placements)
+    q5 = DTensor.from_local(_chunks(ql, nq * c, c), mesh,
+                            [Shard(4) if p_ == Shard(3) else p_
+                             for p_ in q.placements], run_check=False)
+    ql = along(q5, "model", Shard(2))
+    ql = ql.to_local(grad_placements=ql.placements)
+    kf, vb = whole(k).float(), whole(v).to(cm.probs_dtype()).float()
+    cumf = logf.cumsum(1)
+    kterm = logi - cumf
+    cumf_r = _chunks(cumf, nq * c, c, (r, share))
+    o = _chunk_loop(ql, cumf_r, kterm, kf, vb, s, c, r * share,
+                    1.0 / (dh ** 0.5))                # (B, nq, share, H, dh)
+    if whole_rows:
+        dhm = even_share(dh, nm, f"{cfg.name}: the mLSTM's value dims")
+        o = swap_share(o, 2, 4, mesh, "model")       # (B, nq, c, H, dh/M)
+        o = o.reshape(o.shape[0], nq * c, h, dhm)[:, :s]
+        g = F.silu(whole(zg)).unflatten(-1, (h, dh))
+        g = g[..., r * dhm:(r + 1) * dhm]
+        pl = [Shard(3) if i == mi else p_
+              for i, p_ in enumerate(x.placements)]
+        og = DTensor.from_local(o.to(dt) * g, mesh, pl, run_check=False)
+        y = reduce_partial(einsum("bshk,hkd->bsd", og, gather_fsdp(
+            p["wo"].to(dt), ("heads", "state", "fsdp")), cm._plain_product))
+        return x + y
     g = _chunks(F.silu(whole(zg)), nq * c, c, (r, share))
     o = o.to(dt) * g.reshape(*g.shape[:3], h, -1)
     wo = _whole(p["wo"].to(dt), zr)
@@ -276,6 +342,92 @@ def _mlstm_fwd_sharded(cfg: ModelConfig, p, x, chunk: int = 1024):
     yl = yl.reshape(yl.shape[0], nq * c, -1)[:, :s]
     return x + DTensor.from_local(yl, mesh, x.placements, run_check=False,
                                   shape=x.shape, stride=x.stride())
+
+
+def _mlstm_by_value(cfg: ModelConfig, p, z, q, k, v, zg):
+    """The mLSTM's gates, query-chunk loop and output projection (its
+    update of the residual), per rank, where its heads may split the
+    ``model`` axis (``REPRO_NO_SP``: no sequence-parallel fallback),
+    as the reference's partitioner runs it with q, k and v split over the
+    value dims (``state``) and every row whole: the flattened heads'
+    value dims cut into ``model`` blocks of ``H*dh/M``, each within one
+    head (``hr``); each query chunk's scores summed over the value dims'
+    shares (one all-reduce, all heads), the rank's head's decay-weighted
+    scores against its block of v gathered whole, the gates of its head
+    alone (w_if's head gathered); the output projection on the block,
+    w_o's ``state`` split moved to it by one all-to-all
+    (`parallel.axes.regather_local`), its partial sums reduced."""
+    dt = cfg.dtype
+    _, h, dh = _dims(cfg)
+    s = z.shape[1]
+    mesh = z.device_mesh
+    mi = mesh.mesh_dim_names.index("model")
+    r, nm = mesh.get_local_rank(mi), mesh.size(mi)
+    dhm = even_share(dh, nm, f"{cfg.name}: the mLSTM's value dims")
+    blk = even_share(h * dh, nm, f"{cfg.name}: the mLSTM's value blocks")
+    if dh % blk:
+        raise NotImplementedError(
+            f"{cfg.name}: {h} heads on {nm} model ranks: a value block of "
+            f"{blk} would span heads")
+    hr, c0 = divmod(r * blk, dh)
+    c, nq = _chunk_rows(s)
+    # the gates of the rank's head, on the whole rows
+    wif = p["wif"].float()
+    wl = wif.to_local(grad_placements=[
+        Partial() if i == mi else q_ for i, q_ in enumerate(wif.placements)])
+    wl = wl[:, hr]
+    for i, q_ in enumerate(wif.placements):
+        if isinstance(q_, Shard) and i != mi:
+            wl = gather_share(wl, 0, mesh, mesh.mesh_dim_names[i])
+    zf = z.float()
+    zl = zf.to_local(grad_placements=cm.partial_over_model(zf))
+    gates = torch.einsum("bsd,dg->bsg", zl, wl) + _bias_local(p, z)[hr]
+    logi, logf = gates[..., 0], F.logsigmoid(gates[..., 1])
+    cumf = logf.cumsum(1)
+    kterm = logi - cumf
+    cumf = F.pad(cumf, (0, nq * c - s))
+    ql = F.pad(q.to_local(grad_placements=q.placements),
+               (0, 0, 0, 0, 0, nq * c - s))
+    kf = k.to_local(grad_placements=k.placements).float()
+    vb = v.to_local(grad_placements=cm.partial_over_model(v)).to(
+        cm.probs_dtype()).float()[:, :, hr, c0:c0 + blk]
+    pl = [Partial() if i == mi else q_ for i, q_ in enumerate(z.placements)]
+    pdt = cm.probs_dtype()
+    jpos = torch.arange(s, device=ql.device)[None, None, :]
+    scale = 1.0 / (dh ** 0.5)
+    outs = []
+    for i in range(nq):
+        rows = slice(i * c, (i + 1) * c)
+        part = torch.einsum("bchd,bshd->bcsh", ql[:, rows].float(), kf)
+        sc = reduce_partial(DTensor.from_local(part, mesh, pl,
+                                               run_check=False))
+        sc = sc.to_local(grad_placements=pl)[..., hr] * scale
+        logd = cumf[:, rows, None] + kterm[:, None, :]
+        ipos = (i * c + torch.arange(c, device=ql.device))[None, :, None]
+        logd = torch.where(jpos <= ipos, logd, float("-inf"))
+        m = logd.amax(2, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        sd = sc * (logd - m).exp()
+        norm = torch.maximum(sd.sum(2).abs(), (-m[:, :, 0]).exp())
+        out = torch.einsum("bcs,bsd->bcd", sd.to(pdt).float(), vb)
+        outs.append(out / norm[..., None])
+    o = torch.cat(outs, 1)[:, :s]                       # (B, S, blk)
+    zw = along(zg, "model", Replicate())
+    g = F.silu(zw.to_local(grad_placements=cm.partial_over_model(zw)))
+    o = o.to(dt) * g[..., r * blk:(r + 1) * blk]
+    wo = gather_fsdp(p["wo"].to(dt), ("heads", "state", "fsdp"))
+    wol = wo.to_local(grad_placements=[
+        Partial() if isinstance(a, Shard) else q_
+        for q_, a in zip(wo.placements, z.placements)]).flatten(0, 1)
+    wol = regather_local(
+        wol, mesh, "model", lambda q_: [(q_ * blk, (q_ + 1) * blk)], dim=0,
+        owned=lambda q_: [i * dh + q_ * dhm + j for i in range(h)
+                          for j in range(dhm)])
+    with product_scope("bshk,hkd->bsd"):
+        y = o @ wol
+    return reduce_partial(DTensor.from_local(y, mesh, pl, run_check=False,
+                                             shape=z.shape,
+                                             stride=z.stride()))
 
 
 def _mlstm_step_sharded(cfg: ModelConfig, p, state, x):
@@ -325,9 +477,29 @@ def _mlstm_step_sharded(cfg: ModelConfig, p, state, x):
                  m=like(m_new, state["m"])), x + y)
 
 
+def _on_one_rank(fn, cfg: ModelConfig, p, x):
+    """``fn`` (a block's plain forward) on the local tensors of ``x`` and
+    ``p``, DTensors on a mesh of one rank (the 1 x 1 host mesh, whose
+    ``model`` axis is no mesh dim of its own): the plain plan, as the
+    reference's partitioner runs it on one device."""
+    local = map_tree(lambda t: t.to_local() if is_dtensor(t) else t, p)
+    y = fn(cfg, local, x.to_local())
+    return DTensor.from_local(y, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _sharded(x) -> bool:
+    """Whether ``x`` is a DTensor on a mesh with a ``model`` dim (the
+    partitioned plans); on a mesh of one rank the plain plan runs."""
+    return is_dtensor(x) and "model" in x.device_mesh.mesh_dim_names
+
+
 def mlstm_fwd(cfg: ModelConfig, p, x):
-    if is_dtensor(x):
+    if _sharded(x):
         return _mlstm_fwd_sharded(cfg, p, x)
+    if is_dtensor(x) and x.device_mesh.size() == 1:
+        return _on_one_rank(mlstm_fwd, cfg, p, x)
     dt = cfg.dtype
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
     q, k, v, zg, logi, logf = _mlstm_proj(cfg, p, z)
@@ -414,15 +586,21 @@ def _slstm_state(cfg: ModelConfig, lead: tuple, device=None):
 
 
 def _slstm_fwd_sharded(cfg: ModelConfig, p, x):
-    """`slstm_fwd` per rank: the input projection on each model rank's
-    rows (w_x gathered whole), moved by one all-to-all to a split of
-    every gate's width over ``model``, along the recurrent weights'
-    ``state`` split; each step's recurrent product on that share with
-    the previous h whole (gathered every step), the gating on the share;
-    the output projection on the rank's rows of the gathered h, the rows
-    gathered back.  The width's split follows the reference's reshape of
-    the (heads, 4, dh) recurrent product into 4 gates of the width, which
-    is the gates' own layout where there are 4 heads."""
+    """`slstm_fwd` per rank: each step's recurrent product on each model
+    rank's share of every gate's width (the recurrent weights' ``state``
+    split of each head) with the previous h whole (gathered every step),
+    the gating on the share.  The width's split follows the reference's
+    reshape of the (heads, 4, dh) recurrent product into 4 gates of the
+    width, which is the gates' own layout where there are 4 heads.
+    Around the loop the plan follows the rows as the mLSTM's before it
+    does (`common._rows_whole` of its chunk): where they lie within one
+    chunk, the input projection runs on each model rank's rows (w_x
+    gathered whole) and is moved by one all-to-all to the share, and the
+    output projection on the rank's rows of the gathered h, the rows
+    gathered back; past one chunk both run on the whole rows on the
+    share, w_x's and w_o's ``state`` blocks moved to it by one all-to-all
+    each (`parallel.axes.regather`), the output's partial sums
+    reduced."""
     b, s, _ = x.shape
     d_in, h, dh = _sdims(cfg)
     if h != 4:
@@ -432,17 +610,36 @@ def _slstm_fwd_sharded(cfg: ModelConfig, p, x):
     mesh = x.device_mesh
     mi = mesh.mesh_dim_names.index("model")
     r, nm = mesh.get_local_rank(mi), mesh.size(mi)
-    share = even_share(s, nm, f"{cfg.name}: the sLSTM's rows")
     dh_share = even_share(dh, nm, f"{cfg.name}: the sLSTM's head width")
+    whole_rows = _rows_whole(cfg, s, nm)
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
-    zr = along(z.float(), "model", Shard(1))
-    xg = einsum("bsd,dgk->sbgk", zr, along(gather_fsdp(
-        p["wx"].float(), ("fsdp", None, "state")), "model", Replicate()))
-    xl = xg.to_local(grad_placements=xg.placements)
-    xg5 = DTensor.from_local(xl.reshape(*xl.shape[:3], h, dh), mesh,
-                             xg.placements, run_check=False)
-    xg5 = along(xg5, "model", Shard(4))
-    xg5 = xg5.to_local(grad_placements=xg5.placements)  # (S,B,4,H,dh/M)
+
+    def ranges(q):                       # rank q's share of each head
+        return [(i * dh + q * dh_share, i * dh + (q + 1) * dh_share)
+                for i in range(h)]
+
+    def weight_grad(w):                  # read by each rank's batch rows
+        return [Partial() if isinstance(a, Shard) else q
+                for q, a in zip(w.placements, x.placements)]
+
+    if whole_rows:
+        wx = gather_fsdp(p["wx"].float(), ("fsdp", None, "state"))
+        wx = regather(wx, "model", ranges, grad_placements=weight_grad(wx))
+        zf = z.float()
+        zl = zf.to_local(grad_placements=cm.partial_over_model(zf))
+        xg5 = torch.einsum("bsd,dgk->sbgk", zl, wx).unflatten(
+            -1, (h, dh_share))                       # (S,B,4,H,dh/M)
+    else:
+        share = even_share(s, nm, f"{cfg.name}: the sLSTM's rows")
+        zr = along(z.float(), "model", Shard(1))
+        xg = einsum("bsd,dgk->sbgk", zr, along(gather_fsdp(
+            p["wx"].float(), ("fsdp", None, "state")), "model",
+            Replicate()))
+        xl = xg.to_local(grad_placements=xg.placements)
+        xg5 = DTensor.from_local(xl.reshape(*xl.shape[:3], h, dh), mesh,
+                                 xg.placements, run_check=False)
+        xg5 = along(xg5, "model", Shard(4))
+        xg5 = xg5.to_local(grad_placements=xg5.placements)
     rh = cm.local_for(p["rh"].float(), x)                # (H,dh,4,dh/M)
     bias = along(along(p["b"].float(), "model", Replicate()).reshape(
         4, h, dh), "model", Shard(2))
@@ -465,9 +662,18 @@ def _slstm_fwd_sharded(cfg: ModelConfig, p, x):
         n = fp * state["n"] + ip
         hnew = ot * c / torch.clamp_min(n, 1.0)
         hw = gather_share(hnew, 2, mesh, "model")
-        return (dict(c=c, n=n, m=m_new), hw), hw
+        return (dict(c=c, n=n, m=m_new), hw), hnew if whole_rows else hw
 
     _, hs = cm.scan("slstm", step, (state, hw), xg5)
+    if whole_rows:
+        hs = torch.stack(hs, 1).flatten(2).to(cfg.dtype)  # (B,S,H*dh/M)
+        wo = gather_fsdp(p["wo"].to(cfg.dtype), ("state", "fsdp"))
+        wo = regather(wo, "model", ranges, dim=0,
+                      grad_placements=weight_grad(wo))
+        pl = [Partial() if i == mi else q for i, q in enumerate(x.placements)]
+        y = DTensor.from_local(hs @ wo, mesh, pl, run_check=False,
+                               shape=x.shape, stride=x.stride())
+        return x + reduce_partial(y)
     hs = torch.stack(hs, 1)[:, r * share:(r + 1) * share]
     hs = hs.reshape(*hs.shape[:2], d_in).to(cfg.dtype)
     wo = _whole(p["wo"].to(cfg.dtype), zr)
@@ -480,8 +686,10 @@ def _slstm_fwd_sharded(cfg: ModelConfig, p, x):
 
 def slstm_fwd(cfg: ModelConfig, p, x):
     """Sequential over time (inherent to sLSTM).  x (B,S,d)."""
-    if is_dtensor(x):
+    if _sharded(x):
         return _slstm_fwd_sharded(cfg, p, x)
+    if is_dtensor(x) and x.device_mesh.size() == 1:
+        return _on_one_rank(slstm_fwd, cfg, p, x)
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
     xg = torch.einsum("bsd,dgk->sbgk", z.float(), p["wx"].float())
     rh, bias = p["rh"].float(), p["b"].float()

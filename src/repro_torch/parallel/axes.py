@@ -538,36 +538,41 @@ def contract(eq: str, a, b):
 
 
 class _Regather(torch.autograd.Function):
-    """The all-to-all of `regather`: ``x`` (..., c) a rank's block of a
-    last dim split over a group of ``n`` ranks in equal blocks; each rank
-    sends every other rank the columns of its block that one needs (in
-    the needed ranges' order) and receives its own.  The backward sends
-    the gradients back and sums those of a column several ranks read."""
+    """The all-to-all of `regather`: ``x`` (..., c, ...) a rank's block of
+    its dim ``dim`` split over a group of ``n`` ranks in equal blocks;
+    each rank sends every other rank the columns of its block that one
+    needs (in the needed ranges' order) and receives its own.  The
+    backward sends the gradients back and sums those of a column several
+    ranks read.  ``owned(r)``: the columns rank ``r``'s block holds, in
+    its order (default the ``r``-th of equal contiguous blocks); a rank
+    receives its columns from the ranks in rank order, each's in the
+    needed order."""
 
     @staticmethod
-    def forward(ctx, x, rank, n, ranges, group):
-        c = x.shape[-1]
-        lo = rank * c
-        send = [[i - lo for a, b in ranges(r) for i in range(a, b)
-                 if lo <= i < lo + c] for r in range(n)]
-        recv = [sum(max(0, min(b, (q + 1) * c) - max(a, q * c))
-                    for a, b in ranges(rank)) for q in range(n)]
+    def forward(ctx, x, rank, n, ranges, group, dim=-1, owned=None):
+        c = x.shape[dim]
+        owned = owned or (lambda q: range(q * c, (q + 1) * c))
+        pos = {col: i for i, col in enumerate(owned(rank))}
+        send = [[pos[i] for a, b in ranges(r) for i in range(a, b)
+                 if i in pos] for r in range(n)]
+        need = [i for a, b in ranges(rank) for i in range(a, b)]
+        recv = [len(set(owned(q)).intersection(need)) for q in range(n)]
         idx = torch.tensor([i for s in send for i in s], dtype=torch.long,
                            device=x.device)
         ctx.save_for_backward(idx)
-        ctx.sizes, ctx.c, ctx.group = ([len(s) for s in send], recv), c, \
-            group
-        xt = x.movedim(-1, 0).index_select(0, idx)
-        return all_to_all(xt, recv, ctx.sizes[0], group).movedim(0, -1)
+        ctx.sizes, ctx.c, ctx.group, ctx.dim = \
+            ([len(s) for s in send], recv), c, group, dim
+        xt = x.movedim(dim, 0).index_select(0, idx)
+        return all_to_all(xt, recv, ctx.sizes[0], group).movedim(0, dim)
 
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
         send, recv = ctx.sizes
-        back = all_to_all(g.movedim(-1, 0), send, recv, ctx.group)
+        back = all_to_all(g.movedim(ctx.dim, 0), send, recv, ctx.group)
         out = back.new_zeros((ctx.c, *back.shape[1:])).index_add_(0, idx,
                                                                    back)
-        return out.movedim(0, -1), None, None, None, None
+        return out.movedim(0, ctx.dim), None, None, None, None, None, None
 
 
 def all_to_all(x, out_sizes, in_sizes, group):
@@ -581,20 +586,30 @@ def all_to_all(x, out_sizes, in_sizes, group):
         None if in_sizes is None else list(in_sizes), group))
 
 
-def regather(x, mesh_dim: str, ranges):
-    """The DTensor ``x``, its last dim split over the mesh dim
-    ``mesh_dim`` in equal blocks, as this rank's local tensor of the
-    columns it needs, ``ranges(r)``: rank ``r``'s needed ``(start,
+def regather(x, mesh_dim: str, ranges, dim: int = -1,
+             grad_placements=None):
+    """The DTensor ``x``, its dim ``dim`` (the last by default) split over
+    the mesh dim ``mesh_dim`` in equal blocks, as this rank's local tensor
+    of the columns it needs, ``ranges(r)``: rank ``r``'s needed ``(start,
     stop)`` ranges of that dim, in the order wanted.  One all-to-all
     moves each rank exactly the columns it lacks (and its own), where a
     gather would move it all: the reference's partitioner moves a
     split dim's windows so when it is cut into pieces its blocks do not
-    line up with."""
-    mesh = x.device_mesh
+    line up with.  ``grad_placements``: those of the local tensor's
+    gradient (default ``x``'s own; a weight read by each rank's rows
+    takes a partial sum over the batch's mesh dims)."""
+    local = x.to_local(grad_placements=grad_placements or x.placements)
+    return regather_local(local, x.device_mesh, mesh_dim, ranges, dim)
+
+
+def regather_local(x, mesh, mesh_dim: str, ranges, dim: int = -1,
+                   owned=None):
+    """`regather` of the local tensor ``x``, whose dim ``dim`` holds the
+    columns ``owned(r)`` on rank ``r`` of the mesh dim ``mesh_dim``
+    (default equal contiguous blocks): one all-to-all."""
     m = mesh.mesh_dim_names.index(mesh_dim)
-    local = x.to_local(grad_placements=x.placements)
-    return _Regather.apply(local, mesh.get_local_rank(m), mesh.size(m),
-                           ranges, mesh.get_group(m))
+    return _Regather.apply(x, mesh.get_local_rank(m), mesh.size(m), ranges,
+                           mesh.get_group(m), dim, owned)
 
 
 class _GatherShare(torch.autograd.Function):
@@ -622,6 +637,42 @@ def gather_share(x, dim: int, mesh, mesh_dim: str):
     a recurrence's state, gathered every step)."""
     group = mesh.get_group(mesh.mesh_dim_names.index(mesh_dim))
     return _GatherShare.apply(x, dim, group)
+
+
+class _SwapShare(torch.autograd.Function):
+    """A local share split along ``src`` over a group, all-gathered there
+    and cut to this rank's share of ``dst``; in the backward the share's
+    gradient goes back to the split along ``src`` by one all-to-all (each
+    rank's gradient covers its share of ``dst`` alone)."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst, rank, group):
+        n = group.size()
+        full = _all_gather(x, src, group)
+        w = even_share(full.shape[dst], n, "the swapped dim")
+        ctx.src, ctx.dst, ctx.group = src, dst, group
+        return full.narrow(dst, rank * w, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, src, dst = ctx.group.size(), ctx.src, ctx.dst
+        got = all_to_all(g.movedim(src, 0), None, None, ctx.group)
+        got = got.reshape(n, -1, *got.shape[1:])     # (rank, src share, ...)
+        pos = dst + 1 if dst < src else dst          # dst, the ranks out
+        got = got.movedim(0, pos).flatten(pos, pos + 1)
+        return got.movedim(0, src), None, None, None, None
+
+
+def swap_share(x, src: int, dst: int, mesh, mesh_dim: str):
+    """The local tensor ``x``, this rank's share of dim ``src`` split over
+    the mesh dim ``mesh_dim``, as this rank's share of dim ``dst`` with
+    ``src`` whole (`_SwapShare`): all-gathered along ``src`` in the
+    forward, its gradient moved back by an all-to-all, as the
+    reference's partitioner moves the mLSTM's chunk output from the
+    chunks' rows to the value dims."""
+    m = mesh.mesh_dim_names.index(mesh_dim)
+    return _SwapShare.apply(x, src, dst, mesh.get_local_rank(m),
+                            mesh.get_group(m))
 
 
 class _SplitProduct(torch.autograd.Function):

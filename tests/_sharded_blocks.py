@@ -21,7 +21,9 @@ generator, and a random cache's cross K/V.
 Phases: ``forward`` (the logits), ``decode`` (the logits and every cache
 leaf after two steps from a random cache) and ``grad`` (every parameter's
 gradient of a weighted sum of the logits; the difference relative to the
-largest gradient).  A case's ``extras`` run other models on the same
+largest gradient); for xlstm also ``mlstm_update`` (the first mLSTM
+block's update of a random residual, relative to the plain update's
+largest value).  A case's ``extras`` run other models on the same
 process group, each under the reference's A/B knobs it names.
 """
 import dataclasses
@@ -87,6 +89,23 @@ def run(case, rank, store_dir):
     return out
 
 
+def mlstm_update(cfg, params, dp, dm, gen, rows, mesh, rules):
+    """The first mLSTM block's update of a random residual (its output
+    less its input), partitioned against plain, relative to the plain
+    update's largest value: at init the block moves the logits too
+    little for the forward's absolute difference to show its plan."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.models import xlstm
+    x = torch.randn((*rows, cfg.d_model), generator=gen)
+    with torch.no_grad():
+        want = xlstm.mlstm_fwd(cfg, tt._layer(params["mlstm"], 0), x) - x
+    with sharding_rules(mesh, rules), implicit_replication(), \
+            torch.no_grad():
+        dx = spread(("batch", None, None), x, dm)
+        got = xlstm.mlstm_fwd(cfg, tt._layer(dp["mlstm"], 0), dx) - dx
+    return err(got, want) / float(want.abs().max())
+
+
 def phases(case, mesh, dm):
     """The forward, decode and gradient differences of the case's model
     on the mesh ``mesh`` (its DeviceMesh ``dm``)."""
@@ -122,6 +141,9 @@ def phases(case, mesh, dm):
         dp = spread(api.param_specs(), params, dm)
         got = api.forward(dp, batch(tokens, spread_))
     out["forward"] = err(got, want)
+    if case["arch"] == "xlstm-1.3b":
+        out["mlstm_update"] = mlstm_update(cfg, params, dp, dm, gen,
+                                           (b, s), mesh, rules)
 
     # decode: two steps from a random cache (positive where a leaf must
     # be: the mLSTM's normaliser state is read through an abs; the

@@ -26,7 +26,9 @@ over the model axis), prefill and train.  The recurrent
 families: xlstm-1.3b's smoke config at d 256, 4 heads, vocab 512, one
 mLSTM and one sLSTM layer (its 4 heads cannot split the model axis:
 the mLSTM's sequence-parallel fallback, the ``state`` split of the
-value dims), and zamba2-2.7b's at d 256, 16 heads of 16, d_ff 512,
+value dims; and its prefill and train step over 2,048 rows (B 16), two
+mLSTM query chunks, past which the gates and the projections run on
+the whole rows), and zamba2-2.7b's at d 256, 16 heads of 16, d_ff 512,
 vocab 512, state 16, two Mamba2 layers and one shared-block
 application; each at prefill, train and decode on the pod and a train
 step on the multipod, and each family's train step once more deeper
@@ -45,14 +47,17 @@ once more at 6 layers (three segments); each at prefill, train and
 decode on the pod and a train step on the multipod.  The full configs
 are held at the pod: tinyllama-1.1b's prefill_32k, decode_32k and
 train_4k (and its train_4k at full width cut to 2 layers, plain and
-under ``REPRO_SP_RESIDUAL``), and the decode_32k of xlstm-1.3b,
-zamba2-2.7b, whisper-large-v3 and llama-3.2-vision-11b.  The knob cells
+under ``REPRO_SP_RESIDUAL``), the decode_32k of xlstm-1.3b,
+zamba2-2.7b, whisper-large-v3 and llama-3.2-vision-11b, and xlstm-1.3b's
+train_4k and prefill_32k at full width cut to one segment (8 layers),
+its train_4k once more under ``REPRO_NO_SP``.  The knob cells
 (`KNOB_CELLS`) are cells of these with one of the reference's A/B knobs
 set in both packages (``env``: around the reference's trace in its
 subprocess, around the port's count): ``REPRO_NO_SP`` on the 8-heads
 train cell at one row a rank, on arctic's shape at 128 rows (its base
-compiled by the reference only, `KNOB_BASES`) and on whisper's train
-cell; ``REPRO_SP_RESIDUAL`` on the dense train and prefill cells and the
+compiled by the reference only, `KNOB_BASES`), on whisper's train
+cell and on xlstm's prefill and train cells at 128 and 2,048 rows;
+``REPRO_SP_RESIDUAL`` on the dense train and prefill cells and the
 arctic-style MoE train cell on the pod and the dense train cell on the
 multipod; ``REPRO_REMAT_POLICY=dots`` on the dense and MoE train cells on
 the pod and the dense train cell on the multipod.  Each reference
@@ -61,7 +66,8 @@ record differs from its base's (the knob took effect).  Per cell:
 * per-device FLOPs equal the reference's, counting the dots its cost
   model misses (``fused_dot_flops``: XLA puts the one-row products of
   the multipod decode into fusions, whose bodies ``hlo_cost`` does not
-  walk).  Two gaps are reckoned: arctic-style experts' recompute
+  walk), with no term for xlstm.  Two gaps are reckoned: arctic-style
+  experts' recompute
   (`router_gap`: the combine einsum ``torch.utils.checkpoint``
   recomputes and the router share XLA's recompute leaves out), and
   zamba2's train step, equal to the reference compiled with the port's
@@ -92,7 +98,8 @@ record differs from its base's (the knob took effect).  Per cell:
   cross-attention families' query, context and gate arrays).  No
   reference array is left out and no cell is held by a band;
   ``tests/_relayout_gap.py`` sets XLA's re-layouts against the port's at
-  full size.
+  full size; xlstm's plan past one mLSTM chunk and under ``REPRO_NO_SP``
+  (`_xlstm_whole_terms`), held on the toy cells and at full width.
 """
 import dataclasses
 import json
@@ -218,6 +225,14 @@ CELLS = {
     "whisper-train-pod-3d1e": _cell(
         arch="whisper-large-v3", n_ctx_tokens=64, d_model=320, n_heads=20,
         n_kv_heads=20, d_ff=640, vocab=518, n_layers=3, n_encoder_layers=1),
+    # xlstm over 2,048 rows, two mLSTM query chunks: past one chunk the
+    # gates and the projections around the loop run on the whole rows
+    # (`models.common._rows_whole`), the plan of its production train
+    # and prefill cells
+    **{f"xlstm-{k}-pod-s2048": _cell(
+        arch="xlstm-1.3b", kind=k, batch=16, seq=2048, n_heads=4,
+        n_kv_heads=4, d_ff=0, n_layers=2, slstm_every=2)
+       for k in ("prefill", "train")},
     # whisper over 2,048 tokens and 1,500 frames (the published frames,
     # which do not divide 16), both longer than one attention chunk: the
     # plan of its production train and prefill cells
@@ -239,7 +254,9 @@ KNOB_CELLS = {
     f"{tag}-{base}": (base, env)
     for env, tag, bases in (
         (NO_SP, "nosp", ("seqpar-train-pod-b16", "moe-ep-seqpar-train-pod-b16",
-                         "whisper-train-pod")),
+                         "whisper-train-pod", "xlstm-prefill-pod",
+                         "xlstm-train-pod", "xlstm-prefill-pod-s2048",
+                         "xlstm-train-pod-s2048")),
         (SP_RESIDUAL, "spres", ("train-pod", "prefill-pod", "moe-ep-pod",
                                 "train-multipod")),
         (DOTS, "dots", ("train-pod", "moe-ep-pod", "train-multipod")))
@@ -265,13 +282,12 @@ FULL = {**{f"full-{s}": dict(arch="tinyllama-1.1b", shape=s, mesh="pod")
         # count as the reference's cost model counts its scan
         **{f"full-xlstm-{s}-8l": dict(arch="xlstm-1.3b", shape=s,
                                       mesh="pod", layers=8)
-           for s in ("train_4k", "prefill_32k")}}
-#: xlstm's toy over 2,048 rows, two mLSTM query chunks: XLA's plan for
-#: the mLSTM's gates changes past one chunk (`mlstm_gates_gap`); FLOPs
-#: and args held, the collectives not (ROADMAP Queue 3)
-CHUNK_CELLS = {f"xlstm-{k}-pod-s2048": _cell(
-    arch="xlstm-1.3b", kind=k, batch=16, seq=2048, n_heads=4, n_kv_heads=4,
-    d_ff=0, n_layers=2, slstm_every=2) for k in ("prefill", "train")}
+           for s in ("train_4k", "prefill_32k")},
+        # and its train step under REPRO_NO_SP: the mLSTM's scores split
+        # over the value dims, every row whole
+        "full-xlstm-train_4k-8l-nosp": dict(arch="xlstm-1.3b",
+                                            shape="train_4k", mesh="pod",
+                                            layers=8, env=NO_SP)}
 #: the zamba2 train cells, compiled once more with the port's
 #: factorisation of the SSD scan's einsums (the FLOP gap's cause)
 SSD_TWO_OPERAND = {f"{n}+ssd2": dict(c, ssd="two_operand")
@@ -281,8 +297,7 @@ KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 
 
 #: every cell the reference compiles, in its subprocess's order
-REF_CELLS = {**CELLS, **KNOB_BASES, **FULL, **SSD_TWO_OPERAND,
-             **CHUNK_CELLS}
+REF_CELLS = {**CELLS, **KNOB_BASES, **FULL, **SSD_TWO_OPERAND}
 
 
 @pytest.fixture(scope="module")
@@ -361,26 +376,6 @@ def router_gap(name):
     return layers * (combine + router // 16)
 
 
-def mlstm_gates_gap(name):
-    """xlstm, where each mLSTM layer's query-chunk loop runs more than
-    one chunk (rows past 1,024, the full cells): XLA computes the gates'
-    product (``bsd,dhg->bshg``) on the whole rows on every model rank,
-    the port on each model rank's rows (`models.xlstm._mlstm_fwd_sharded`),
-    XLA's own plan over one chunk (the toy cells): ``M - 1`` ranks' rows
-    more a layer, in the forward and, in a train step, twice more (the
-    recompute and one product of the backward), each microbatch.  Per
-    device; negative, the port counting fewer.  Measured on the toy at
-    2,048 rows (two chunks: prefill and train) and on the full cells
-    (4 and 32 chunks)."""
-    c, D = _cell_info(name), _dims(name)
-    if c["arch"] != "xlstm-1.3b" or D["kind"] == "decode" or D["S"] <= 1024:
-        return 0
-    n_m = D["L"] - D["L"] // c["cfg"]["slstm_every"]
-    share = 2 * D["b"] * (D["S"] // D["M"]) * D["d"] * D["H"] * 2
-    passes = 3 if D["kind"] == "train" else 1
-    return -(D["M"] - 1) * share * n_m * passes * D["a"]
-
-
 @pytest.mark.parametrize("name", list(CELLS))
 def test_flops_and_args_equal_reference(ref, port, name):
     """Per-device FLOPs equal the reference's but for two reckoned gaps:
@@ -406,23 +401,11 @@ def test_flops_and_args_equal_reference(ref, port, name):
     assert p["args"] == r["args"], name
 
 
-@pytest.mark.parametrize("name", list(CHUNK_CELLS))
-def test_mlstm_gates_gap_over_two_chunks(ref, name):
-    """xlstm's toy over two mLSTM query chunks: per-device FLOPs equal
-    the reference's less `mlstm_gates_gap` (XLA's gates' product on the
-    whole rows), args equal."""
-    r, p = ref[name], port_count(CHUNK_CELLS[name])
-    assert mlstm_gates_gap(name) < 0
-    assert p["flops"] == r["flops"] + r["fused_dot_flops"] + \
-        mlstm_gates_gap(name), name
-    assert p["args"] == r["args"], name
-
-
 def _cell_info(name):
     """A cell of `CELLS` or `FULL` as ``dict(arch, cfg, kind, seq, batch,
     mesh, accum, serving)``, ``cfg`` every field of its config."""
-    if name in CELLS or name in CHUNK_CELLS:
-        c = {**CELLS, **CHUNK_CELLS}[name]
+    if name in CELLS:
+        c = CELLS[name]
         cfg = dataclasses.replace(get_smoke(c["arch"]), **c["cfg"])
         return dict(c, cfg=dataclasses.asdict(cfg))
     c = FULL[name]
@@ -434,7 +417,8 @@ def _cell_info(name):
              if shape.kind == "train" else 1)
     return dict(arch=c["arch"], mesh=c["mesh"], accum=accum, serving=False,
                 cfg=dataclasses.asdict(cfg), kind=shape.kind,
-                seq=shape.seq_len, batch=shape.global_batch)
+                seq=shape.seq_len, batch=shape.global_batch,
+                env=c.get("env"))
 
 
 @pytest.mark.parametrize("name", list(FULL))
@@ -458,13 +442,12 @@ def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
         rec = dryrun.cell_record(cfg, shape, "pod", counted=counted)
     r = ref[name]
     if c.get("env"):
-        base = ref[name.replace("-spres", "")]
+        base = ref[name.replace("-spres", "").replace("-nosp", "")]
         assert r["flops"] != base["flops"], name      # the knob took effect
         assert rec["knobs"] == dict(dict.fromkeys(dryrun.KNOBS, ""),
                                     **c["env"])
     assert rec["partition"] == "dtensor"
-    assert rec["hlo_flops_dev"] == \
-        r["flops"] + r["fused_dot_flops"] + mlstm_gates_gap(name)
+    assert rec["hlo_flops_dev"] == r["flops"] + r["fused_dot_flops"]
     assert rec["memory_analysis"]["args"] == r["args"]
     if name == "full-prefill_32k":
         assert 2 * rec["collectives"]["bytes_by_op"]["all-reduce"] == \
@@ -472,7 +455,7 @@ def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
     if c["arch"] == "xlstm-1.3b" and shape.kind != "decode":
         assert rec["loops"]["slstm"]["trip"] == shape.seq_len
         _hold_step_collectives(ref, name, counted)
-    elif c["arch"] != "tinyllama-1.1b":
+    if c["arch"] != "tinyllama-1.1b":
         _hold_collectives(ref, name, counted)
 
 
@@ -733,6 +716,172 @@ def _xlstm_terms(D, cfg, kind, ref, port):
             [h * 2] * 2 * n_m + [d // R * h * 2] * n_m
         port["all-reduce"] += [n_m * d, n_s * d, d, n_m * h * 2]
         port["reduce-scatter"] += [b * T * 2 * d_in // M] * n_m
+
+
+def _xlstm_whole_terms(D, cfg, kind, no_sp, ref, port):
+    """xlstm's arrays where the projections around the mLSTM's query-chunk
+    loop run on the whole rows (see `reckoned`): rows past one chunk of
+    1,024 (`models.common._rows_whole`), the loop's rows split over
+    ``model``, or under ``REPRO_NO_SP`` at any length, the loop on
+    blocks of the value dims (`models.xlstm._mlstm_by_value`).  Per
+    microbatch (``a`` of them) but for the weights XLA gathers once a
+    step outside its microbatch loop."""
+    a, b, T, d, V, L, M, R = (D[k] for k in "abTdVLMR")
+    h = cfg["n_heads"]
+    d_in, ds = 2 * d, d                 # the mLSTM's and sLSTM's widths
+    dh, dhs = d_in // h, ds // h
+    n_s = L // cfg["slstm_every"]       # sLSTM layers
+    n_m = L - n_s
+    c = min(1024, max(-(-T // 128) * 128, 128))
+    nq = -(-T // c)                     # query chunks
+    P = nq * c                          # the rows padded to whole chunks
+    train = kind == "train"
+    passes = 2 if train else 1          # the forward and the recompute
+    w = b * T * d_in // M               # one piece of the up-projection
+    u = b * P * d_in // M               # the value dims' share of the rows
+    rh = h * dhs * 4 * dhs // M         # the recurrent weights' share
+    # the up-projection's output: the port gathers it whole, XLA re-lays
+    # its halves (three windowed permutes of a piece and one of two, in
+    # each pass; in the backward two more of a piece) and gathers xh's
+    # head share and xh (in each pass and in the backward)
+    port["all-gather"] += [b * T * 2 * d_in] * n_m * passes * a
+    ref["collective-permute"] += ([w] * 3 + [2 * w]) * n_m * passes * a
+    ref["all-gather"] += [b * T * d_in, b * T * dh] * n_m * (
+        3 if train else 1) * a
+    # the gates' weight: XLA permutes its shard to the model axis (and
+    # its gradient back); under REPRO_NO_SP both gather each rank's head
+    if not no_sp:
+        ref["collective-permute"] += [d // R * h * 2] * n_m * (
+            3 if train else 1) * a
+    # the output projection: XLA re-lays w_o's value split into blocks of
+    # the heads' flattened value dims (an all-to-all and a permute, in the
+    # forward) and reduces the partial sums in two stages (two all-reduces
+    # of the rows), the port runs it on w_o's own split (one all-reduce;
+    # in a train step it reduces the rows' gradient once more, which XLA
+    # does not); under REPRO_NO_SP the port moves w_o to the same blocks
+    # (`parallel.axes.regather_local`: one all-to-all)
+    ref["all-to-all"] += [h * dh * d // M] * n_m * a
+    ref["collective-permute"] += [h * dh * d // M] * n_m * a
+    if no_sp:
+        port["all-to-all"] += [h * dh * d // M] * n_m * (
+            3 if train else 1) * a
+    if not train:
+        ref["all-reduce"] += [b * T * d] * n_m
+    if no_sp:
+        # the scores' partial sums over the value dims: XLA reduces them in
+        # two stages (all heads over one group of model ranks, then the
+        # rank's head over the other), the port in one (in each pass and
+        # in the backward)
+        ref["all-reduce"] += [b * c * P] * nq * n_m * (
+            3 if train else 1) * a
+    # the sLSTM: XLA re-lays each step's gates (a permute) and output (four
+    # all-to-alls) between w_x's and w_o's blocks of the width and the
+    # recurrent weights' split of each head, and gathers one head's share
+    # of h, each in the forward and the backward; the port moves w_x's and
+    # w_o's blocks to that split (`parallel.axes.regather`: one
+    # all-to-all each, and their gradients back) and gathers the bias (and
+    # its gradient)
+    ref["collective-permute"] += [b * 4 * ds // M] * T * n_s * passes * a
+    ref["all-to-all"] += [b * 4 * dhs // M] * 4 * T * n_s * passes * a
+    ref["all-gather"] += [b * dhs] * T * n_s * passes * a
+    port["all-to-all"] += [d * 4 * ds // M, ds * d // M] * n_s * passes * a
+    port["all-gather"] += [4 * ds] * n_s * passes * a
+    # the weights XLA gathers once a step (the sLSTM's w_x and w_o shares,
+    # the head), the port each microbatch
+    port["all-gather"] += ([d * 4 * ds // M, ds * d // M] * n_s +
+                           [d * V // M]) * (a - 1)
+    # the embedding: in one microbatch XLA looks the ids up in each rank's
+    # share of the table, permuted to the model axis (and its gradient
+    # back), where the port moves the rows from the sequence split by an
+    # all-to-all; in a microbatch loop it looks them up in its share of
+    # the vocab (partial sums, reduced) and moves the rows by all-to-alls,
+    # where the port gathers the table and the rows
+    if T <= c:
+        pass        # (rows within one chunk: the port's own plan)
+    elif a == 1:
+        ref["collective-permute"] += [V * d // (R * M)] * (2 if train
+                                                          else 1)
+        port["all-to-all"] += [b * T * d]
+    else:
+        ref["all-reduce"] += [b * T * d] * a
+        port["all-gather"] += [V * d // R, b * T * d] * a
+        if train:
+            ref["all-to-all"] += [b * T * d] * a
+    if not train:
+        return
+    # the backward of the query-chunk loop: XLA moves the decay-weighted
+    # scores and the chunk's terms between the rows' and the value dims'
+    # splits in every chunk (gathers of the scores, ``b*c*P*h``, and of
+    # the chunk's normalisers and gates, ``b*c*h``; reductions of the
+    # scores' and the gates' partial sums, ``b*h*c*P``, ``b*c*h``,
+    # ``b*P*h``; the chunk's rows of the value dims by an all-to-all),
+    # gathers the gates' cumulative sums and k once more, reduces xh's and
+    # the rows' partial gradients more often, and re-lays the
+    # up-projection's and the value dims' gradients by all-to-alls; the
+    # port reduces the gates' gradient once (``b*T*h*2``), moves q's and
+    # the output's gradients back by all-to-alls, reduce-scatters k's,
+    # v's and the up-projection's, and gathers the loop's output again in
+    # its recompute
+    ref["all-gather"] += [b * T * d_in] * 2 * n_m * a
+    ref["all-reduce"] += [b * T * d_in] * 3 * n_m * a
+    ref["collective-permute"] += [w] * 2 * n_m * a
+    port["all-gather"] += [b * P * d_in] * n_m * a
+    port["reduce-scatter"] += [b * T * 2 * d_in // M] * n_m * a
+    if no_sp:
+        # (under REPRO_NO_SP: the scores gathered thrice a chunk and the
+        # chunk's terms thrice, the rows' gradient reduced once more a
+        # layer, w_o's gradient share reduced whole; the port
+        # reduce-scatters v's and w_o's gradients, moves w_o's back, and
+        # takes no gates' or k's gradient across ranks)
+        ref["all-gather"] += ([b * c * P * h] + [b * c * h]) * 3 * nq * \
+            n_m * a
+        ref["all-reduce"] += ([b * c * h] * nq + [b * T * d,
+                                                  h * dh * d // M]) * n_m * a
+        ref["all-to-all"] += [u] * 6 * n_m * a
+        port["reduce-scatter"] += [b * T * d_in // M,
+                                   h * dh * d // (M * R)] * n_m * a
+    else:
+        ref["all-gather"] += ([b * c * P * h] + [b * c * h] * 2) * nq * \
+            n_m * a + [b * P * h] * n_m * a
+        ref["all-reduce"] += [b * h * c * P, b * c * h, b * P * h,
+                              b * T * d_in] * nq * n_m * a
+        ref["all-to-all"] += [u] * 7 * n_m * a
+        port["all-reduce"] += [b * T * h * 2] * n_m * a
+        port["reduce-scatter"] += [b * T * d_in // M] * 2 * n_m * a
+    # the sLSTM's backward steps (`slstm_step_terms`), and its weights'
+    # gradients: XLA all-reduces w_x's and w_o's shares, the port
+    # reduce-scatters them onto their ZeRO-3 shards
+    ref["all-gather"] += [b * ds] * T * n_s * a
+    ref["all-reduce"] += [4 * ds // M, b * ds, rh] * T * n_s * a + \
+        [d * 4 * ds // M, ds * d // M] * n_s * a
+    port["all-reduce"] += [n_s * rh] * a + [4 * ds] * n_s * a
+    port["reduce-scatter"] += [b * ds // M] * (T - 1) * n_s * a + \
+        [d * 4 * ds // (M * R), ds * d // (M * R)] * n_s * a
+    # the small leaves: XLA reduces each layer's gate bias and its norms'
+    # (and the final one's) in its layer loop, and the input gate's weight
+    # as its share over ``model``; the port each stacked leaf once, and
+    # the input gate's weight whole (its gradient from the share of d,
+    # `parallel.axes.einsum`'s ``share_grad``)
+    ref["all-reduce"] += [d] * (n_m + n_s + 1) * a
+    port["all-reduce"] += [n_m * h * 2, n_m * d, n_s * d, d] * a
+    if no_sp:
+        # (under REPRO_NO_SP each rank's head's gate weight and bias: XLA
+        # gathers the stacked leaves' shares once a step, thrice, and
+        # reduces each layer's head's gradients whole; the port
+        # reduce-scatters the head's weight gradient onto its ZeRO-3
+        # share and reduces the stacked leaf's over ``model`` once)
+        ref["all-gather"] += [n_m * h * 2, n_m * d // R * h * 2] * 3
+        ref["all-reduce"] += [2, d * 2] * n_m * a
+        port["reduce-scatter"] += [d * 2 // R] * n_m * a
+        port["all-reduce"] += [n_m * d // R * h * 2] * a
+    else:
+        ref["all-reduce"] += [h * 2, d * h * 2 // M] * n_m * a
+        port["all-reduce"] += [d * h * 2] * n_m * a
+    # the rows' gradient: XLA reduces it once more a microbatch (the
+    # sLSTM's), the port reduce-scatters it onto the embedding's sequence
+    # split
+    ref["all-reduce"] += [b * T * d] * a
+    port["reduce-scatter"] += [b * T * d // M] * a
 
 
 def _whisper_terms(D, cfg, kind, ref, port):
@@ -1117,6 +1266,16 @@ def reckoned(name, relayout=None):
       rows' split into the attention, the port gathers the normed rows
       before it and before the FFN; ``REPRO_REMAT_POLICY=dots`` needs no
       term (both save the projections' reduced outputs);
+    * xlstm where the projections around the mLSTM's chunk loop run on
+      the whole rows, past one chunk or under ``REPRO_NO_SP``
+      (`_xlstm_whole_terms`, each array with its cause there): XLA's
+      windowed re-layouts of the up-projection's halves and of w_o's
+      value blocks, its two-stage reductions of the output projection
+      and of the scores, the chunk loop's backward on the value dims'
+      split (the scores and the chunk's terms moved in every chunk), the
+      sLSTM's per-step re-layouts against the port's once-moved weight
+      blocks, the embedding's lookup by rows past one chunk, the weights
+      XLA gathers once a step outside its microbatch loop;
     * the cross-attention families (`_whisper_terms`, `_vlm_terms`, each
       array with its cause there): whisper's projections around the
       sequence-parallel attention, its undivided vocab's embedding and
@@ -1144,7 +1303,9 @@ def reckoned(name, relayout=None):
     # ``REPRO_NO_SP``: heads too few for the model axis run whole on
     # every model rank, no sequence-parallel fallback (`_no_sp_terms`)
     no_sp = c.get("env") == NO_SP
-    whole_rows = H < M and S > 1024 and not audio and not no_sp
+    recurrent = c["arch"] in RECURRENT
+    whole_rows = H < M and S > 1024 and not audio and (not no_sp or
+                                                       recurrent)
     if train and B >= R and not audio:
         ref["all-reduce"] += a * [b * S] * 2
         if not whole_rows:
@@ -1164,7 +1325,6 @@ def reckoned(name, relayout=None):
         port["all-gather"] += a * [b * S * d // M]
         port["all-to-all"] += a * [b * S * d, b * S * d // M]
         ref["collective-permute"] += (a + 1) * [V * d // (R * M)]
-    recurrent = c["arch"] in RECURRENT
     if KV < M <= H and not recurrent:
         w = d // R * KV * hd
         passes = 3 * a if train else 1
@@ -1224,7 +1384,10 @@ def reckoned(name, relayout=None):
         port["all-reduce"] += [b * G * d] * L
     if c["arch"] == "zamba2-2.7b":
         _zamba2_terms(D, c["cfg"], train, ref, port, relayout)
-    if c["arch"] == "xlstm-1.3b":
+    if c["arch"] == "xlstm-1.3b" and c["kind"] != "decode" and (
+            S > 1024 or no_sp):
+        _xlstm_whole_terms(D, c["cfg"], c["kind"], no_sp, ref, port)
+    elif c["arch"] == "xlstm-1.3b":
         _xlstm_terms(D, c["cfg"], c["kind"], ref, port)
     if c["arch"] == "llama-3.2-vision-11b":
         _vlm_terms(D, c["kind"], ref, port)
@@ -1363,11 +1526,13 @@ def _hold_step_collectives(ref, name, count):
     by kind, by element count (`slstm_step_terms`): the arrays of each
     size that run ``T`` times a microbatch or more, counted in multiples
     of ``T*a`` (the few arrays of the same size outside the loop fall
-    below one).  The trip count multiplies exactly these.  The rest of
-    XLA's full-size plan for the mLSTM layers over rows past one chunk is
-    not reckoned here (ROADMAP Queue 3)."""
+    below one; an array of every step but the last, one a microbatch
+    fewer, counts as one: the backward of the last step's gather of h,
+    which no step reads, does not run).  The trip count multiplies
+    exactly these; `_hold_collectives` holds them with every other
+    array."""
     D = _dims(name)
-    per = D["T"] * D["a"]
+    per, a = D["T"] * D["a"], D["a"]
     want_ref, want_port = slstm_step_terms(name)
     got_ref, got_port = Counter(), Counter()
     for kind, dtype, dims, runs, _ in ref[name]["arrays"]:
@@ -1379,7 +1544,8 @@ def _hold_step_collectives(ref, name, count):
             got_port[(kind, n // dtype.itemsize)] += 1
 
     def steps(got):
-        return Counter({k: v // per for k, v in got.items() if v >= per})
+        return Counter({k: (v + a) // per for k, v in got.items()
+                        if v + a >= per})
 
     def terms(want):
         return Counter((k, n) for k, sizes in want.items() for n in sizes)
@@ -1444,14 +1610,14 @@ def test_split_contraction_splits_the_weights_contracted_dim(
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "arctic-480b",
-                                  "whisper-large-v3"])
+                                  "whisper-large-v3", "xlstm-1.3b"])
 def test_host_mesh_forward_past_one_chunk_equals_plain(arch):
     """On the degenerate 1 x 1 mesh (one card, as `chip_smoke.py`'s
     partition phase runs it) every family's heads fall back to the
     sequence-parallel branch, whose rows split over one rank: a forward
-    over rows longer than one attention chunk runs the plain plan
-    (`models.common._rows_whole` is false there) and equals the plain
-    forward bit for bit."""
+    over rows longer than one attention (or mLSTM) chunk runs the plain
+    plan (`models.common._rows_whole` is false there) and equals the
+    plain forward bit for bit."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.parallel.axes import distribute_tree, sharding_rules

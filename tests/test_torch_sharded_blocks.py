@@ -17,7 +17,13 @@ the order of sums.
 
 xlstm runs on a 1 x 8 mesh: its 4 heads cannot split 8 model ranks (the
 sequence-parallel fallback, as on the pod's 16), and the chunk's 128
-rows and the sLSTM's head width split 8 ways.  zamba2 runs on a 2 x 2
+rows and the sLSTM's head width split 8 ways; once more at 1,040 rows,
+past one mLSTM chunk (the gates and the projections on the whole rows,
+the loop's output on each rank's share of the value dims), and at both
+lengths under ``REPRO_NO_SP`` (the scores summed over the value dims'
+shares, each rank's block of one head); there its first mLSTM block's
+update is held alone too (`UPDATE_TOL`), since at init the block moves
+the logits too little for `TOL` to see its plan.  zamba2 runs on a 2 x 2
 mesh: data and model ranks both, and a square mesh for the permuted
 shard.  whisper (5 heads on 2 model ranks: the sequence-parallel
 attention; vocab 129: the undivided vocab's logits) and the vision model
@@ -36,6 +42,8 @@ import sys
 import pytest
 
 HERE = pathlib.Path(__file__).resolve().parent
+XLSTM = dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=0, vocab=128,
+             n_layers=2, slstm_every=2)
 ZAMBA2 = dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=128, vocab=128,
               n_layers=2, attn_every=2, ssm_state=16, ssm_head_dim=16,
               d_head=16)
@@ -43,8 +51,23 @@ VLM = dict(d_model=64, n_heads=4, n_kv_heads=1, d_ff=128, vocab=128,
            n_layers=4, cross_attn_every=2, n_ctx_tokens=8)
 CASES = {
     "xlstm": dict(arch="xlstm-1.3b", mesh=(1, 8), batch=2, seq=16,
-                  cfg=dict(d_model=64, n_heads=4, n_kv_heads=4, d_ff=0,
-                           vocab=128, n_layers=2, slstm_every=2)),
+                  cfg=XLSTM,
+                  # heads too few for the model axis run whole on every
+                  # model rank: the scores split over the value dims, at
+                  # 16 rows and past one mLSTM chunk (here, not in
+                  # xlstm-long's run: each run's 1,040 sLSTM steps of
+                  # collectives are what a case's time goes to)
+                  extras=dict(
+                      no_sp_xlstm=dict(arch="xlstm-1.3b", batch=2, seq=16,
+                                       cfg=XLSTM, env={"REPRO_NO_SP": "1"}),
+                      no_sp_xlstm_long=dict(arch="xlstm-1.3b", batch=2,
+                                            seq=1040, cfg=XLSTM,
+                                            env={"REPRO_NO_SP": "1"}))),
+    # more rows than one mLSTM chunk (1,024): the gates and the
+    # projections on the whole rows, the loop's output on each rank's
+    # share of the value dims
+    "xlstm-long": dict(arch="xlstm-1.3b", mesh=(1, 8), batch=2, seq=1040,
+                       cfg=XLSTM),
     "zamba2": dict(arch="zamba2-2.7b", mesh=(2, 2), batch=2, seq=16,
                    cfg=ZAMBA2,
                    # the shared block's residual rows over ``model``
@@ -99,6 +122,15 @@ EXTRAS = [(name, extra) for name, case in CASES.items()
 TOL = dict(forward=2e-6, decode_logits=2e-6, decode_cache=2e-6, grad=2e-6)
 
 
+#: the largest difference of the mLSTM block's update, relative to the
+#: plain update's largest value (`_sharded_blocks.mlstm_update`)
+UPDATE_TOL = 1e-5
+#: xlstm's runs whose mLSTM update is held: (case, extra or None)
+UPDATES = [(name, extra) for name, case in CASES.items()
+           if case["arch"] == "xlstm-1.3b"
+           for extra in (None, *case.get("extras", {}))]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Each case's ranks, started together (one case at a time, so that
@@ -114,7 +146,9 @@ def runs(tmp_path_factory):
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env) for r in range(math.prod(case["mesh"]))]
         try:
-            res = [p.communicate(timeout=300) for p in ps]
+            # (a 1,040-row xlstm run: ~40 s alone, ~150 s or more beside
+            # the test runner's other workers)
+            res = [p.communicate(timeout=600) for p in ps]
         finally:    # a rank that failed leaves the others waiting
             for p in ps:
                 if p.poll() is None:
@@ -144,9 +178,25 @@ def test_knob_blocks_equal_plain(runs, name, extra, phase):
     K/V projected on each rank's rows, `parallel.axes.gathered_out`) and
     arctic's shape under ``REPRO_NO_SP`` (heads whole on every model
     rank, every attention weight's shard moved to the model axis), each
-    in the vision model's run, and the vision model and zamba2 under
-    ``REPRO_SP_RESIDUAL`` in their own runs: on every rank the same
-    values as the plain model's within `TOL`."""
+    in the vision model's run, the vision model and zamba2 under
+    ``REPRO_SP_RESIDUAL`` in their own runs, and xlstm under
+    ``REPRO_NO_SP`` in its runs at 16 and 1,040 rows (the mLSTM on
+    blocks of the value dims, `models.xlstm._mlstm_by_value`): on every
+    rank the same values as the plain model's within `TOL`."""
     for r, got in enumerate(runs[name]):
         assert got[f"{extra}.{phase}"] <= TOL[phase], (name, extra, phase,
                                                        r, got)
+
+
+@pytest.mark.parametrize("name,extra", UPDATES)
+def test_mlstm_update_equals_plain(runs, name, extra):
+    """xlstm's first mLSTM block alone on a random residual, partitioned
+    (over one chunk, past it at 1,040 rows, and under ``REPRO_NO_SP`` on
+    blocks of the value dims) against plain: its update within
+    `UPDATE_TOL` of the plain update's largest value on every rank.  At
+    init the block moves the logits too little for `TOL` to see its
+    plan: a wrong rank's value share in the output projection changes
+    the update by 1.5x its size and the logits by 2.7e-7."""
+    key = "mlstm_update" if extra is None else f"{extra}.mlstm_update"
+    for r, got in enumerate(runs[name]):
+        assert got[key] <= UPDATE_TOL, (name, extra, r, got[key])
