@@ -286,7 +286,11 @@ Phases, each printing one JSON line:
    and backward, where the record counted it by its trip count
    (``loops``), so its peak holds the trip count's ``temp``, and its
    mLSTM runs the reference's plan past one query chunk, the gates and
-   the projections on the whole rows (``PARTITION_STEPS``), run with
+   the projections on the whole rows, and of zamba2-2.7b's ``pod``
+   ``train_4k`` cut to one shared-block application (6 of its 54
+   layers) under ``REPRO_SP_RESIDUAL``, the residual's rows split over
+   ``model`` through the Mamba2 blocks, the fold and the shared block
+   (``PARTITION_STEPS``), run with
    CUDA local shards over the fake group, whose collectives move no
    data (the values mean nothing): its FLOPs (counted below DTensor on
    the card), ``args`` and collectives equal the record's, the record's
@@ -571,7 +575,9 @@ NO_SP = (("REPRO_NO_SP", "1"),)
 #: unmerged mesh over torch's flattened sub-meshes), and xlstm-1.3b cut
 #: to one segment (7 mLSTM + 1 sLSTM layers), its sLSTM loop run over
 #: all its steps (the record's trip count against the card's peak), and
-#: so once more under ``REPRO_NO_SP``
+#: so once more under ``REPRO_NO_SP``, and zamba2-2.7b cut to one
+#: shared-block application (6 Mamba2 layers) under ``REPRO_SP_RESIDUAL``
+#: (the residual's rows split over ``model`` through the Mamba2 blocks)
 PARTITION_STEPS = (
     ("tinyllama-1.1b", "train_4k", "pod", None, None, ()),
     ("zamba2-2.7b", "train_4k", "pod", None, None, ()),
@@ -580,7 +586,8 @@ PARTITION_STEPS = (
     ("tinyllama-1.1b", "train_4k", "pod", None, None, SP_RESIDUAL),
     ("grok-1-314b", "train_4k", "multipod", 2, 8, ()),
     ("xlstm-1.3b", "train_4k", "pod", 8, None, ()),
-    ("xlstm-1.3b", "train_4k", "pod", 8, None, NO_SP))
+    ("xlstm-1.3b", "train_4k", "pod", 8, None, NO_SP),
+    ("zamba2-2.7b", "train_4k", "pod", 6, None, SP_RESIDUAL))
 #: per-device FLOPs of the reference's partitioned compile of each step
 #: of phase (b), keyed by (arch, shape, knobs), and the layers of a cut
 #: (the JAX package's ``build_cell`` compiled on 512 forced host devices
@@ -593,11 +600,13 @@ PARTITION_REF_FLOPS = {
     ("llama-3.2-vision-11b", "decode_32k", ()): 31_194_087_424,
     ("tinyllama-1.1b", "train_4k", SP_RESIDUAL): 46_209_553_137_664,
     ("xlstm-1.3b", "train_4k", (), 8): 19_070_594_318_336,
-    ("xlstm-1.3b", "train_4k", NO_SP, 8): 19_039_590_023_168}
+    ("xlstm-1.3b", "train_4k", NO_SP, 8): 19_039_590_023_168,
+    ("zamba2-2.7b", "train_4k", SP_RESIDUAL, 6): 12_879_717_728_256}
 #: the same compile with the port's two-operand factorisation of the SSD
 #: scan's einsums (``ssd="two_operand"``): the record's FLOPs equal it
 PARTITION_REF_FLOPS_TWO_OPERAND = {
-    ("zamba2-2.7b", "train_4k", ()): 128_791_036_821_504}
+    ("zamba2-2.7b", "train_4k", ()): 128_791_036_821_504,
+    ("zamba2-2.7b", "train_4k", SP_RESIDUAL, 6): 12_878_459_437_056}
 #: grok-1's multipod step: its peak within 5% of its record
 PARTITION_MULTIPOD_PEAK_RATIO = (0.95, 1.05)
 #: host processes that count phase (c)'s records (and (b)'s) while the

@@ -211,8 +211,8 @@ _COLLECTIVE_OPS = {
 
 #: collective bookkeeping that moves no bytes
 _WAIT = "_c10d_functional::wait_tensor"
-_NO_BYTES = (_WAIT,
-             "_c10d_functional::_wrap_tensor_autograd")
+_WRAP = "_c10d_functional::_wrap_tensor_autograd"
+_NO_BYTES = (_WAIT, _WRAP)
 
 
 def _local(t):
@@ -301,6 +301,8 @@ class _Loop:
         self.fwd, self.bwd = {}, {}
         self.kept = set()          # the later middle step's live storages
         self.graphed = False       # autograd recorded a step
+        self.done = False          # its last step has run
+        self.unwound = False       # a backward op of its steps has run
 
     @contextlib.contextmanager
     def step(self, t: int):
@@ -325,6 +327,8 @@ class _Loop:
         if end > first and torch.is_grad_enabled():
             self.graphed = True
             c._nodes.append((first, end, self, t))
+        if t == self.trip - 1:
+            self.done = True
 
 
 def _alike(loop: _Loop, probes: dict, phase: str) -> dict:
@@ -361,7 +365,9 @@ class StepCounter(TorchDispatchMode):
     DTensor issues, its output bytes per `COLLECTIVES` name
     (``coll_bytes``, ``coll_counts``; ``coll_log`` lists each as
     ``(name, dtype, bytes)``).  A collective op this counter does not
-    know raises.
+    know raises.  A collective's output lives as on the card: its wait
+    returns it, and the functional collectives' autograd wrapper holds
+    it while the wrapper lives (their meta kernels return new tensors).
 
     With ``trips=True`` it counts each `models.common.scan` loop by its
     trip count, as the reference's cost model counts a ``lax.scan``
@@ -373,7 +379,9 @@ class StepCounter(TorchDispatchMode):
     in for each step left out: its FLOPs, bytes and collectives (in the
     log where the left-out steps' would be) added once for each, the
     live bytes it leaves held as ``virtual`` bytes from its forward to
-    its backward (where autograd records the loop; else until the last
+    its backward (where autograd records the loop: but for a storage it
+    left alive that is freed after the loop and before its backward, an
+    output no step saves, whose copies go with it; else until the last
     of the storages it left alive is freed), its transient peak counted
     on top of each.  The steps
     at the ends run as themselves: step 0 (a zero state with no
@@ -395,6 +403,7 @@ class StepCounter(TorchDispatchMode):
         self.loops = {}
         self.virtual = 0           # the left-out steps' live bytes
         self._new = {}             # id(storage) -> nbytes, while alive
+        self._held = {}            # id(storage) -> the tensor it holds
         self._on_free = {}         # id(storage) -> callbacks (`_release`)
         self._probes = []          # open probes
         self._nodes = []           # (first, end, loop, step) by sequence nr
@@ -450,7 +459,9 @@ class StepCounter(TorchDispatchMode):
         self.coll_log[at:at] = f["coll_log"] * n
         self.peak = max(self.peak, top)
         self.virtual += n * d
-        if phase == "forward" and not loop.graphed:
+        if phase == "forward" and loop.graphed:
+            self._outlived(loop, n)
+        elif phase == "forward":
             self._release(loop.kept, n * d)
 
     def _release(self, keys: set, nbytes: int):
@@ -470,6 +481,26 @@ class StepCounter(TorchDispatchMode):
         for k in keys:
             self._on_free.setdefault(k, []).append(freed)
 
+    def _outlived(self, loop: _Loop, n: int):
+        """In a loop autograd records, each storage the later middle step
+        left alive that is freed after the loop and before its backward
+        (a step's output that no step saves, dropped once the stack has
+        read it) takes its ``n`` left-out steps' copies off the virtual
+        bytes: they die with it, as every step's does on the card, and
+        no backward step gives them back.  A storage freed inside the
+        loop (the carry, replaced by the next step) or in its backward is
+        a step's own, counted in its live change."""
+        for key in loop.kept:
+            nbytes = self._new.get(key)
+            if nbytes is None:
+                continue
+
+            def freed(_, nbytes=nbytes):
+                if loop.done and not loop.unwound:
+                    self.virtual -= n * nbytes
+
+            self._on_free.setdefault(key, []).append(freed)
+
     def _seen(self, node):
         """The backward op about to run belongs to ``node`` (None: not a
         backward op, or the count's end).  Each middle step of a loop,
@@ -486,6 +517,8 @@ class StepCounter(TorchDispatchMode):
                                     key=lambda e: e[0]) - 1
             if i >= 0 and nr < self._nodes[i][1]:
                 seg = self._nodes[i][2:]
+        if seg is not None:
+            seg[0].unwound = True
         if seg == self._seg:
             return
         if self._seg is not None and self._seg[1] in _MIDDLE:
@@ -568,6 +601,16 @@ class StepCounter(TorchDispatchMode):
             # a new tensor, and the collective's output would count as
             # freed at its wait
             return args[0]
+        if (self.local and func._schema.name == _WRAP
+                and type(out) is torch.Tensor):
+            # the card's wrapper holds its input (a collective's output);
+            # the meta kernel's is a new tensor, which would free the
+            # collective's output at once: the input lives while it does
+            key = id(out.untyped_storage())
+            self._held[key] = args[0]
+            weakref.finalize(out.untyped_storage(), self._held.pop, key,
+                             None)
+            return out
         count = flop_registry.get(func._overloadpacket)
         if count is not None:
             self.flops += count(*args, **kwargs, out_val=out)

@@ -466,6 +466,14 @@ def recompute(fn, params, *args, policy: str = "full"):
     return fn(*args)
 
 
+def recomputing() -> bool:
+    """Whether the running code is a block's recompute in the backward
+    pass (`recompute`: autograd runs the node that unpacks the block's
+    activations), where the reference's partitioner may plan an op
+    otherwise than in the forward."""
+    return torch._C._current_autograd_node() is not None
+
+
 def _loop_counter():
     """The innermost active dispatch mode that counts `scan` loops by
     their trip count (one with a ``loop`` method: the dry-run's

@@ -22,7 +22,9 @@ reference's partitioner runs it (`_mamba_fwd_sharded`,
 rank's columns (``state``), each rank taking the pieces of its output
 it reads (one all-to-all), the conv on the rank's channels, the scan on
 its heads (the reference's ``state`` pin), C.B^T on its share of the
-state dim.
+state dim.  Under ``REPRO_SP_RESIDUAL`` the residual's rows split over
+``model`` through the blocks (`_rows_plan`): the in-projection and the
+fold run on each rank's rows, C.B^T on each rank's chunks.
 """
 from __future__ import annotations
 
@@ -37,9 +39,10 @@ from repro_torch.models import common as cm
 from repro_torch.models import transformer as tt
 from repro_torch.models.common import ModelConfig
 from repro_torch.parallel.axes import (along, contract, einsum,
-                                       even_share, gather_fsdp, is_dtensor,
-                                       reduce_grad_partial, reduce_partial,
-                                       regather)
+                                       even_share, gather_fsdp, gather_share,
+                                       is_dtensor, reduce_grad_partial,
+                                       reduce_partial, regather,
+                                       rows_to_cols, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +116,77 @@ def _cb_by_rank(cfg: ModelConfig, mesh, bml, cml):
     cb = DTensor.from_local(cb, mesh, pl, run_check=False)
     return cb.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
         grad_placements=pl)
+
+
+def _cb_by_chunk(cfg: ModelConfig, mesh, bml, cml):
+    """The SSD scan's C.B^T per chunk, (B, nc, q, q), from B and C (local
+    tensors, whole on every ``model`` rank) where the residual's rows
+    split over ``model`` in whole chunks (`_rows_plan`), as the
+    reference's partitioner runs it there (`_ChunkCB`)."""
+    m = mesh.mesh_dim_names.index("model")
+    nm = mesh.size(m)
+    s = bml.shape[1]
+    q = min(cfg.ssm_chunk, s)
+    rows = even_share(s, nm, f"{cfg.name}: the rows")
+    if rows % q:
+        raise NotImplementedError(
+            f"{cfg.name}: {rows} rows a model rank are not whole chunks of "
+            f"{q}")
+    return _ChunkCB.apply(bml, cml, cfg, rows, q, mesh, cm.recomputing())
+
+
+class _ChunkCB(torch.autograd.Function):
+    """C.B^T on the residual's rows split over ``model``: in the forward
+    each model rank contracts the whole state dim over its own rows'
+    chunks and the chunks are all-gathered; in a block's recompute the
+    value is computed as without the rows' split, on the rank's share of
+    the state dim, the partial sums all-reduced (`_cb_by_rank`), the
+    reference's partitioner planning the recomputed product afresh (the
+    plans' FLOPs differ only where a rank holds one state dim: the
+    product on the shares is then an elementwise multiply, which neither
+    count counts as a product; elsewhere they differ in the collective
+    alone).  The backward (the forward's):the gradient's partial sums (each rank's
+    heads) all-reduced, then B's and C's on the rank's own rows' chunks
+    (zero on the other ranks' rows, whose gradients those ranks give)."""
+
+    @staticmethod
+    def forward(ctx, bml, cml, cfg, rows, q, mesh, recomputed):
+        m = mesh.mesh_dim_names.index("model")
+        r, nm = mesh.get_local_rank(m), mesh.size(m)
+        ctx.save_for_backward(bml, cml)
+        ctx.rows, ctx.q, ctx.r, ctx.group = rows, q, r, mesh.get_group(m)
+        if recomputed and bml.shape[-1] % nm == 0:
+            return _cb_by_rank(cfg, mesh, bml, cml)
+        b, _, n = bml.shape
+        lo = r * rows
+
+        def mine(tl):
+            return tl[:, lo:lo + rows].reshape(b, rows // q, q, n).float()
+
+        cb = torch.einsum("bkin,bkjn->bkij", mine(cml), mine(bml))
+        return gather_share(cb, 1, mesh, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        bml, cml = ctx.saved_tensors
+        b, s, n = bml.shape
+        q, rows = ctx.q, ctx.rows
+        lo, hi = ctx.r * rows, (ctx.r + 1) * rows
+        ops = torch.ops._c10d_functional
+        g = ops.wait_tensor(ops.all_reduce(g.contiguous(), "sum",
+                                           ctx.group.group_name))
+        gm = g[:, lo // q:hi // q]
+
+        def mine(tl):
+            return tl[:, lo:hi].reshape(b, rows // q, q, n).float()
+
+        grads = []
+        for eq, other in (("bkij,bkin->bkjn", cml), ("bkij,bkjn->bkin", bml)):
+            d = torch.zeros((b, s, n), dtype=bml.dtype, device=g.device)
+            d[:, lo:hi] = torch.einsum(eq, gm, mine(other)).reshape(
+                b, rows, n)
+            grads.append(d)
+        return grads[0], grads[1], None, None, None, None, None
 
 
 def _ssd_scan(cfg: ModelConfig, xh, dt, a, bmat, cmat, cb=None):
@@ -232,8 +306,38 @@ def _in_proj(cfg: ModelConfig, p, z):
     w = gather_fsdp(p["w_in"].to(cfg.dtype), ("fsdp", "state"))
     zx = einsum(eq, reduce_grad_partial(z), w, cm._plain_product)
     d_in, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    conv = d_in + 2 * n
     nm = zx.device_mesh.size(zx.device_mesh.mesh_dim_names.index("model"))
+    ranges, widths = _piece_ranges(cfg, nm)
+    zg, xbc, dtp = _pieces(zx, ranges, widths)
+    return (_share(zg, zx, d_in), _share(xbc, zx, d_in + 2 * n),
+            _share(dtp, zx, h))
+
+
+def _rows_plan(x) -> bool:
+    """Whether ``x`` is the residual's rows split over ``model`` (a 3-D
+    DTensor placed ``Shard(1)`` on a ``model`` dim of more than one
+    rank), as `forward` lays them under ``REPRO_SP_RESIDUAL``: the
+    reference's partitioner carries that knob's pin of the shared block's
+    output (`transformer.residual_spec`) back through the layer loop, so
+    that the in-projection, the C.B^T product of each chunk and the fold
+    run on each rank's rows (`_in_proj_rows`, `_cb_by_chunk`, `_fold`).
+    A decode step's 2-D rows, and rows laid otherwise, keep the plan
+    without the knob."""
+    if not is_dtensor(x) or x.ndim != 3:
+        return False
+    mesh = x.device_mesh
+    if "model" not in mesh.mesh_dim_names:
+        return False
+    m = cm._model_dim(mesh)
+    return mesh.size(m) > 1 and x.placements[m] == Shard(1)
+
+
+def _piece_ranges(cfg: ModelConfig, nm: int):
+    """The in-projection's columns rank ``r`` of ``nm`` model ranks reads:
+    its share of z, of the conv's input channels (x, B, C) and of dt,
+    and their widths."""
+    d_in, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv = d_in + 2 * n
     zs, cs, hs = (even_share(n_, nm, f"{cfg.name}: {what}") for n_, what in
                   ((d_in, "d_inner"), (conv, "conv channels"),
                    (h, "SSM heads")))
@@ -242,8 +346,26 @@ def _in_proj(cfg: ModelConfig, p, z):
         return [(r * zs, (r + 1) * zs), (d_in + r * cs, d_in + (r + 1) * cs),
                 (d_in + conv + r * hs, d_in + conv + (r + 1) * hs)]
 
-    zg, xbc, dtp = _pieces(zx, ranges, [zs, cs, hs])
-    return (_share(zg, zx, d_in), _share(xbc, zx, conv),
+    return ranges, [zs, cs, hs]
+
+
+def _in_proj_rows(cfg: ModelConfig, p, z):
+    """z @ w_in on each model rank's rows (`_rows_plan`), w_in gathered
+    whole, its output then moved to the pieces each rank reads (its share
+    of z, of the conv's input channels and of dt, every row) by one
+    all-to-all (`parallel.axes.rows_to_cols`).  Returns z, the conv input
+    and dt, each split over ``model`` on its last dim, as `_in_proj`."""
+    w = along(gather_fsdp(p["w_in"].to(cfg.dtype), ("fsdp", "state")),
+              "model", Replicate())
+    zx = einsum("bsd,de->bse", z, w, cm._plain_product)
+    mesh = zx.device_mesh
+    nm = mesh.size(cm._model_dim(mesh))
+    ranges, widths = _piece_ranges(cfg, nm)
+    got = rows_to_cols(zx.to_local(grad_placements=zx.placements), mesh,
+                       "model", ranges)
+    zg, xbc, dtp = torch.split(got, widths, dim=-1)
+    d_in, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return (_share(zg, zx, d_in), _share(xbc, zx, d_in + 2 * n),
             _share(dtp, zx, h))
 
 
@@ -266,11 +388,15 @@ def _mamba_fwd_sharded(cfg: ModelConfig, p, x):
     the causal conv on its channels; the SSD scan on its heads (the
     reference's ``state`` pin of ``xh``), B and C whole; the gated norm
     over the heads' split width (its sum of squares reduced); the
-    out-projection on its rows of w_out, its partial sums reduced."""
+    out-projection on its rows of w_out, its partial sums reduced.  Where
+    the residual's rows split over ``model`` (`_rows_plan`), the
+    in-projection runs on them (`_in_proj_rows`), C.B^T on each rank's
+    chunks (`_cb_by_chunk`) and the reduced output is sliced to them."""
     dt_ = cfg.dtype
     h, hp, k = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_kernel
+    rows = _rows_plan(x)
     z = cm.rmsnorm(x, p["norm"], cfg.norm_eps)
-    zg, xbc, dtp = _in_proj(cfg, p, z)
+    zg, xbc, dtp = (_in_proj_rows if rows else _in_proj)(cfg, p, z)
     xl = xbc.to_local(grad_placements=xbc.placements)
     s = xl.shape[1]
     pad = F.pad(xl, (0, 0, k - 1, 0))
@@ -288,8 +414,9 @@ def _mamba_fwd_sharded(cfg: ModelConfig, p, x):
     a = -cm.local_for(along(p["a_log"], "model", Shard(0)), xs).exp()
     b_ = xsl.shape[0]
     xh = xsl.reshape(b_, s, -1, hp)
-    y = _ssd_scan(cfg, xh, dtl, a, bml, cml,
-                  _cb_by_rank(cfg, xs.device_mesh, bml, cml))
+    cb = (_cb_by_chunk if rows else _cb_by_rank)(cfg, xs.device_mesh, bml,
+                                                  cml)
+    y = _ssd_scan(cfg, xh, dtl, a, bml, cml, cb)
     d_skip = cm.local_for(along(p["d_skip"], "model", Shard(0)), xs)
     y = y + d_skip[None, None, :, None] * xh.float()
     y = DTensor.from_local(y.reshape(b_, s, -1).to(dt_), xs.device_mesh,
@@ -297,8 +424,10 @@ def _mamba_fwd_sharded(cfg: ModelConfig, p, x):
                            stride=xs.stride())
     y = _rms_split(cfg, y * F.silu(zg), p["norm_y"])
     w_out = gather_fsdp(p["w_out"].to(dt_), ("state", "fsdp"))
-    return x + reduce_partial(einsum("bsf,fd->bsd", y, w_out,
-                                     cm._plain_product))
+    out = reduce_partial(einsum("bsf,fd->bsd", y, w_out, cm._plain_product))
+    if rows:
+        out = along(out, "model", Shard(1))      # the rank's rows
+    return x + out
 
 
 def mamba_fwd(cfg: ModelConfig, p, x):
@@ -429,12 +558,17 @@ def _fold(cfg: ModelConfig, p, x, x0):
     """concat(x, x0) @ w_cat.  On DTensors as the reference's partitioner
     runs it: on the pod its ZeRO-3 shard permuted to the ``model`` axis
     (`common.transposed_product`), elsewhere gathered and the product
-    whole."""
+    whole; on the residual's rows split over ``model`` (`_rows_plan`),
+    gathered whole and the product on each rank's rows."""
     xx = torch.cat([x, x0], dim=-1)
     w = p["w_cat"].to(cfg.dtype)
     if not is_dtensor(xx):
         return xx @ w
     eq = "bse,ed->bsd" if xx.ndim == 3 else "be,ed->bd"
+    if _rows_plan(xx):
+        # on each rank's rows, w_cat gathered whole
+        return einsum(eq, xx, gather_fsdp(w, ("fsdp", None)),
+                      cm._plain_product)
     y = cm.transposed_product(xx, w, eq)
     if y is not None:
         return y
@@ -449,6 +583,12 @@ def _shared_apply(cfg: ModelConfig, p, x, x0, positions):
 
 def forward(cfg: ModelConfig, params, tokens):
     x = cm.embed(cfg, params["embed"], tokens)
+    if (cfg.family == "hybrid" and tt.residual_spec()[1] == "seq"
+            and is_dtensor(x) and "model" in x.device_mesh.mesh_dim_names
+            and x.device_mesh.size(cm._model_dim(x.device_mesh)) > 1):
+        # REPRO_SP_RESIDUAL: the residual's rows split over ``model`` from
+        # the embedding on (`_rows_plan`)
+        x = shard(x, "batch", "seq", None)
     x0 = x
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     per = _period(cfg)

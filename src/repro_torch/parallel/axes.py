@@ -612,6 +612,54 @@ def regather_local(x, mesh, mesh_dim: str, ranges, dim: int = -1,
                            mesh.get_group(m), dim, owned)
 
 
+class _RowsToCols(torch.autograd.Function):
+    """The all-to-all of `rows_to_cols`: ``x`` (..., c) holds this rank's
+    block of its dim ``rows`` (split over a group of ``n`` ranks in equal
+    blocks) and every column; each rank sends every other rank its rows
+    of the columns that one needs (``ranges(q)``, as many a rank) and
+    receives every rank's rows of its own, in rank order.  The backward
+    sends each rank's rows' gradients back to it and puts them in their
+    columns (zero in the columns no rank reads)."""
+
+    @staticmethod
+    def forward(ctx, x, rows, rank, n, ranges, group):
+        cols = [i for q in range(n) for a, b in ranges(q)
+                for i in range(a, b)]
+        w = even_share(len(cols), n, "the columns the ranks need")
+        idx = torch.tensor(cols, dtype=torch.long, device=x.device)
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.c, ctx.group = rows, x.shape[-1], group
+        xt = x.index_select(-1, idx).unflatten(-1, (n, w)).movedim(-2, 0)
+        got = all_to_all(xt, None, None, group)   # (rank, ..., rows, ..., w)
+        return got.movedim(0, rows).flatten(rows, rows + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        n, rows = ctx.group.size(), ctx.rows
+        gt = g.unflatten(rows, (n, -1)).movedim(rows, 0)
+        back = all_to_all(gt, None, None, ctx.group)  # (rank, ..., w)
+        back = back.movedim(0, -2).flatten(-2, -1)
+        out = back.new_zeros((*back.shape[:-1], ctx.c)).index_add_(
+            -1, idx, back)
+        return out, None, None, None, None, None
+
+
+def rows_to_cols(x, mesh, mesh_dim: str, ranges, rows: int = 1):
+    """The local tensor ``x``, this rank's block of its dim ``rows`` (split
+    over the mesh dim ``mesh_dim`` in equal blocks) with every column of
+    its last dim, as every row of the columns this rank needs,
+    ``ranges(r)``: rank ``r``'s ``(start, stop)`` ranges of the last dim,
+    in the order wanted, as many columns a rank (`_RowsToCols`: one
+    all-to-all, each rank sent exactly its columns of the others' rows,
+    and the gradients back by one more).  A product on each rank's rows
+    whose output the next ops read on each rank's columns (zamba2's
+    in-projection under ``REPRO_SP_RESIDUAL``)."""
+    m = mesh.mesh_dim_names.index(mesh_dim)
+    return _RowsToCols.apply(x, rows, mesh.get_local_rank(m), mesh.size(m),
+                             ranges, mesh.get_group(m))
+
+
 class _GatherShare(torch.autograd.Function):
     """A local share all-gathered along ``dim`` over a mesh dim; in the
     backward each rank's gradient of the whole (a partial sum: every

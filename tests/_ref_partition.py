@@ -48,6 +48,17 @@ MESHES = {"pod": ((16, 16), ("data", "model")),
           "multipod": ((2, 16, 16), ("pod", "data", "model"))}
 
 
+def _auto_mesh(mesh_name: str):
+    """The mesh ``mesh_name`` (`MESHES`) with ``Auto`` axes over the first
+    of the forced host devices."""
+    shape, names = MESHES[mesh_name]
+    n = 1
+    for x in shape:
+        n *= x
+    return jax.make_mesh(shape, names, devices=jax.devices()[:n],
+                         axis_types=(AxisType.Auto,) * len(shape))
+
+
 _COLL = re.compile(r"=\s*(.*?)\s+(all-gather|all-reduce|reduce-scatter|"
                    r"all-to-all|collective-permute)(-start)?\(")
 
@@ -182,12 +193,7 @@ def split_relayout(mesh_name: str, rows: tuple, d_in: int, n: int, h: int,
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec
 
-    shape, names = MESHES[mesh_name]
-    m = 1
-    for x in shape:
-        m *= x
-    mesh = jax.make_mesh(shape, names, devices=jax.devices()[:m],
-                         axis_types=(AxisType.Auto,) * len(shape))
+    mesh = _auto_mesh(mesh_name)
     batch = ("pod", "data") if mesh_name == "multipod" else "data"
     lead = (batch,) + (None,) * (len(rows) - 1)
     sh = NamedSharding(mesh, PartitionSpec(*lead, "model"))
@@ -205,7 +211,12 @@ def split_relayout(mesh_name: str, rows: tuple, d_in: int, n: int, h: int,
 
     fn = (jax.grad(lambda a, cw: sum((p * p).sum() for p in pieces(a, cw)))
           if grad else pieces)
-    text = jax.jit(fn).lower(x, w).compile().as_text()
+    return _permute_sizes(jax.jit(fn).lower(x, w).compile().as_text())
+
+
+def _permute_sizes(text: str) -> tuple:
+    """The elements of each collective-permute of the compiled ``text``,
+    once for each of its runs."""
     out = []
     for kind, t, d, runs, _ in collective_arrays(text):
         if kind == "collective-permute":
@@ -216,8 +227,53 @@ def split_relayout(mesh_name: str, rows: tuple, d_in: int, n: int, h: int,
     return tuple(out)
 
 
+@functools.lru_cache(maxsize=None)
+def block_relayout(mesh_name: str, rows: tuple, cfg, grad: bool = False
+                   ) -> tuple:
+    """XLA's collective-permutes for one bare Mamba2 block of ``cfg`` (the
+    reference's own ``mamba_fwd`` under the cell's rules) on a residual
+    of ``rows + (d,)`` whose rows split over ``model`` (the layout
+    ``REPRO_SP_RESIDUAL`` carries into the block: the in-projection's
+    output cut into its pieces, the causal conv's halo across the split
+    rows), compiled on the mesh ``mesh_name``: the forward's permutes,
+    or with ``grad`` those of the gradient of the block under
+    ``jax.checkpoint`` (its recompute and backward), each as its
+    elements.  A block's re-layouts in isolation, as `split_relayout`'s
+    are without the knob."""
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+
+    from repro.models import mamba2
+    from repro.parallel.axes import resolve, spec_tree_to_shardings
+
+    mesh = _auto_mesh(mesh_name)
+    with sharding_rules(mesh, rules_for(mesh)):
+        p = jax.eval_shape(lambda: mamba2.init_mamba(
+            cfg, jax.random.PRNGKey(0), 0.02))
+        psh = spec_tree_to_shardings(mamba2.mamba_specs(cfg), p)
+        x = jax.ShapeDtypeStruct(rows + (cfg.d_model,), cfg.dtype)
+        xsh = NamedSharding(mesh, resolve(("batch", "seq", None), x.shape))
+
+        def block(p, x):
+            return mamba2.mamba_fwd(cfg, jax.tree_util.tree_map(
+                lambda a: a.astype(cfg.dtype) if a.ndim > 1 else a, p), x)
+
+        if grad:
+            ck = jax.checkpoint(block)
+            fn = jax.grad(lambda p, x: ck(p, x).astype(jnp.float32).sum(),
+                          argnums=(0, 1))
+            out = (psh, xsh)
+        else:
+            fn, out = block, xsh
+        with mesh:
+            return _permute_sizes(jax.jit(
+                fn, in_shardings=(psh, xsh), out_shardings=out).lower(
+                    p, x).compile().as_text())
+
+
 def relayouts(cell: dict) -> dict:
-    """`split_relayout` at a zamba2 cell's dims: its forward's and, for a
+    """`split_relayout` at a zamba2 cell's dims (under ``REPRO_SP_RESIDUAL``,
+    outside a decode step, `block_relayout`): its forward's and, for a
     train cell, its gradient's permutes; empty for other families."""
     if "shape" in cell:
         cfg, shape = get_config(cell["arch"]), SHAPES[cell["shape"]]
@@ -231,6 +287,10 @@ def relayouts(cell: dict) -> dict:
     if cfg.family != "hybrid":
         return {}
     rows = (b // accum,) if kind == "decode" else (b // accum, t)
+    if kind != "decode" and (cell.get("env") or {}).get("REPRO_SP_RESIDUAL"):
+        return {("grad" if grad else "forward"): list(block_relayout(
+            cell["mesh"], rows, cfg, grad))
+            for grad in ((False, True) if kind == "train" else (False,))}
     dims = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads)
     return {("grad" if grad else "forward"): list(split_relayout(
         cell["mesh"], rows, *dims, grad))
@@ -260,12 +320,7 @@ def lower(cell: dict):
             return lower(dict(cell, ssd=None))
         finally:
             mamba2._ssd_scan = three
-    shape, names = MESHES[cell["mesh"]]
-    n = 1
-    for s in shape:
-        n *= s
-    mesh = jax.make_mesh(shape, names, devices=jax.devices()[:n],
-                         axis_types=(AxisType.Auto,) * len(shape))
+    mesh = _auto_mesh(cell["mesh"])
     if "shape" in cell:
         cfg, shape = get_config(cell["arch"]), SHAPES[cell["shape"]]
         if cell.get("layers"):

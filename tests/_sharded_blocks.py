@@ -21,12 +21,17 @@ generator, and a random cache's cross K/V.
 Phases: ``forward`` (the logits), ``decode`` (the logits and every cache
 leaf after two steps from a random cache) and ``grad`` (every parameter's
 gradient of a weighted sum of the logits; the difference relative to the
-largest gradient); for xlstm also ``mlstm_update`` (the first mLSTM
-block's update of a random residual, relative to the plain update's
-largest value).  A case's ``extras`` run other models on the same
-process group, each under the reference's A/B knobs it names.
+largest gradient); for xlstm and zamba2 also ``mlstm_update`` /
+``mamba_update`` (the first mLSTM or Mamba2 block's update of a random
+residual, relative to the plain update's largest value) and
+``mlstm_grad`` / ``mamba_grad`` (that block's gradients of a random
+weighting of its update, each relative to the plain gradient's largest
+value).  A case's
+``extras`` run other models on the same process group, each under the
+reference's A/B knobs it names.
 """
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -41,6 +46,8 @@ from torch.distributed.tensor.experimental import implicit_replication
 from repro_torch.configs.registry import get_smoke
 from repro_torch.launch.dryrun import knobs_set
 from repro_torch.launch.mesh import Mesh, rules_for
+from repro_torch.models import mamba2, xlstm
+from repro_torch.models import transformer as tt
 from repro_torch.models.registry import get_model
 from repro_torch.parallel.axes import (is_spec_leaf, placements, resolve,
                                        sharding_rules)
@@ -89,21 +96,57 @@ def run(case, rank, store_dir):
     return out
 
 
-def mlstm_update(cfg, params, dp, dm, gen, rows, mesh, rules):
-    """The first mLSTM block's update of a random residual (its output
-    less its input), partitioned against plain, relative to the plain
-    update's largest value: at init the block moves the logits too
-    little for the forward's absolute difference to show its plan."""
-    from repro_torch.models import transformer as tt
-    from repro_torch.models import xlstm
-    x = torch.randn((*rows, cfg.d_model), generator=gen)
+def block_update(fwd, stack, params, dp, dm, gen, rows, mesh, rules):
+    """The first block of the stacked leaves ``stack`` (``fwd(layer, x)``:
+    an mLSTM or a Mamba2 block), its update of a random residual (its
+    output less its input), partitioned against plain, relative to the
+    plain update's largest value: at init a block moves the logits too
+    little for the forward's absolute difference to show its plan.  The
+    residual is laid out as the model lays it out (`transformer.
+    residual_spec`: its rows split over ``model`` under
+    ``REPRO_SP_RESIDUAL``)."""
+    d = params[stack]["norm"].shape[-1]
+    x = torch.randn((*rows, d), generator=gen)
     with torch.no_grad():
-        want = xlstm.mlstm_fwd(cfg, tt._layer(params["mlstm"], 0), x) - x
+        want = fwd(tt._layer(params[stack], 0), x) - x
     with sharding_rules(mesh, rules), implicit_replication(), \
             torch.no_grad():
-        dx = spread(("batch", None, None), x, dm)
-        got = xlstm.mlstm_fwd(cfg, tt._layer(dp["mlstm"], 0), dx) - dx
+        dx = spread(tt.residual_spec(), x, dm)
+        got = fwd(tt._layer(dp[stack], 0), dx) - dx
     return err(got, want) / float(want.abs().max())
+
+
+def block_grad(fwd, stack, params, specs, dm, gen, rows, mesh, rules):
+    """The first block of ``stack`` (as `block_update`): the gradients of
+    a random weighting of its update on a random residual, of each of
+    its weights and of the residual, partitioned against plain, each
+    relative to the plain gradient's largest value; the largest of
+    these.  The block's backward plan (its collectives' gradients, each
+    rank's rows' and columns' shares) moves the whole model's gradients
+    at init too little for the ``grad`` phase to see it."""
+    d = params[stack]["norm"].shape[-1]
+    x = torch.randn((*rows, d), generator=gen)
+    wts = torch.randn((*rows, d), generator=gen)
+
+    def grads(stacked, x_, w_):
+        flat = [x_.requires_grad_(True), *leaves(stacked)]
+        for t in flat[1:]:
+            t.requires_grad_(True)
+        ((fwd(tt._layer(stacked, 0), x_) - x_) * w_).sum().backward()
+        return [flat[0].grad] + [t.grad[0] for t in flat[1:]]
+
+    want = grads(map_tree(torch.clone, params[stack]), x.clone(), wts)
+    with sharding_rules(mesh, rules), implicit_replication():
+        spec = tt.residual_spec()
+        got = grads(spread(specs[stack], params[stack], dm),
+                    spread(spec, x, dm), spread(spec, wts, dm))
+    return max(err(g, w) / float(w.abs().max()) for g, w in zip(got, want))
+
+
+#: the families whose first block's update is held alone: (stacked leaves,
+#: block forward)
+UPDATES = {"xlstm-1.3b": ("mlstm", xlstm.mlstm_fwd),
+           "zamba2-2.7b": ("mamba", mamba2.mamba_fwd)}
 
 
 def phases(case, mesh, dm):
@@ -141,9 +184,14 @@ def phases(case, mesh, dm):
         dp = spread(api.param_specs(), params, dm)
         got = api.forward(dp, batch(tokens, spread_))
     out["forward"] = err(got, want)
-    if case["arch"] == "xlstm-1.3b":
-        out["mlstm_update"] = mlstm_update(cfg, params, dp, dm, gen,
-                                           (b, s), mesh, rules)
+    if case["arch"] in UPDATES:
+        stack, fwd = UPDATES[case["arch"]]
+        out[f"{stack}_update"] = block_update(
+            functools.partial(fwd, cfg), stack, params, dp, dm, gen, (b, s),
+            mesh, rules)
+        out[f"{stack}_grad"] = block_grad(
+            functools.partial(fwd, cfg), stack, params, api.param_specs(),
+            dm, torch.Generator().manual_seed(2), (b, s), mesh, rules)
 
     # decode: two steps from a random cache (positive where a leaf must
     # be: the mLSTM's normaliser state is read through an abs; the

@@ -32,6 +32,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro.configs import registry as ref_cfgs
 from repro.models import mamba2 as ref_mamba2
@@ -44,6 +45,7 @@ from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import (device_mesh, make_production_mesh,
                                      rules_for)
+from repro_torch.models import common as cm
 from repro_torch.models import moe
 from repro_torch.models.registry import get_model
 from repro_torch.parallel.axes import gather_share, sharding_rules
@@ -259,6 +261,73 @@ def test_collective_output_counts_until_freed():
                                             "prefill"), local=True)
     assert got["collectives"]["counts"]["all-gather"] == 1
     assert (got["temp"], got["output"]) == (2 * 2 * 128 * 4, 2 * 128 * 4)
+
+
+def test_redistributed_weight_counts_while_the_product_saves_it():
+    """A weight gathered by DTensor's redistribute and saved by a product
+    for its backward counts in the peak until the product's graph frees
+    it, as on the card, where the functional collectives' wrapper holds
+    the gathered tensor (its meta kernel returns a new one, and the
+    gather's output counted as freed at once): a (16, 64) bf16 ZeRO-3
+    shard gathered over the pod's 16 data ranks to (256, 64), 32,768 B,
+    alive beside the product's saved (4, 256) input and its (4, 64)
+    output when 4,000 B more are made."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.axes import P, einsum, gather_fsdp, placements
+
+    m = make_production_mesh()
+    with device_mesh(m, "cuda", rules_for(m)) as dm, \
+            sharding_rules(m, rules_for(m)):
+        def dist(shape):
+            return DTensor.from_local(
+                torch.zeros(shape, device="meta", requires_grad=True), dm,
+                placements(P("data"), dm), run_check=False)
+
+        w, x = dist((16, 64)), dist((4, 256))
+        with implicit_replication(), \
+                dryrun.StepCounter(local=True) as counter:
+            wg = gather_fsdp(w.to(torch.bfloat16), ("fsdp", None))
+            y = einsum("bd,de->be", x.to(torch.bfloat16), wg)
+            del wg
+            after = torch.zeros(1000, device="meta")
+    assert counter.coll_counts["all-gather"] == 1
+    assert counter.peak == 256 * 64 * 2 + 4 * 256 * 2 + 4 * 64 * 2 + 4000
+    del y, after
+
+
+def test_unsaved_step_outputs_count_until_their_stack_frees_them():
+    """A trip-counted loop autograd records, whose steps' outputs no
+    step saves (the sLSTM's share of h past one mLSTM chunk): the
+    left-out steps' outputs are freed with the stack that reads them,
+    before the backward, as every step's output is on the card, so a
+    peak after the loop does not hold them.  (4, 8) fp32 outputs of 12
+    steps, 7 left out; the trip count's live bytes after the stack, its
+    peak and its live bytes at the end equal op by op's (the count kept
+    the 7 outputs, 896 B, to its end)."""
+    def count(trips):
+        gen = torch.Generator().manual_seed(0)
+        w = torch.randn(8, 8, generator=gen, requires_grad=True)
+        xs = torch.randn(12, 4, 8, generator=gen, requires_grad=True)
+
+        def body(h, x):
+            h = torch.tanh(x + h @ w)   # the carry: the next step saves it
+            return h, h * 2             # the output: no step saves it
+
+        with dryrun.StepCounter(trips=trips) as counter:
+            _, ys = cm.scan("toy", body, torch.zeros(4, 8), xs)
+            y = torch.stack(ys)
+            del ys
+            stacked = counter.live + counter.virtual
+            after = torch.ones(256, 1024)       # the peak, after the loop
+            (y.sum() + after.sum()).backward()
+        return counter, stacked
+
+    (got, got_stacked), (want, want_stacked) = count(True), count(False)
+    assert got.loops["toy"]["run_steps"] == [0, 1, 2, 3, 11]
+    assert (got.peak, got_stacked, got.live + got.virtual, got.flops) == \
+        (want.peak, want_stacked, want.live, want.flops)
+    assert got.peak > want_stacked + 256 * 1024 * 4
 
 
 def test_record_refuses_a_count_of_another_cell():

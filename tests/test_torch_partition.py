@@ -57,9 +57,11 @@ subprocess, around the port's count): ``REPRO_NO_SP`` on the 8-heads
 train cell at one row a rank, on arctic's shape at 128 rows (its base
 compiled by the reference only, `KNOB_BASES`), on whisper's train
 cell and on xlstm's prefill and train cells at 128 and 2,048 rows;
-``REPRO_SP_RESIDUAL`` on the dense train and prefill cells and the
-arctic-style MoE train cell on the pod and the dense train cell on the
-multipod; ``REPRO_REMAT_POLICY=dots`` on the dense and MoE train cells on
+``REPRO_SP_RESIDUAL`` on the dense train and prefill cells, the
+arctic-style MoE train cell and zamba2's train and prefill cells on the
+pod and the dense train cell on the multipod (and zamba2-2.7b's
+train_4k at full width cut to one shared-block application, 6 layers);
+``REPRO_REMAT_POLICY=dots`` on the dense and MoE train cells on
 the pod and the dense train cell on the multipod.  Each reference
 record differs from its base's (the knob took effect).  Per cell:
 
@@ -258,7 +260,8 @@ KNOB_CELLS = {
                          "xlstm-train-pod", "xlstm-prefill-pod-s2048",
                          "xlstm-train-pod-s2048")),
         (SP_RESIDUAL, "spres", ("train-pod", "prefill-pod", "moe-ep-pod",
-                                "train-multipod")),
+                                "train-multipod", "zamba2-train-pod",
+                                "zamba2-prefill-pod")),
         (DOTS, "dots", ("train-pod", "moe-ep-pod", "train-multipod")))
     for base in bases}
 CELLS.update({name: dict({**CELLS, **KNOB_BASES}[base], env=env)
@@ -287,17 +290,28 @@ FULL = {**{f"full-{s}": dict(arch="tinyllama-1.1b", shape=s, mesh="pod")
         # over the value dims, every row whole
         "full-xlstm-train_4k-8l-nosp": dict(arch="xlstm-1.3b",
                                             shape="train_4k", mesh="pod",
-                                            layers=8, env=NO_SP)}
+                                            layers=8, env=NO_SP),
+        # zamba2-2.7b at full width cut to one shared-block application (6
+        # Mamba2 layers) under REPRO_SP_RESIDUAL: the residual's rows split
+        # over ``model`` through the Mamba2 blocks and the fold
+        "full-zamba2-train_4k-6l-spres": dict(arch="zamba2-2.7b",
+                                              shape="train_4k", mesh="pod",
+                                              layers=6, env=SP_RESIDUAL)}
+#: the full cells' bases without the knob, compiled by the reference only
+FULL_BASES = {"full-zamba2-train_4k-6l": dict(arch="zamba2-2.7b",
+                                              shape="train_4k", mesh="pod",
+                                              layers=6)}
 #: the zamba2 train cells, compiled once more with the port's
 #: factorisation of the SSD scan's einsums (the FLOP gap's cause)
 SSD_TWO_OPERAND = {f"{n}+ssd2": dict(c, ssd="two_operand")
-                   for n, c in CELLS.items()
-                   if c["arch"] == "zamba2-2.7b" and c["kind"] == "train"}
+                   for n, c in {**CELLS, **FULL}.items()
+                   if c["arch"] == "zamba2-2.7b" and "train" in (
+                       c.get("kind"), c.get("shape", "").split("_")[0])}
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
 
 
 #: every cell the reference compiles, in its subprocess's order
-REF_CELLS = {**CELLS, **KNOB_BASES, **FULL, **SSD_TWO_OPERAND}
+REF_CELLS = {**CELLS, **KNOB_BASES, **FULL, **FULL_BASES, **SSD_TWO_OPERAND}
 
 
 @pytest.fixture(scope="module")
@@ -447,7 +461,14 @@ def test_full_tinyllama_flops_and_args_equal_reference(ref, name):
         assert rec["knobs"] == dict(dict.fromkeys(dryrun.KNOBS, ""),
                                     **c["env"])
     assert rec["partition"] == "dtensor"
-    assert rec["hlo_flops_dev"] == r["flops"] + r["fused_dot_flops"]
+    want = r["flops"] + r["fused_dot_flops"]
+    if f"{name}+ssd2" in ref:
+        # (zamba2's train step: the reference with the port's SSD
+        # factorisation, as `test_flops_and_args_equal_reference`)
+        two = ref[f"{name}+ssd2"]
+        assert abs(rec["hlo_flops_dev"] / want - 1) < 1e-3, name
+        want = two["flops"] + two["fused_dot_flops"]
+    assert rec["hlo_flops_dev"] == want
     assert rec["memory_analysis"]["args"] == r["args"]
     if name == "full-prefill_32k":
         assert 2 * rec["collectives"]["bytes_by_op"]["all-reduce"] == \
@@ -534,8 +555,8 @@ def _zamba2_terms(D, cfg, train, ref, port, relayout):
     the bare splits of the Mamba2 block at the cell's dims
     (``tests/_ref_partition.py``'s ``relayouts``)."""
     b, T, d, L, M, R = (D[k] for k in ("b", "T", "d", "L", "M", "R"))
-    n, hp, k = cfg["ssm_state"], cfg["ssm_head_dim"], 4
-    d_in = 2 * d
+    n, hp, k = cfg["ssm_state"], cfg["ssm_head_dim"], cfg["conv_kernel"]
+    d_in = cfg["ssm_expand"] * d
     h = d_in // hp
     conv = d_in + 2 * n
     cols = 2 * d_in + 2 * n + h
@@ -571,6 +592,124 @@ def _zamba2_terms(D, cfg, train, ref, port, relayout):
     # applications' first)
     ref["all-reduce"] += [d] * 2 * (L // cfg["attn_every"])
     port["all-reduce"] += [d] * 2
+
+
+def _zamba2_spres_terms(D, cfg, train, ref, port, relayout):
+    """zamba2's arrays under ``REPRO_SP_RESIDUAL`` outside a decode step
+    (see `reckoned`): the residual's rows split over ``model`` through the
+    Mamba2 blocks, the fold and the shared block.  Per microbatch (``a``
+    of them) but for the weights XLA gathers once a step outside its
+    microbatch loop; ``relayout``: XLA's permutes for one bare Mamba2
+    block on those rows (``tests/_ref_partition.py``'s
+    ``block_relayout``)."""
+    a, b, S, d, V, F, L, M, R = (D[k] for k in "abSdVFLMR")
+    H, hd = D["H"], D["hd"]
+    n, hp, k = cfg["ssm_state"], cfg["ssm_head_dim"], cfg["conv_kernel"]
+    d_in = cfg["ssm_expand"] * d
+    h, conv = d_in // hp, d_in + 2 * n
+    nc = S // min(cfg["ssm_chunk"], S)
+    Ls, rows = L // cfg["attn_every"], b * S // M
+    passes = 2 if train else 1          # the forward and the recompute
+    for phase in ("forward", "grad") if train else ("forward",):
+        ref["collective-permute"] += relayout[phase] * L * a
+    # the conv: XLA runs it on each rank's rows with every channel, its
+    # weight's k rows and its bias gathered whole, and moves its output
+    # to the channels' split; the SSD scan's decays and terms between the
+    # chunks' rows and the heads (dt, the cumulative decays, the states'
+    # decays, the chunks' carry, the off-chunk term) and gathers C's
+    # chunks; the port runs the conv on each rank's channels over every
+    # row, and the scan on its heads with B and C whole (one all-to-all)
+    ref["all-gather"] += ([conv] * (k + 1) + [b * S * n]) * L * a * passes
+    # (w_in gathered whole for the rows' product: XLA over ``model`` first,
+    # the port over the data axes first)
+    ref["all-gather"] += [d // R * (2 * d_in + 2 * n + h)] * L * a * passes
+    port["all-gather"] += [d * (2 * d_in + 2 * n + h) // M] * L * a * passes
+    ref["all-to-all"] += ([b * S * conv // M, b * S * d_in // M] +
+                          [b * S * h // M] * 4 + [b * nc * h // M]) * \
+        L * a * passes
+    port["all-to-all"] += [b * S * (d_in // M + 2 * n)] * L * a * passes
+    # the shared block (``Ls`` applications; not recomputed): XLA runs the
+    # query and key projections on each rank's rows, their weights
+    # gathered whole (over ``model``, then the data axes) once a step, and
+    # re-lays the rotation's halves, a head at a time; the port gathers
+    # the normed rows and runs every projection on its heads, the four
+    # weights' head shares gathered each microbatch
+    ref["all-gather"] += ([d * H * hd, d // R * H * hd] * 2 +
+                          [d * H * hd // M] * 2) * Ls
+    port["all-gather"] += [d * H * hd // M] * 4 * Ls * a
+    ref["all-to-all"] += [rows * hd // 2] * 4 * H * Ls * a
+    # the embedding: in a microbatch loop XLA looks the ids up in its share
+    # of the vocab (partial sums, reduced), where the port gathers the
+    # table and the rows
+    if a > 1:
+        ref["all-reduce"] += [b * S * d] * a
+        port["all-gather"] += [V * d // R, b * S * d] * a
+    # the weights XLA gathers once a step (w_cat, the FFN's, the head),
+    # the port each microbatch
+    port["all-gather"] += ([2 * d * d] + [d * F // M] * 3 * Ls +
+                           [d * V // M]) * (a - 1)
+    if not train:
+        return
+    # the backward: XLA regathers the conv's weight rows and C's chunks,
+    # the attention's four weights' head shares and its output
+    # projection's weight whole, the FFN's weights and the head (once a
+    # step), and moves the scores' rows, the output's and the softmax
+    # statistics' between the rows' split and the heads'
+    ref["all-gather"] += ([conv] * k + [b * S * n]) * L * a + \
+        ([d * H * hd // M] * 4 + [H * hd * d] + [d * F // M] * 3) * Ls + \
+        [d * V // M]
+    if S <= 1024:
+        # (rows within one attention chunk: the scores' rows, the
+        # output's and the softmax statistics' a head at a time, and the
+        # values' rows gathered)
+        ref["all-to-all"] += ([rows * S] * 2 + [rows * hd] * 2 +
+                              [rows] * 3) * H * Ls * a
+        ref["all-gather"] += [b * S * H * hd] * Ls * a
+    else:
+        # (past one chunk: the chunks' query rows and their gradients, and
+        # two of the statistics, all heads at once)
+        ref["all-to-all"] += ([rows * H * hd] * 3 + [rows * H] * 2) * Ls * a
+    # the Mamba2 blocks' backward: XLA moves the off-chunk term's gradient
+    # and two more of the scan's value-sized terms (``b*S*d_in/M``), the
+    # decays' and the chunks' carry's back between the chunks' rows and
+    # the heads; the port sends the in-projection's pieces' and the conv
+    # input's gradients back (`parallel.axes.rows_to_cols`, `regather`)
+    ref["all-to-all"] += ([b * S * d_in // M] * 3 + [b * S * h // M] * 4 +
+                          [b * nc * h // M]) * L * a
+    port["all-to-all"] += [b * S * (2 * d_in + 2 * n + h) // M,
+                           b * S * conv // M] * L * a
+    # the fold's weight gradient: XLA reduces its ZeRO-3 shard's rows over
+    # ``model`` at each application before the whole
+    ref["all-reduce"] += [2 * d // R * d] * Ls * a
+    # the recompute of C.B^T: XLA's three-operand compile gathers the
+    # chunks as its forward does, the two-operand one (whose FLOPs the
+    # port's equal) runs it on the state dim's shares (partial sums
+    # reduced); in the backward XLA reduces C's chunks' gradient (the
+    # heads' partial sums)
+    cq = b * S * min(cfg["ssm_chunk"], S)
+    ref["all-gather"] += [cq] * L * a
+    port["all-reduce"] += [cq] * L * a
+    ref["all-reduce"] += [b * S * n] * L * a
+    # the heads' three vectors (A's log, dt's bias, D): XLA gathers one
+    # whole in the forward and the recompute and reduces two gradients'
+    # shares (``h/M``) and whole, updates each stacked leaf on its
+    # heads' share and gathers it and its two moments; the port slices
+    # each to its heads (the gradients gathered back) and reduces them
+    # whole over the batch ranks
+    ref["all-gather"] += [h] * L * a * passes + [L * h] * 9
+    port["all-gather"] += [h] * 3 * L * a
+    ref["all-reduce"] += ([h // M] * 2 + [h] * 2) * L * a
+    port["all-reduce"] += [h] * 3 * L * a
+    # the weights' gradients: XLA reduces w_in's over each axis (the port
+    # over both at once), each layer's conv rows and bias and norm (and
+    # the shared block's and the final norms) over each axis, and
+    # norm_y's share, where the port reduces each stacked leaf once a
+    # microbatch
+    ref["all-reduce"] += ([d * (2 * d_in + 2 * n + h)] + [conv] * 2 * (k + 1)
+                          + [d] * 2 + [d_in // M]) * L * a + \
+        [d] * 2 * (2 * Ls + 1) * a
+    port["all-reduce"] += [L * d, L * k * conv // M, L * conv // M,
+                           L * d_in // M, d, d, d] * a
 
 
 def _xlstm_terms(D, cfg, kind, ref, port):
@@ -1264,8 +1403,12 @@ def reckoned(name, relayout=None):
       terms;
     * ``REPRO_SP_RESIDUAL`` (`_sp_residual_terms`): XLA carries the
       rows' split into the attention, the port gathers the normed rows
-      before it and before the FFN; ``REPRO_REMAT_POLICY=dots`` needs no
-      term (both save the projections' reduced outputs);
+      before it and before the FFN; for zamba2 (`_zamba2_spres_terms`)
+      into the Mamba2 blocks too, its conv and parts of its scan on the
+      rows where the port runs them on the channels and the heads, and
+      XLA's permutes of one bare block on the split rows
+      (``relayout``); ``REPRO_REMAT_POLICY=dots`` needs no term (both
+      save the projections' reduced outputs);
     * xlstm where the projections around the mLSTM's chunk loop run on
       the whole rows, past one chunk or under ``REPRO_NO_SP``
       (`_xlstm_whole_terms`, each array with its cause there): XLA's
@@ -1286,6 +1429,9 @@ def reckoned(name, relayout=None):
 
     ``relayout``: XLA's permutes for the bare Mamba2 block at the cell's
     dims (``tests/_ref_partition.py``'s ``relayouts``; zamba2 only).
+    Where the rows of a knob cell past one attention chunk and XLA's
+    three-operand recompute of C.B^T differ from the port's, the term
+    says so.
     """
     D = _dims(name)
     a, b, B, S, d, V, F = (D[k] for k in "abBSdVF")
@@ -1382,7 +1528,10 @@ def reckoned(name, relayout=None):
         port["all-gather"] += [b * G * E] * 2 * L + [d * E] * L + \
             [b * G * E * C] * L
         port["all-reduce"] += [b * G * d] * L
-    if c["arch"] == "zamba2-2.7b":
+    spres = c.get("env") == SP_RESIDUAL
+    if c["arch"] == "zamba2-2.7b" and spres and c["kind"] != "decode":
+        _zamba2_spres_terms(D, c["cfg"], train, ref, port, relayout)
+    elif c["arch"] == "zamba2-2.7b":
         _zamba2_terms(D, c["cfg"], train, ref, port, relayout)
     if c["arch"] == "xlstm-1.3b" and c["kind"] != "decode" and (
             S > 1024 or no_sp):
@@ -1564,6 +1713,26 @@ def test_knob_changes_the_reference_record(ref, name):
     r, b = ref[name], ref[base]
     assert (r["flops"] + r["fused_dot_flops"], ref_elements(r)) != \
         (b["flops"] + b["fused_dot_flops"], ref_elements(b)), name
+
+
+#: cells ``REPRO_SP_RESIDUAL`` leaves as they are: the reference's
+#: decode step never reads it (its shared block runs `decode_block`), and
+#: a pure Mamba2 model has no shared block whose output it pins
+KNOB_IDLE = {"zamba2-decode-pod": CELLS["zamba2-decode-pod"],
+             "mamba2-train-pod": dict(CELLS["zamba2-train-pod"], cfg=dict(
+                 CELLS["zamba2-train-pod"]["cfg"], family="ssm"))}
+
+
+@pytest.mark.parametrize("name", list(KNOB_IDLE))
+def test_sp_residual_leaves_the_record(name):
+    """The port's record of a cell the knob does not reach is its record
+    without the knob: the Mamba2 blocks and the fold take the rows' plan
+    only from rows laid split over ``model`` (`models.mamba2._rows_plan`),
+    which only zamba2's sequence forward lays."""
+    cell = KNOB_IDLE[name]
+    base, knob = port_count(cell), port_count(dict(cell, env=SP_RESIDUAL))
+    for key in ("flops", "args", "bytes", "temp", "coll_log"):
+        assert knob[key] == base[key], (name, key)
 
 
 def test_the_toy_product_counts_local_flops():

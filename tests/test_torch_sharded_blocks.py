@@ -22,10 +22,13 @@ past one mLSTM chunk (the gates and the projections on the whole rows,
 the loop's output on each rank's share of the value dims), and at both
 lengths under ``REPRO_NO_SP`` (the scores summed over the value dims'
 shares, each rank's block of one head); there its first mLSTM block's
-update is held alone too (`UPDATE_TOL`), since at init the block moves
-the logits too little for `TOL` to see its plan.  zamba2 runs on a 2 x 2
-mesh: data and model ranks both, and a square mesh for the permuted
-shard.  whisper (5 heads on 2 model ranks: the sequence-parallel
+update and its gradients are held alone too (`UPDATE_TOL`), since at
+init the block moves the logits too little for `TOL` to see its plan.
+zamba2 runs on a 2 x 2 mesh: data and model ranks both, and a square
+mesh for the permuted shard; once more under ``REPRO_SP_RESIDUAL`` (the
+residual's rows split over ``model`` through the Mamba2 blocks, C.B^T on
+each rank's chunks), its first Mamba2 block's update and gradients held
+alone too.  whisper (5 heads on 2 model ranks: the sequence-parallel
 attention; vocab 129: the undivided vocab's logits) and the vision model
 (4 query heads over 1 KV head: each rank's KV heads of the context) run
 on a 2 x 2 mesh too, whisper once more at 1,040 rows over 1,031 frames,
@@ -70,8 +73,8 @@ CASES = {
                        cfg=XLSTM),
     "zamba2": dict(arch="zamba2-2.7b", mesh=(2, 2), batch=2, seq=16,
                    cfg=ZAMBA2,
-                   # the shared block's residual rows over ``model``
-                   # (values only: the plan is not the reference's)
+                   # the residual's rows over ``model`` through the Mamba2
+                   # blocks, the fold and the shared block
                    extras=dict(sp_residual_zamba2=dict(
                        arch="zamba2-2.7b", batch=2, seq=16, cfg=ZAMBA2,
                        env={"REPRO_SP_RESIDUAL": "1"}))),
@@ -122,13 +125,25 @@ EXTRAS = [(name, extra) for name, case in CASES.items()
 TOL = dict(forward=2e-6, decode_logits=2e-6, decode_cache=2e-6, grad=2e-6)
 
 
-#: the largest difference of the mLSTM block's update, relative to the
-#: plain update's largest value (`_sharded_blocks.mlstm_update`)
+#: the largest difference of a block's update (the mLSTM's, the
+#: Mamba2's), relative to the plain update's largest value
+#: (`_sharded_blocks.block_update`), and of each of its gradients,
+#: relative to the plain gradient's largest value (`block_grad`)
 UPDATE_TOL = 1e-5
-#: xlstm's runs whose mLSTM update is held: (case, extra or None)
-UPDATES = [(name, extra) for name, case in CASES.items()
-           if case["arch"] == "xlstm-1.3b"
-           for extra in (None, *case.get("extras", {}))]
+
+
+def _updates(arch):
+    """The runs of ``arch``'s cases whose first block's update is held:
+    (case, extra or None)."""
+    return [(name, extra) for name, case in CASES.items()
+            if case["arch"] == arch
+            for extra in (None, *case.get("extras", {}))]
+
+
+#: xlstm's runs whose mLSTM update is held, and zamba2's whose Mamba2
+#: update is
+UPDATES = _updates("xlstm-1.3b")
+MAMBA_UPDATES = _updates("zamba2-2.7b")
 
 
 @pytest.fixture(scope="module")
@@ -197,6 +212,43 @@ def test_mlstm_update_equals_plain(runs, name, extra):
     init the block moves the logits too little for `TOL` to see its
     plan: a wrong rank's value share in the output projection changes
     the update by 1.5x its size and the logits by 2.7e-7."""
-    key = "mlstm_update" if extra is None else f"{extra}.mlstm_update"
+    _hold_update(runs, name, extra, "mlstm_update")
+
+
+@pytest.mark.parametrize("name,extra", MAMBA_UPDATES)
+def test_mamba_update_equals_plain(runs, name, extra):
+    """zamba2's first Mamba2 block alone on a random residual, partitioned
+    (its plan on the 2 x 2 mesh, and under ``REPRO_SP_RESIDUAL`` on the
+    residual's rows split over ``model``: the in-projection on each
+    rank's rows, C.B^T on each rank's chunks) against plain: its update
+    within `UPDATE_TOL` of the plain update's largest value on every
+    rank."""
+    _hold_update(runs, name, extra, "mamba_update")
+
+
+@pytest.mark.parametrize("name,extra", UPDATES)
+def test_mlstm_grad_equals_plain(runs, name, extra):
+    """xlstm's first mLSTM block's gradients (of each weight and of the
+    residual) of a random weighting of its update, partitioned against
+    plain, each within `UPDATE_TOL` of the plain gradient's largest value
+    on every rank: the block's backward plan alone."""
+    _hold_update(runs, name, extra, "mlstm_grad")
+
+
+@pytest.mark.parametrize("name,extra", MAMBA_UPDATES)
+def test_mamba_grad_equals_plain(runs, name, extra):
+    """zamba2's first Mamba2 block's gradients as the mLSTM's: under
+    ``REPRO_SP_RESIDUAL`` the backward of C.B^T on each rank's chunks
+    (its gradient's partial sums reduced, B's and C's on the rank's
+    rows) and of the in-projection's all-to-all (each rank's rows'
+    gradients sent back to their columns).  A mutant that skips that
+    reduction, or reads another rank's chunks of the gradient or of B,
+    or puts the all-to-all's gradients in other ranks' rows or other
+    columns, fails it (1.9e-4 to 1.9)."""
+    _hold_update(runs, name, extra, "mamba_grad")
+
+
+def _hold_update(runs, name, extra, what):
+    key = what if extra is None else f"{extra}.{what}"
     for r, got in enumerate(runs[name]):
         assert got[key] <= UPDATE_TOL, (name, extra, r, got[key])

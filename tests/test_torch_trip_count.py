@@ -14,7 +14,8 @@ host, and prefill on the host, each at two sequence lengths (a per-step
 term that grows with the sequence, as the backward's whole-input
 ``select_backward`` zeros do, is told from one that does not), and on
 xlstm-1.3b at full width cut to one segment (7 mLSTM + 1 sLSTM layers),
-a train step over 256 tokens on the pod.  A loop whose middle steps
+a train step over 256 tokens on the pod, and the toy's train step on
+the pod under ``REPRO_NO_SP`` (the sLSTM on the whole rows).  A loop whose middle steps
 differ, forward or backward, raises, naming the loop and the field.
 """
 import dataclasses
@@ -71,6 +72,17 @@ def test_two_segment_prefill_trip_count_equals_op_by_op(mesh, seq):
         TOY, n_layers=4))
     rec = _held(cfg, ShapeConfig("toy", "prefill", seq, 32), mesh, 1)
     assert rec["loops"]["slstm"]["calls"] == 2
+
+
+def test_whole_rows_trip_count_equals_op_by_op():
+    """The sLSTM's plan on the whole rows (past one mLSTM chunk, and so
+    under ``REPRO_NO_SP`` at any length), whose steps return the rank's
+    share of h, which no later step saves: the left-out steps' shares
+    die with the stack that reads them, so the trip count's peak equals
+    op by op's (a train step over 32 tokens on the pod)."""
+    cfg = dataclasses.replace(get_smoke("xlstm-1.3b"), **TOY)
+    with dryrun.knobs_set({"REPRO_NO_SP": "1"}):
+        _held(cfg, ShapeConfig("toy", "train", 32, 32), "pod", 1)
 
 
 def test_full_width_segment_trip_count_equals_op_by_op():
